@@ -1,0 +1,217 @@
+"""Hand-written Hopper kernels: lazy ``nvcc`` build, ``ctypes`` binding,
+launch wrappers and launch counts.
+
+Each ``*.cu`` file beside this module is compiled on first use into its own
+shared library with a plain C entry point (``nvcc -gencode
+arch=compute_90a,code=sm_90a -shared``), under ``build/koemorph_tpu_torch/``
+at the repository root, named by a hash of the source and flags so an
+edited source rebuilds. Nothing here runs ``nvcc`` or touches CUDA when it
+is imported. :func:`build` compiles several sources at once, one ``nvcc``
+process each, all started together.
+
+A wrapper launches on PyTorch's current stream, allocates its output with
+``torch.empty``, checks the launch's error code and raises on failure. It
+adds one to ``LAUNCHES[name]`` (and to ``SHAPE_LAUNCHES[(name, shape)]``)
+for every launch and nowhere else. The callers in :mod:`..f0` and
+:mod:`..egemaps` route CUDA tensors here and CPU tensors to the plain
+PyTorch form; there is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+__all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "build", "build_dir",
+           "reset_launch_counts", "cycle_dsum", "dk_roots"]
+
+_HERE = Path(__file__).resolve().parent
+
+#: kernel name -> (source file, extra nvcc flags)
+SOURCES: dict[str, tuple[str, tuple[str, ...]]] = {
+    # no FMA contraction: the cycle boundaries off + k*tau must round like
+    # the plain form's separate multiply and add
+    "cycle_dsum": ("cycle_dsum.cu", ("--fmad=false",)),
+    "dk_roots": ("dk_roots.cu", ()),
+}
+_COMMON_FLAGS = ("-O3", "-std=c++17", "-gencode",
+                 "arch=compute_90a,code=sm_90a", "-shared",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) per
+#: kernel built by this process
+BUILD_LOGS: dict[str, str] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def build_dir() -> Path:
+    return _HERE.parents[2] / "build" / "koemorph_tpu_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source with the CUDA toolkit's nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    src, flags = SOURCES[name]
+    h = hashlib.sha1((_HERE / src).read_bytes())
+    h.update(" ".join(_COMMON_FLAGS + flags).encode())
+    return build_dir() / f"{name}_{h.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named kernels (default: all) that are not built yet, one
+    ``nvcc`` process per source, all at once. Raises on any failure."""
+    names = list(SOURCES) if names is None else list(names)
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            continue
+        src, flags = SOURCES[name]
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_COMMON_FLAGS, *flags, "-o", str(tmp),
+               str(_HERE / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    errors = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: _lib_path(name) for name in names}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, f"km_{name}")
+            fn.restype = ctypes.c_int
+            if name == "cycle_dsum":
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+                    + [ctypes.c_void_p]
+            else:
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+                    + [ctypes.c_void_p]
+            _LIBS[name] = lib
+        return lib
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype,
+           device: torch.device) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{what}: need a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+
+
+def _launched(name: str, shape: tuple, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1
+    SHAPE_LAUNCHES[(name, shape)] += 1
+
+
+def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
+               off: torch.Tensor, *, n_cycles: int, half_lag: int
+               ) -> torch.Tensor:
+    """Kernel form of :func:`koemorph_tpu_torch.ops.f0.cycle_dsum_plain`:
+    (rows, n) frames -> (rows, n_cycles, 2*half_lag+1) float32."""
+    dev = frames.device
+    if dev.type != "cuda":
+        raise ValueError(f"cycle_dsum kernel needs CUDA tensors, got {dev}")
+    rows, n = frames.shape
+    n_lag = 2 * half_lag + 1
+    if not (n_lag <= n <= 12288) or n_cycles < 1:
+        raise ValueError(f"cycle_dsum: unsupported n={n}, "
+                         f"n_cycles={n_cycles}, half_lag={half_lag}")
+    _check(frames, "frames", torch.float32, dev)
+    _check(start, "start", torch.int32, dev)
+    _check(tau, "tau", torch.float32, dev)
+    _check(off, "off", torch.float32, dev)
+    fn = _lib("cycle_dsum").km_cycle_dsum
+    out = torch.empty((rows, n_cycles, n_lag), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(frames.data_ptr(), start.data_ptr(), tau.data_ptr(),
+                 off.data_ptr(), out.data_ptr(), rows, n, n_cycles,
+                 half_lag, stream)
+    _launched("cycle_dsum", (n_cycles, n_lag, n), err)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def dk_start_np(p: int) -> np.ndarray:
+    """Durand-Kerner start table, (p,) complex64: distinct non-symmetric
+    points on the 0.9 circle."""
+    k = np.arange(p)
+    return (0.9 * np.exp(2j * np.pi * (k + 0.35) / p)).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=16)
+def _dk_start_pairs(p: int, device: torch.device) -> torch.Tensor:
+    pairs = dk_start_np(p).view(np.float32).reshape(p, 2).copy()
+    return torch.from_numpy(pairs).to(device)
+
+
+def dk_roots(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
+    """Kernel form of :func:`koemorph_tpu_torch.ops.egemaps.poly_roots_plain`:
+    (..., p+1) coefficients -> (..., p) complex64 roots; p must be 10."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"dk_roots kernel needs CUDA tensors, got {dev}")
+    p = a.shape[-1] - 1
+    if p != 10:
+        raise ValueError(f"dk_roots kernel is compiled for p=10, got p={p}")
+    batch = a.shape[:-1]
+    flat = a.reshape(-1, p + 1)
+    _check(flat, "a", torch.float32, dev)
+    rows = flat.shape[0]
+    fn = _lib("dk_roots").km_dk_roots
+    z0 = _dk_start_pairs(p, dev)
+    out = torch.empty((rows, p, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(flat.data_ptr(), z0.data_ptr(), out.data_ptr(), rows, p,
+                 iters, stream)
+    _launched("dk_roots", (rows,), err)
+    return torch.view_as_complex(out).reshape(batch + (p,))

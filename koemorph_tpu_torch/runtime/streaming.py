@@ -1,0 +1,333 @@
+"""Real-time streaming inference: one frame per hop, state on the device.
+
+Each 33 ms frame (:func:`stream_frame`):
+
+1. shifts ``hop`` new samples into the audio ring (the emotion context),
+2. computes the ONE new mel row the hop makes available, a
+   (1, n_fft) x (n_fft, bins) product, and rolls it into the raw-dB ring,
+3. normalizes the window (``power_to_db ref=max``: subtract the window
+   max, so keeping raw dB rows makes the incremental update exact),
+4. every ``emotion_update_frames`` frames refreshes the eGeMAPS emotion
+   vector: LLD rows for the newest audio only, rolled into an LLD ring,
+   then functionals over the ring under three offset masks (264-D),
+5. runs the dual-stream attention decode and the learnable-alpha EMA.
+
+The refresh decision is a host-side branch on a host-side frame counter,
+so no frame reads anything back from the device to decide it.
+
+Mel row ``t`` is the STFT frame centered at ``t*hop`` from real samples
+only (no reflect padding), so the stream runs one frame behind the newest
+audio.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from koemorph_tpu_torch.device import DeviceLike, resolve_device
+from koemorph_tpu_torch.features.emotion import EmotionFrontendConfig
+from koemorph_tpu_torch.models.dual_stream_model import (
+    StreamingDualStreamModel, TemporalState, _ema_step)
+from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig, LldCarry,
+                                            compute_lld_block,
+                                            functionals_multi_offset,
+                                            init_lld_ring, roll_lld_ring,
+                                            silence_lld_carry)
+from koemorph_tpu_torch.ops.mel import mel_filterbank
+from koemorph_tpu_torch.ops.stft import dft_matrices
+from koemorph_tpu_torch.ops.window import hann_window
+
+__all__ = ["StreamingConfig", "StreamState", "StreamingInference",
+           "init_stream_state", "stream_frame", "model_for_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingConfig:
+    """Static streaming parameters (must match the trained model)."""
+
+    sample_rate: int = 16000
+    target_fps: int = 30
+    window_frames: int = 256          # mel context (8.53 s at 30 fps)
+    n_fft: int = 1024
+    n_mels: int = 80
+    f_min: float = 80.0
+    f_max: float = 8000.0
+    d_model: int = 256
+    num_heads: int = 8
+    num_blendshapes: int = 52
+    emotion_backend: str = "egemaps"
+    use_concatenation: bool = True
+    emotion_context_s: float = 20.0   # emotion audio ring length
+    emotion_update_frames: int = 9    # ~300 ms at 30 fps
+    # incremental eGeMAPS: an LLD ring on the device; each refresh computes
+    # only the LLD rows its interval made available
+    incremental_lld: bool = True
+    use_learnable_weights: bool = True
+    fusion_temperature: float = 1.0
+
+    def __post_init__(self):
+        if self.emotion_backend != "egemaps":
+            raise NotImplementedError(
+                f"emotion_backend {self.emotion_backend!r} is not ported; "
+                "only 'egemaps' is")
+        if not self.incremental_lld:
+            raise NotImplementedError(
+                "incremental_lld=False is not ported")
+
+    @property
+    def hop_length(self) -> int:
+        return int(self.sample_rate / self.target_fps)
+
+    @property
+    def emotion_config(self) -> EmotionFrontendConfig:
+        return EmotionFrontendConfig(
+            backend=self.emotion_backend,
+            use_concatenation=self.use_concatenation,
+            sample_rate=self.sample_rate)
+
+    @property
+    def emotion_margin_samples(self) -> int:
+        """Extra ring length for the shifted-window offsets."""
+        return int(max(self.emotion_config.window_offsets)
+                   * self.sample_rate)
+
+    @property
+    def emotion_ring_len(self) -> int:
+        n = int(self.emotion_context_s * self.sample_rate) \
+            + self.emotion_margin_samples
+        return ((n + self.hop_length - 1) // self.hop_length) \
+            * self.hop_length
+
+    @property
+    def emotion_raw_dim(self) -> int:
+        return self.emotion_config.feature_dim
+
+    @property
+    def egemaps_config(self) -> EgemapsConfig:
+        return EgemapsConfig(sample_rate=self.sample_rate)
+
+    @property
+    def lld_ring_rows(self) -> int:
+        """LLD rows covering the emotion audio ring (10 ms hop)."""
+        return self.emotion_ring_len // self.egemaps_config.hop_length
+
+    @property
+    def lld_block_rows(self) -> int:
+        """New LLD rows per refresh: the refresh interval in LLD hops."""
+        interval = self.emotion_update_frames * self.hop_length
+        return max(1, int(round(interval / self.egemaps_config.hop_length)))
+
+
+def model_for_config(cfg: StreamingConfig) -> StreamingDualStreamModel:
+    """An (uninitialized) model with the shapes ``cfg`` streams."""
+    return StreamingDualStreamModel(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        window_frames=cfg.window_frames, n_mels=cfg.n_mels,
+        num_blendshapes=cfg.num_blendshapes,
+        emotion_raw_dim=cfg.emotion_raw_dim,
+        use_learnable_weights=cfg.use_learnable_weights,
+        temperature=cfg.fusion_temperature)
+
+
+@dataclasses.dataclass
+class StreamState:
+    """All streaming state. ``frame_count`` lives on the host."""
+
+    audio_ring: torch.Tensor     # (ring_len,) newest sample last
+    mel_db: torch.Tensor         # (W+1, n_mels) raw dB rows, newest last
+    emotion_raw: torch.Tensor    # (D_raw,) cached raw emotion features
+    frame_count: int
+    temporal: TemporalState      # EMA carry (B=1)
+    lld_ring: dict               # {name: (rows, ...)} newest last
+    lld_carry: LldCarry
+
+
+def init_stream_state(cfg: StreamingConfig, device=None) -> StreamState:
+    return StreamState(
+        audio_ring=torch.zeros((cfg.emotion_ring_len,), device=device),
+        mel_db=torch.full((cfg.window_frames + 1, cfg.n_mels), -100.0,
+                          device=device),
+        emotion_raw=torch.zeros((cfg.emotion_raw_dim,), device=device),
+        frame_count=0,
+        temporal=TemporalState.create(1, cfg.num_blendshapes, device),
+        lld_ring=init_lld_ring(cfg.lld_ring_rows, device),
+        lld_carry=silence_lld_carry(cfg.egemaps_config, device))
+
+
+def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
+    """dB mel row of the newest computable centered frame: after exactly
+    ``hop`` samples per step its window ends ``(-(n_fft//2)) mod hop``
+    samples before the ring end."""
+    offset = (-(cfg.n_fft // 2)) % cfg.hop_length
+    end = ring.shape[0] - offset
+    frame = ring[end - cfg.n_fft: end] * hann_window(cfg.n_fft,
+                                                     device=ring.device)
+    cos_m, sin_m = dft_matrices(cfg.n_fft, ring.device)
+    re = frame @ cos_m
+    im = frame @ sin_m
+    fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, n_mels=cfg.n_mels,
+                        f_min=cfg.f_min, f_max=cfg.f_max, device=ring.device)
+    mel_power = (re * re + im * im) @ fb
+    return 10.0 * torch.log10(torch.clamp_min(mel_power, 1e-10))
+
+
+def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
+                cfg: StreamingConfig):
+    """Ring shift, one new mel row, per-window ref=max normalization."""
+    ring = torch.cat([state.audio_ring[cfg.hop_length:], hop_audio])
+    row = _new_mel_row(cfg, ring)
+    mel_db = torch.cat([state.mel_db[1:], row[None, :]], 0)
+    norm = (torch.clamp_min(mel_db - mel_db.max(), -80.0) + 80.0) / 80.0
+    mel = norm[None, : cfg.window_frames, :]          # (1, W, n_mels)
+    detail = norm[None, -3:, :]                       # (1, 3, n_mels)
+    return ring, mel_db, mel, detail
+
+
+@functools.lru_cache(maxsize=8)
+def _offset_masks(rows: int, cuts: tuple, device: torch.device
+                  ) -> torch.Tensor:
+    return (torch.arange(rows, device=device)[None, :]
+            < torch.tensor(cuts, device=device)[:, None])
+
+
+def _stream_refresh(state: StreamState, ring: torch.Tensor,
+                    cfg: StreamingConfig, do_refresh: bool):
+    """The eGeMAPS refresh on refresh frames; otherwise the cached vector.
+    Returns (emotion_raw, lld_ring, lld_carry)."""
+    if not do_refresh:
+        return state.emotion_raw, state.lld_ring, state.lld_carry
+    ecfg = cfg.egemaps_config
+    rows = cfg.lld_ring_rows
+    chunk_len = (cfg.lld_block_rows - 1) * ecfg.hop_length + 512
+    block, carry = compute_lld_block(ring[-chunk_len:], ecfg,
+                                     state.lld_carry)
+    lld_ring = roll_lld_ring(state.lld_ring, block)
+    fp = ecfg.hop_length / ecfg.sample_rate
+    offsets = (cfg.emotion_config.window_offsets
+               if cfg.use_concatenation else (0.0,))
+    cuts = tuple(rows - int(round(off / fp)) for off in offsets)
+    masks = _offset_masks(rows, cuts, ring.device)
+    return functionals_multi_offset(lld_ring, ecfg, masks), lld_ring, carry
+
+
+def _stream_post(model: StreamingDualStreamModel, mel: torch.Tensor,
+                 detail: torch.Tensor, emotion_raw: torch.Tensor,
+                 temporal: TemporalState):
+    """Emotion projection, dual-stream attention, EMA."""
+    out = model(mel, detail, emotion_raw[None, :])
+    smoothed, temporal = _ema_step(out, temporal, model.alpha())
+    return {"blendshapes": smoothed[0]}, temporal
+
+
+def stream_frame(model: StreamingDualStreamModel, state: StreamState,
+                 hop_audio: torch.Tensor, cfg: StreamingConfig,
+                 update_every: Optional[int] = None
+                 ) -> tuple[dict, StreamState]:
+    """One frame: ``({"blendshapes": (52,)}, new state)``.
+
+    ``update_every`` overrides the refresh cadence; ``0`` disables the
+    refresh. Each refresh rolls a block sized for
+    ``cfg.emotion_update_frames``, so any other cadence than 0, 1 or that
+    one would gap or overlap the LLD ring's timeline and is rejected.
+    """
+    if update_every is None:
+        update_every = cfg.emotion_update_frames
+    elif update_every not in (0, 1, cfg.emotion_update_frames):
+        raise ValueError(
+            f"update_every={update_every} would corrupt the incremental "
+            f"LLD ring timeline (block geometry is fixed by "
+            f"cfg.emotion_update_frames={cfg.emotion_update_frames}); "
+            "set the cadence in StreamingConfig instead")
+    do_refresh = (update_every > 0
+                  and state.frame_count % update_every == 0)
+    ring, mel_db, mel, detail = _stream_pre(state, hop_audio, cfg)
+    emotion_raw, lld_ring, lld_carry = _stream_refresh(state, ring, cfg,
+                                                       do_refresh)
+    result, temporal = _stream_post(model, mel, detail, emotion_raw,
+                                    state.temporal)
+    return result, StreamState(
+        audio_ring=ring, mel_db=mel_db, emotion_raw=emotion_raw,
+        frame_count=state.frame_count + 1, temporal=temporal,
+        lld_ring=lld_ring, lld_carry=lld_carry)
+
+
+class StreamingInference:
+    """Host-facing real-time engine: hop-sized re-chunking, the device
+    step, and frame-time accounting (avg/max frame time, realtime factor).
+
+    Runs on ``cuda`` unless ``device`` says otherwise; raises when CUDA is
+    asked for and absent.
+    """
+
+    def __init__(self, model: StreamingDualStreamModel,
+                 cfg: StreamingConfig = StreamingConfig(),
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.state = init_stream_state(cfg, self.device)
+        self._pending = np.zeros((0,), np.float32)
+        self.frame_times: deque[float] = deque(maxlen=300)
+        self.frames_emitted = 0
+
+    def reset(self) -> None:
+        self.state = init_stream_state(self.cfg, self.device)
+        self._pending = np.zeros((0,), np.float32)
+        self.frames_emitted = 0
+
+    @torch.inference_mode()
+    def step(self, hop_audio: np.ndarray) -> torch.Tensor:
+        """Advance one frame on ``hop`` samples; returns the (52,) device
+        tensor without waiting for it."""
+        chunk = torch.from_numpy(
+            np.ascontiguousarray(hop_audio, np.float32)).to(self.device)
+        out, self.state = stream_frame(self.model, self.state, chunk,
+                                       self.cfg)
+        return out["blendshapes"]
+
+    @torch.inference_mode()
+    def warmup(self) -> None:
+        """Run one refresh frame from a fresh state and discard it, so
+        kernel builds and first-call costs land before the real-time loop."""
+        state = init_stream_state(self.cfg, self.device)
+        chunk = torch.zeros((self.cfg.hop_length,), device=self.device)
+        out, _ = stream_frame(self.model, state, chunk, self.cfg)
+        out["blendshapes"].cpu()
+
+    def process_audio(self, samples: np.ndarray) -> list[np.ndarray]:
+        """Feed audio of any length; returns one (52,) frame per full hop
+        now available."""
+        hop = self.cfg.hop_length
+        buf = np.concatenate([self._pending,
+                              np.asarray(samples, np.float32).reshape(-1)])
+        frames: list[np.ndarray] = []
+        n_full = len(buf) // hop
+        for i in range(n_full):
+            t0 = time.perf_counter()
+            bs = self.step(buf[i * hop:(i + 1) * hop]).cpu().numpy()
+            self.frame_times.append(time.perf_counter() - t0)
+            self.frames_emitted += 1
+            frames.append(bs)
+        self._pending = buf[n_full * hop:]
+        return frames
+
+    def performance_stats(self) -> dict:
+        """avg/max frame time and realtime factor."""
+        if not self.frame_times:
+            return {"frames": 0}
+        times = np.asarray(self.frame_times)
+        budget = 1.0 / self.cfg.target_fps
+        return {
+            "frames": self.frames_emitted,
+            "avg_frame_time_ms": float(times.mean() * 1e3),
+            "max_frame_time_ms": float(times.max() * 1e3),
+            "rtf": float(times.mean() / budget),
+            "target_fps": self.cfg.target_fps,
+        }
