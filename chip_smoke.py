@@ -8,19 +8,29 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (no GPU is a failure);
 2. build: the CUDA kernels compiled from ``koemorph_tpu_torch/ops/cuda``;
 3. cycle_dsum: the kernel against its plain PyTorch form on the card, at
-   both shapes the streaming refresh uses and at 13,600 rows;
+   both shapes the streaming refresh uses (30 rows) and both shapes the
+   flagship decode uses (13,624 rows);
 4. dk_roots: the kernel against its plain form on LPC polynomials of
-   vowel-like frames, at 30 and 4,096 rows;
-5. stream: the flagship streaming model (d_model 256, 8 heads, 256-frame
+   vowel-like frames, at 30 and 13,624 rows;
+5. logmel: the fused STFT -> mel -> dB kernel against its plain form at
+   T = 1 (the stream), 1,040 (the decode's window-edge frames) and 4,104
+   (the decode's global STFT), on silent and on near-full-scale frames;
+6. stream: the flagship streaming model (d_model 256, 8 heads, 256-frame
    window, 80 mels, 264-D eGeMAPS, 20 s ring, refresh every 9 frames) over
    3.5 s of synthetic voiced audio through ``StreamingInference``, with the
    kernels' launch counts, then the same stream with the plain forms;
-6. times: per-frame device times (refresh and other frames), a profile of
-   the kernels one frame runs, and per-launch kernel times (back-to-back
-   launches timed with CUDA events, ``ms``, and the kernel's own device
-   duration from the profiler, ``device_ms``) beside the plain forms,
-   ``torch.linalg.eigvals`` and the bound the card's memory and fp32 rates
-   set.
+7. decode: ``BatchedSequentialDecoder`` at the flagship width over 8
+   utterances of 17.06 s (stride 4, reflect window edges), with launch
+   counts, then with the plain forms; ``decode_scheduled`` with strides
+   4 and 8; a 60 fps decode; ``exact_window_stft`` against the reflect
+   splice on 9 s;
+8. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
+9. times: per-frame stream times and profiles, the decode's time per call,
+   frames per second, profile and stage split, and per-launch kernel times
+   (back-to-back launches timed with CUDA events, ``ms``, and the kernels'
+   own device duration per call from the profiler, ``device_ms``) beside
+   the plain forms, a library call where one exists and the bound the
+   card's memory and fp32 rates set.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. The last lines are the kernels table, the
@@ -29,7 +39,9 @@ catches its own failure. The last lines are the kernels table, the
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -37,13 +49,19 @@ from pathlib import Path
 
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 K1_RTOL = K1_ATOL = 1e-5
 DK_MEDIAN_MAX, DK_MAX = 1e-5, 1e-3
+K3_RTOL, K3_ATOL = 1e-4, 1e-3          # dB; the JAX kernel test's bound
 STREAM_PLAIN_MAX = 1e-4
+DECODE_PLAIN_MAX = 1e-4
+EXACT_EDGE_MAX = 1e-3                  # docs/flagship_parity.json e2e gate
+SR, HOP = 16000, 533
+DECODE_B, DECODE_LEN, DECODE_STRIDE = 8, 512 * HOP, 4
 
 
 def emit(obj) -> None:
@@ -72,40 +90,68 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn):
-    """Run ``fn()`` under ``torch.profiler`` and return the device kernels
-    it ran as (name, microseconds) pairs (empty when the profiler sees no
-    device activity)."""
+def profiled(fn):
+    """Run ``fn()`` under ``torch.profiler`` (input shapes recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_kernels(fn, prof=None):
+    """The device kernels ``fn()`` ran as (name, microseconds) pairs, from
+    ``torch.profiler`` (empty when the profiler sees no device activity);
+    ``prof`` reuses a profile of ``fn`` already taken."""
+    prof = prof or profiled(fn)
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if str(e.device_type).endswith("CUDA")]
 
 
+def top_ops(prof, per: float, n: int = 8) -> dict:
+    """Device microseconds per call by the host operator (with its input
+    shapes) that launched each kernel, the ``n`` largest."""
+    acc: dict = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", []) or []:
+            shapes = [list(s) for s in (e.input_shapes or []) if s]
+            key = f"{e.name}{shapes}"[:90]
+            acc[key] = acc.get(key, 0.0) + k.duration / per
+    return dict(sorted(acc.items(), key=lambda kv: -kv[1])[:n])
+
+
 def kernel_device_ms(fn, pattern: str, iters: int = 50):
-    """Mean device duration (ms) of the kernels named like ``pattern`` over
-    ``iters`` calls of ``fn``, from the profiler; None if it saw none."""
+    """Device time (ms) per call of ``fn`` spent in the kernels named like
+    ``pattern``, over ``iters`` calls, from the profiler; None if it saw
+    none."""
     def run():
         for _ in range(iters):
             fn()
     times = [us for name, us in device_kernels(run) if pattern in name]
-    return float(np.mean(times)) / 1e3 if times else None
+    return float(np.sum(times)) / 1e3 / iters if times else None
 
 
-def voiced_audio(seconds: float, seed: int, sr: int = 16000):
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms, what binds it) at the card's peak rates."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def voiced_audio(seconds: float, seed: int, sr: int = SR):
     """Harmonic pulse train with formants: stretches at 85 Hz (below the
     512-sample frame's cycle-pair limit), 200 Hz, and a 120-250 Hz glide,
-    with short pauses and a little noise."""
+    with short pauses and a little noise; the 3.5 s pattern repeats,
+    shifted by 0.5 s per seed."""
     rng = np.random.default_rng(seed)
-    n = int(seconds * sr)
+    n = int(round(seconds * sr))
     t = np.arange(n) / sr
-    f0 = np.where(t < 1.0, 85.0, np.where(t < 2.0, 200.0,
-                                          120.0 + 130.0 * (t - 2.0) / 1.5))
+    tt = (t + 0.5 * (seed - 1)) % 3.5
+    f0 = np.where(tt < 1.0, 85.0, np.where(tt < 2.0, 200.0,
+                                           120.0 + 130.0 * (tt - 2.0) / 1.5))
     phase = np.cumsum(2 * np.pi * f0 / sr)
     x = np.zeros(n)
     for h in range(1, 60):
@@ -118,17 +164,40 @@ def voiced_audio(seconds: float, seed: int, sr: int = 16000):
     return (x + 0.003 * rng.standard_normal(n)).astype(np.float32)
 
 
-def main() -> int:
+@contextlib.contextmanager
+def plain_forms():
+    """Every kernel's caller switched to the kernel's plain PyTorch form."""
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+    saved = (f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel)
+    f0_ops.cycle_dsum = f0_ops.cycle_dsum_plain
+    eg.poly_roots = eg.poly_roots_plain
+    frontend.frames_to_logmel = frontend.frames_to_logmel_plain
+    try:
+        yield
+    finally:
+        f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
+
+
+def main() -> int:  # noqa: C901
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(ROOT))
+    from koemorph_tpu_torch.data.wav import write_wav
+    from koemorph_tpu_torch.models import dual_stream_model as dm
     from koemorph_tpu_torch.ops import cuda as ck
     from koemorph_tpu_torch.ops import egemaps as eg
     from koemorph_tpu_torch.ops import f0 as f0_ops
-    from koemorph_tpu_torch.ops.stft import autocorr_matmul
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.ops.mel import mel_filterbank
+    from koemorph_tpu_torch.ops.stft import autocorr_matmul, dft_matrices
+    from koemorph_tpu_torch.ops.window import frame_signal, hann_window
+    from koemorph_tpu_torch.parallel.batched_decode import (
+        BatchedSequentialDecoder)
     from koemorph_tpu_torch.runtime.engine import build_streaming_model
     from koemorph_tpu_torch.runtime.streaming import StreamingInference
 
@@ -158,6 +227,17 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, log in ck.BUILD_LOGS.items()}})
 
+    # the decode's audio, used by several phases
+    audio_b = np.stack([voiced_audio(DECODE_LEN / SR, seed=s)
+                        for s in range(1, DECODE_B + 1)])
+    check(audio_b.shape == (DECODE_B, DECODE_LEN), "decode audio shape")
+    audio_dev = torch.from_numpy(audio_b).to(dev)
+    span = DECODE_LEN // HOP - 256
+    n_out = span // DECODE_STRIDE + 1                           # 65
+    t_global = DECODE_B * (DECODE_LEN // HOP + 1)               # 4,104
+    t_edges = DECODE_B * n_out * 2                              # 1,040
+    lld_rows = DECODE_B * (1 + (DECODE_LEN - 512) // 160)       # 13,624
+
     # ---- 3. cycle_dsum: kernel vs plain ----
     rng = np.random.default_rng(0)
     tau_max = 291                      # ceil(16000 / 55)
@@ -179,7 +259,8 @@ def main() -> int:
 
     k1_shapes = {"K8/L17/n512": (30, 512, 8, 8),
                  "K5/L33/n1024": (30, 1024, 5, 16),
-                 "K8/L17/n512 x13600": (13600, 512, 8, 8)}
+                 f"K8/L17/n512 x{lld_rows}": (lld_rows, 512, 8, 8),
+                 f"K5/L33/n1024 x{lld_rows}": (lld_rows, 1024, 5, 16)}
     k1 = {}
     for label, (rows, n, K, H) in k1_shapes.items():
         args = k1_inputs(rows, n, H)
@@ -225,7 +306,7 @@ def main() -> int:
         return comp
 
     k2 = {}
-    for rows in (30, 4096):
+    for rows in (30, lld_rows):
         a = lpc_polys(rows)
         got = ck.dk_roots(a)
         want = eg.poly_roots_plain(a)
@@ -248,7 +329,47 @@ def main() -> int:
               "max_bound": DK_MAX, "ok": ok})
         check(ok, f"dk_roots kernel disagrees with plain at {rows} rows")
 
-    # ---- 5. the flagship stream through the user entry points ----
+    # ---- 5. logmel: kernel vs plain ----
+    # the frames the decode gives the kernel: its global STFT frames, and
+    # the mirrored edge frames of its windows (one per end at 30 fps)
+    global_frames = frame_signal(audio_dev, 1024, HOP).reshape(-1, 1024)
+    starts = np.arange(n_out) * DECODE_STRIDE * HOP
+    offs = torch.from_numpy(dm._edge_offsets_np(1024, HOP, 256 * HOP)).to(
+        dev)
+    edge_frames = audio_dev[:, torch.from_numpy(starts).to(dev)[:, None, None]
+                            + offs].reshape(-1, 1024)
+    loud = np.sign(np.sin(2 * np.pi * 440 * np.arange(1024) / SR)) * 0.999
+    k3_inputs = {
+        "T=1": audio_dev[0, 40000:41024][None].contiguous(),
+        f"T={edge_frames.shape[0]}": edge_frames.contiguous(),
+        f"T={global_frames.shape[0]}": global_frames.contiguous(),
+        "silence T=1": torch.zeros((1, 1024), device=dev),
+        "silence T=16": torch.zeros((16, 1024), device=dev),
+        "loud T=3": torch.from_numpy(np.tile(loud, (3, 1)).astype(
+            np.float32)).to(dev),
+        "loud T=40": torch.from_numpy(
+            np.tile(loud, (40, 1)).astype(np.float32)
+            * np.linspace(0.01, 1.0, 40, dtype=np.float32)[:, None]).to(dev),
+    }
+    check(global_frames.shape[0] == t_global
+          and edge_frames.shape[0] == t_edges, "decode's logmel shapes")
+    k3 = {}
+    for label, x in k3_inputs.items():
+        got = ck.logmel(x)
+        want = frontend.frames_to_logmel_plain(x)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool((err <= K3_ATOL + K3_RTOL * want.abs()).all())
+        if label.startswith("silence"):
+            ok = ok and bool((got == -100.0).all())
+        k3[label] = dict(x=x, max_abs_err=float(err.max()))
+        emit({"phase": "logmel", "shape": label, "T": x.shape[0],
+              "max_abs_err_db": float(err.max()),
+              "min_db": float(want.min()), "max_db": float(want.max()),
+              "rtol": K3_RTOL, "atol_db": K3_ATOL, "ok": ok})
+        check(ok, f"logmel kernel disagrees with plain at {label}")
+
+    # ---- 6. the flagship stream through the user entry points ----
     model, cfg = build_streaming_model(seed=0)
     engine = StreamingInference(model, cfg)
     audio = voiced_audio(3.5, seed=1)
@@ -257,39 +378,154 @@ def main() -> int:
     frames = engine.process_audio(audio)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
-    path_launches = dict(ck.SHAPE_LAUNCHES)
-    shape_launches = {f"{k[0]}{list(k[1])}": v
-                      for k, v in path_launches.items()}
+    stream_shapes = dict(ck.SHAPE_LAUNCHES)
     bs = np.stack(frames)
     n_frames = len(frames)
     n_refresh = -(-n_frames // cfg.emotion_update_frames)
     emit({"phase": "stream", "frames": n_frames, "refreshes": n_refresh,
           "shape": list(bs.shape), "finite": bool(np.isfinite(bs).all()),
           "min": float(bs.min()), "max": float(bs.max()),
-          "launches": launches, "launches_by_shape": shape_launches,
+          "launches": launches,
+          "launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                for k, v in stream_shapes.items()},
           "performance_stats": engine.performance_stats()})
     check(n_frames >= 90 and bs.shape[1:] == (52,), "stream shape")
     check(bool(np.isfinite(bs).all()), "stream has non-finite values")
     check(bs.min() >= 0.0 and bs.max() <= 1.0, "blendshapes outside [0, 1]")
     check(launches["cycle_dsum"] == 2 * n_refresh
-          and launches["dk_roots"] == n_refresh,
-          f"kernel launches {launches} for {n_refresh} refreshes")
+          and launches["dk_roots"] == n_refresh
+          and launches["logmel"] == n_frames,
+          f"kernel launches {launches} for {n_frames} frames and "
+          f"{n_refresh} refreshes")
 
     # the same stream with the plain forms on the card
-    saved = (f0_ops.cycle_dsum, eg.poly_roots)
-    f0_ops.cycle_dsum, eg.poly_roots = f0_ops.cycle_dsum_plain, \
-        eg.poly_roots_plain
-    try:
+    with plain_forms():
         engine.reset()
+        before = dict(ck.LAUNCHES)
         plain = np.stack(engine.process_audio(audio))
-    finally:
-        f0_ops.cycle_dsum, eg.poly_roots = saved
+        check(dict(ck.LAUNCHES) == before, "the plain stream launched a "
+              "kernel")
     d_plain = float(np.abs(plain - bs).max())
     emit({"phase": "stream_plain", "max_abs_diff_blendshapes": d_plain,
           "bound": STREAM_PLAIN_MAX})
     check(d_plain <= STREAM_PLAIN_MAX, "kernel stream != plain stream")
 
-    # ---- 6. times ----
+    # ---- 7. the flagship batched decode ----
+    def seq_model(seed=0, **kw):
+        m = dm.SequentialDualStreamModel(d_model=256, num_heads=8, **kw)
+        m.init_random(torch.Generator().manual_seed(seed))
+        return m
+
+    decoder = BatchedSequentialDecoder(seq_model(
+        mel_sequence_length=256, target_fps=30,
+        stride_frames=DECODE_STRIDE, window_edge="reflect"))
+    decoder(audio_dev)                              # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    out = decoder(audio_dev)
+    torch.cuda.synchronize()
+    dec_launches = dict(ck.LAUNCHES)
+    dec_shapes = dict(ck.SHAPE_LAUNCHES)
+    out_np = out.cpu().numpy()
+    emit({"phase": "decode", "card": card, "shape": list(out_np.shape),
+          "finite": bool(np.isfinite(out_np).all()),
+          "min": float(out_np.min()), "max": float(out_np.max()),
+          "launches": dec_launches,
+          "launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                for k, v in dec_shapes.items()}})
+    check(out_np.shape == (DECODE_B, n_out, 52), "decode shape")
+    check(bool(np.isfinite(out_np).all()), "decode has non-finite values")
+    check(out_np.min() >= 0.0 and out_np.max() <= 1.0,
+          "decode outside [0, 1]")
+    for key in (("logmel", (t_global,)), ("logmel", (t_edges,)),
+                ("cycle_dsum", (lld_rows, 8, 17, 512)),
+                ("cycle_dsum", (lld_rows, 5, 33, 1024)),
+                ("dk_roots", (lld_rows,))):
+        check(dec_shapes.get(key, 0) > 0, f"decode did not launch {key}")
+
+    with plain_forms(), torch.inference_mode():
+        before = dict(ck.LAUNCHES)
+        plain_out = decoder(audio_dev).cpu().numpy()
+        emo_plain = decoder.model.emotion_raw(audio_dev)
+        check(dict(ck.LAUNCHES) == before, "the plain decode launched a "
+              "kernel")
+    with torch.inference_mode():
+        emo = decoder.model.emotion_raw(audio_dev)
+    rel = ((emo - emo_plain).abs() / (emo_plain.abs() + 1e-4)).cpu().numpy()
+    worst = np.unravel_index(np.argmax(rel), rel.shape)
+    d_dec = float(np.abs(plain_out - out_np).max())
+    emit({"phase": "decode_plain", "max_abs_diff_blendshapes": d_dec,
+          "bound": DECODE_PLAIN_MAX,
+          "emotion_max_rel_diff": float(rel.max()),
+          "emotion_worst": {"utterance": int(worst[0]),
+                            "offset_window": int(worst[1] // 88),
+                            "functional": int(worst[1] % 88)}})
+    check(d_dec <= DECODE_PLAIN_MAX, "kernel decode != plain decode")
+
+    strides = [4, 8] * (DECODE_B // 2)
+    sched, mask = decoder.decode_scheduled(audio_dev, strides)
+    sched = sched.cpu().numpy()
+    d_sched = float(np.abs(sched[0::2] - out_np[0::2]).max())
+    emit({"phase": "decode_scheduled", "strides": strides,
+          "windows": mask.sum(1).tolist(), "shape": list(sched.shape),
+          "max_abs_diff_stride4_rows_vs_decode": d_sched})
+    check(mask.sum(1).tolist() == [n_out, span // 8 + 1] * (DECODE_B // 2),
+          "decode_scheduled mask")
+    check(sched.shape == (DECODE_B, n_out, 52)
+          and bool(np.isfinite(sched).all()), "decode_scheduled output")
+    check(d_sched <= 1e-5, "scheduled stride-4 rows != the decode's")
+
+    dec60 = BatchedSequentialDecoder(seq_model(
+        mel_sequence_length=512, target_fps=60, stride_frames=4))
+    ck.reset_launch_counts()
+    out60 = dec60(audio_dev[:1]).cpu().numpy()
+    n60 = (DECODE_LEN // 266 - 512) // 4 + 1
+    emit({"phase": "decode_60fps", "shape": list(out60.shape),
+          "finite": bool(np.isfinite(out60).all()),
+          "launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                for k, v in ck.SHAPE_LAUNCHES.items()}})
+    check(out60.shape == (1, n60, 52) and bool(np.isfinite(out60).all())
+          and out60.min() >= 0.0 and out60.max() <= 1.0, "60 fps decode")
+    check(ck.SHAPE_LAUNCHES.get(("logmel", (n60 * 2 * 2,)), 0) == 1,
+          "60 fps decode: two edge frames per window end")
+
+    reflect_model = seq_model(mel_sequence_length=256, target_fps=30)
+    exact_model = seq_model(mel_sequence_length=256, target_fps=30,
+                            exact_window_stft=True)
+    exact_model.load_state_dict(reflect_model.state_dict())
+    a9 = torch.from_numpy(voiced_audio(9.0, seed=9)[None]).to(dev)
+    r9 = BatchedSequentialDecoder(reflect_model)(a9).cpu().numpy()
+    e9 = BatchedSequentialDecoder(exact_model)(a9).cpu().numpy()
+    d_exact = float(np.abs(r9 - e9).max())
+    emit({"phase": "decode_exact", "shape": list(r9.shape),
+          "max_abs_diff_exact_vs_reflect": d_exact,
+          "bound": EXACT_EDGE_MAX})
+    check(r9.shape == e9.shape == (1, 15, 52), "exact decode shape")
+    check(d_exact <= EXACT_EDGE_MAX, "exact_window_stft != reflect splice")
+
+    # ---- 8. the offline CLI ----
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    wav, jsonl = work / "speech.wav", work / "frames.jsonl"
+    write_wav(wav, voiced_audio(10.0, seed=10), SR)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.infer", "--input",
+         str(wav), "--output", str(jsonl)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"infer CLI failed:\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    n_cli = (160000 // HOP - 256) + 1
+    stamps_ok = all(r["timestamp"] == round((255 + i) / 30, 6)
+                    for i, r in enumerate(rows))
+    emit({"phase": "infer_cli", "rows": len(rows), "expected": n_cli,
+          "timestamps_ok": stamps_ok, "seconds": round(cli_s, 2),
+          "log": [ln for ln in proc.stderr.splitlines() if "RTF" in ln]})
+    check(len(rows) == n_cli and stamps_ok, "infer CLI output")
+
+    # ---- 9. times ----
     hop = cfg.hop_length
     engine.reset()
     evs = []
@@ -298,9 +534,9 @@ def main() -> int:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = engine.step(audio[i * hop:(i + 1) * hop])
+            step_out = engine.step(audio[i * hop:(i + 1) * hop])
             e1.record()
-            out.cpu()
+            step_out.cpu()
             evs.append((e0, e1))
     torch.cuda.synchronize()
     ft = np.asarray([a.elapsed_time(b) for a, b in evs])
@@ -313,6 +549,12 @@ def main() -> int:
     emit({"phase": "frame_times", "card": card, "refresh": q(ft[is_ref]),
           "other": q(ft[~is_ref])})
 
+    def profile_summary(ks, per, top_n=8):
+        top = {}
+        for kname, us in ks:
+            top[kname[:60]] = top.get(kname[:60], 0.0) + us / per
+        return dict(sorted(top.items(), key=lambda kv: -kv[1])[:top_n])
+
     # where a frame's time goes: device kernels per frame, their summed
     # device time, and the host wall time of the same frames
     engine.reset()
@@ -322,28 +564,89 @@ def main() -> int:
                 for i in idx:
                     engine.step(audio[i * hop:(i + 1) * hop]).cpu()
         t0 = time.perf_counter()
-        ks = device_kernels(frames_run)
+        prof = profiled(frames_run)
         wall_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
-        busy_ms = sum(us for _, us in ks) / 1e3 / len(idx)
-        top = {}
-        for kname, us in ks:
-            top[kname[:60]] = top.get(kname[:60], 0.0) + us / len(idx)
+        ks = device_kernels(frames_run, prof)
         emit({"phase": "frame_profile", "frames": label, "card": card,
               "kernels_per_frame": len(ks) / len(idx),
-              "device_busy_ms_per_frame": busy_ms,
+              "device_busy_ms_per_frame":
+                  sum(us for _, us in ks) / 1e3 / len(idx),
               "profiled_wall_ms_per_frame": wall_ms,
-              "top_kernels_us_per_frame": dict(sorted(
-                  top.items(), key=lambda kv: -kv[1])[:8])})
+              "top_kernels_us_per_frame": profile_summary(ks, len(idx)),
+              "top_ops_us_per_frame": top_ops(prof, len(idx))})
+
+    # the decode: device time per call (CUDA events), host wall time per
+    # call (waited for), frames per second
+    dec_ms, wall = [], []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        decoder(audio_dev)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dec_ms.append(e0.elapsed_time(e1))
+    dec_med = float(np.median(dec_ms))
+    prof = profiled(lambda: decoder(audio_dev))
+    ks = device_kernels(None, prof)
+    busy = sum(us for _, us in ks) / 1e3
+
+    # stage split of one decode: each stage alone, CUDA events, median of 3
+    model = decoder.model
+    mel_kw = model.mel_frontend.logmel_kwargs()
+    with torch.inference_mode():
+        emo_raw = model.emotion_raw(audio_dev)
+        emotion = model.emotion_projection(emo_raw)
+        mel_w = torch.rand((DECODE_B * n_out, 256, 80), device=dev)
+        det_w = torch.rand((DECODE_B * n_out, 3, 80), device=dev)
+        raw_seq = torch.rand((n_out, DECODE_B, 52), device=dev)
+        stages = {
+            "emotion (eGeMAPS LLDs + functionals)":
+                lambda: model.emotion_raw(audio_dev),
+            f"mel: global STFT (logmel T={t_global})":
+                lambda: frontend.fused_log_mel_frontend(
+                    audio_dev, n_fft=1024, hop_length=HOP, **mel_kw),
+            f"mel: window edges (logmel T={t_edges})":
+                lambda: dm._reflect_edge_rows(audio_dev, starts, 256 * HOP,
+                                              1024, HOP, **mel_kw),
+            f"attention ({DECODE_B * n_out} windows)":
+                lambda: model.dual_stream_attention(mel_w, det_w, emotion),
+            "EMA": lambda: dm._ema_smooth(raw_seq, model.alpha()),
+        }
+        stage_ms = {k: time_ms(fn, iters=3, warmup=1)
+                    for k, fn in stages.items()}
+    emit({"phase": "decode_times", "card": card, "batch": DECODE_B,
+          "windows_per_utterance": n_out,
+          "device_ms_per_call_median": dec_med,
+          "device_ms_per_call": dec_ms,
+          "wall_ms_per_call_median": float(np.median(wall)),
+          "frames_per_s": DECODE_B * n_out / (dec_med / 1e3),
+          "kernels_per_call": len(ks), "device_busy_ms_per_call": busy,
+          "device_busy_share": busy / dec_med,
+          "top_kernels_us_per_call": profile_summary(ks, 1, top_n=10),
+          "top_ops_us_per_call": top_ops(prof, 1, n=10),
+          "stage_ms": stage_ms,
+          "stage_share_of_call": {k: v / dec_med
+                                  for k, v in stage_ms.items()}})
 
     kernels = []
-    for label in ("K8/L17/n512", "K5/L33/n1024", "K8/L17/n512 x13600"):
-        c = k1[label]
+
+    def entry(kname, source, replaces, launches, max_abs_err, fn, pattern,
+              plain_fn, nbytes, ops, library_ms, library=None):
+        bound_ms, bound_by = bound(nbytes, ops)
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": time_ms(fn),
+                "device_ms": kernel_device_ms(fn, pattern),
+                "plain_ms": time_ms(plain_fn, iters=20),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library": library, "card": card}
+
+    for label, c in k1.items():
         args, kw = c["args"], c["kw"]
-        ms = time_ms(lambda: ck.cycle_dsum(*args, **kw))
-        device_ms = kernel_device_ms(lambda: ck.cycle_dsum(*args, **kw),
-                                     "cycle_dsum_kernel")
-        plain_ms = time_ms(lambda: f0_ops.cycle_dsum_plain(*args, **kw),
-                           iters=20)
         frames_t, start, tau, off = args
         rows, n, K, L = c["rows"], c["n"], c["K"], c["L"]
         # the samples the cycle masks select, from these inputs
@@ -354,53 +657,70 @@ def main() -> int:
         m = ((j >= off[:, None, None] + kk * tau[:, None, None])
              & (j < off[:, None, None] + (kk + 1.0) * tau[:, None, None])
              & (j <= lim[:, None, None]))
-        ops = 3.0 * L * float(m.sum())
-        nbytes = rows * (n * 4 + 12) + rows * K * L * 4
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S) * 1e3
-        entry = {"name": f"cycle_dsum[{label}]", "route": "cuda",
-                 "source": "koemorph_tpu_torch/ops/cuda/cycle_dsum.cu",
-                 "replaces": "koemorph_tpu/ops/pallas/cycle_dsum_kernel.py:79",
-                 "launches": path_launches.get(("cycle_dsum", (K, L, n)), 0)
-                 if rows == 30 else 0,
-                 "max_abs_err": c["max_abs_err"], "ms": ms,
-                 "device_ms": device_ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
-                              >= ops / PEAK_FP32_PER_S else "operations"),
-                 "library_ms": None, "card": card}
-        if rows == 30:
-            kernels.append(entry)
-        else:
-            emit({"phase": "kernel_time_offpath", **entry})
+        shape_key = ("cycle_dsum", (rows, K, L, n))
+        launches_k = (stream_shapes if rows == 30 else dec_shapes).get(
+            shape_key, 0)
+        kernels.append(entry(
+            f"cycle_dsum[{label}]",
+            "koemorph_tpu_torch/ops/cuda/cycle_dsum.cu",
+            "koemorph_tpu/ops/pallas/cycle_dsum_kernel.py:79", launches_k,
+            c["max_abs_err"], lambda: ck.cycle_dsum(*args, **kw),
+            "cycle_dsum_kernel",
+            lambda: f0_ops.cycle_dsum_plain(*args, **kw),
+            rows * (n * 4 + 12) + rows * K * L * 4, 3.0 * L * float(m.sum()),
+            None))
 
-    for rows in (30, 4096):
-        a = k2[rows]["a"]
-        ms = time_ms(lambda: ck.dk_roots(a))
-        device_ms = kernel_device_ms(lambda: ck.dk_roots(a),
-                                     "dk_roots_kernel")
-        plain_ms = time_ms(lambda: eg.poly_roots_plain(a), iters=20)
+    for rows, c in k2.items():
+        a = c["a"]
         comp = companion(a)
-        library_ms = time_ms(lambda: torch.linalg.eigvals(comp), iters=20)
-        ops = 20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows
-        nbytes = rows * 11 * 4 + rows * 10 * 8 + 10 * 8
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S) * 1e3
-        entry = {"name": f"dk_roots[{rows} rows]", "route": "cuda",
-                 "source": "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
-                 "replaces": "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
-                 "launches": path_launches.get(("dk_roots", (rows,)), 0)
-                 if rows == 30 else 0,
-                 "max_abs_err": k2[rows]["max_abs_err"], "ms": ms,
-                 "device_ms": device_ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
-                              >= ops / PEAK_FP32_PER_S else "operations"),
-                 "library_ms": library_ms, "card": card}
-        if rows == 30:
-            kernels.append(entry)
-        else:
-            emit({"phase": "kernel_time_offpath", **entry})
+        library_ms = (time_ms(lambda: torch.linalg.eigvals(comp), iters=20)
+                      if rows == 30 else
+                      time_ms(lambda: torch.linalg.eigvals(comp), iters=2,
+                              warmup=1))
+        kernels.append(entry(
+            f"dk_roots[{rows} rows]",
+            "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+            "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+            (stream_shapes if rows == 30 else dec_shapes).get(
+                ("dk_roots", (rows,)), 0),
+            c["max_abs_err"], lambda: ck.dk_roots(a), "dk_roots_kernel",
+            lambda: eg.poly_roots_plain(a),
+            rows * 11 * 4 + rows * 10 * 8 + 10 * 8,
+            20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows, library_ms,
+            "torch.linalg.eigvals of the companion matrices"))
+
+    # logmel: the chain the JAX model path runs (window, two DFT products,
+    # power, mel product, dB) as three cuBLAS fp32 products is the
+    # library yardstick; no single PyTorch call computes this function
+    win = hann_window(1024, device=dev)
+    cos_m, sin_m = dft_matrices(1024, dev)
+    fb = mel_filterbank(SR, 1024, 80, 80.0, 8000.0, device=dev)
+
+    def cublas_chain(x):
+        xw = x * win
+        re, im = xw @ cos_m, xw @ sin_m
+        return 10.0 * torch.log10(torch.clamp_min((re * re + im * im) @ fb,
+                                                  1e-10))
+
+    for label, shapes in (("T=1", stream_shapes),
+                          (f"T={t_edges}", dec_shapes),
+                          (f"T={t_global}", dec_shapes)):
+        x = k3[label]["x"]
+        t = x.shape[0]
+        kernels.append(entry(
+            f"logmel[{label}]", "koemorph_tpu_torch/ops/cuda/logmel.cu",
+            "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+            shapes.get(("logmel", (t,)), 0), k3[label]["max_abs_err"],
+            lambda: ck.logmel(x), "logmel_",
+            lambda: frontend.frames_to_logmel_plain(x),
+            4.0 * (t * 1024 + 2 * 1024 * 513 + 513 * 80 + t * 80),
+            t * (2.0 * 1024 * 513 * 2 + 2.0 * 513 * 80),
+            time_ms(lambda: cublas_chain(x), iters=50),
+            "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+            "(3 cuBLAS fp32 products)"))
     check(all(k["launches"] > 0 for k in kernels),
-          "a kernel of the path was not launched by the stream")
+          "a kernel of the path was not launched by its run: "
+          + str([k["name"] for k in kernels if k["launches"] == 0]))
 
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_script, 1)})

@@ -1,10 +1,16 @@
-"""Emotion-frontend configuration read by the streaming runtime."""
+"""The emotion frontend: its configuration and the device-side feature
+vector of an utterance (the ``egemaps`` backend)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from koemorph_tpu_torch.ops.egemaps import NUM_FEATURES as EGEMAPS_DIM
+from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig,
+                                            egemaps_concat_windows,
+                                            egemaps_functionals)
 
 CONCAT_DIM = EGEMAPS_DIM * 3  # 264: functionals over 3 offset windows
 
@@ -28,3 +34,16 @@ class EmotionFrontendConfig:
     @property
     def feature_dim(self) -> int:
         return CONCAT_DIM if self.use_concatenation else EGEMAPS_DIM
+
+
+def emotion_features(audio: torch.Tensor,
+                     cfg: EmotionFrontendConfig = EmotionFrontendConfig(),
+                     *, egemaps_cfg: EgemapsConfig | None = None
+                     ) -> torch.Tensor:
+    """Emotion feature vector ``(..., L) -> (..., D)``: the 3-offset
+    concatenated eGeMAPS functionals (264-D), or the 88-D functionals of
+    the whole audio without concatenation."""
+    ecfg = egemaps_cfg or EgemapsConfig(sample_rate=cfg.sample_rate)
+    if cfg.use_concatenation:
+        return egemaps_concat_windows(audio, ecfg, cfg.window_offsets)
+    return egemaps_functionals(audio, ecfg)

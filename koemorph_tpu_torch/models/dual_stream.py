@@ -87,14 +87,20 @@ class DualStreamCrossAttention(nn.Module):
 
     def forward(self, mel_features: torch.Tensor,
                 mel_temporal_features: torch.Tensor,
-                emotion_features: torch.Tensor) -> dict[str, torch.Tensor]:
+                emotion_features: torch.Tensor,
+                return_attention: bool = False) -> dict[str, torch.Tensor]:
         """``mel_features (B, T, 80)``, ``mel_temporal_features (B, 3, 80)``,
-        ``emotion_features (B, emotion_dim)`` -> ``{"blendshapes": (B, 52)}``
-        in [0, 1]."""
+        ``emotion_features (Be, emotion_dim)`` -> ``{"blendshapes": (B, 52)}``
+        in [0, 1]. With ``B = Be * r`` (``r`` windows per utterance,
+        utterance-major) the emotion branch runs at ``Be`` rows and its
+        outputs repeat over each utterance's ``r`` rows."""
+        if return_attention:
+            raise NotImplementedError("return_attention is not ported")
         b = mel_features.shape[0]
-        if emotion_features.shape[0] != b:
-            raise ValueError(f"emotion batch {emotion_features.shape[0]} "
-                             f"!= mel batch {b}")
+        be = emotion_features.shape[0]
+        if be == 0 or b % be:
+            raise ValueError(f"mel batch {b} not a multiple of emotion "
+                             f"batch {be}")
         mel = mel_features.transpose(1, 2)                    # (B, 80, T)
         t = mel.shape[2]
         if t < self.mel_sequence_length:
@@ -111,7 +117,9 @@ class DualStreamCrossAttention(nn.Module):
         emo_out = self.emotion_attention(self.expression_queries[None],
                                          emo_encoded, emo_encoded)
         mouth_bs = self._head(self.mel_output_proj(mel_out))      # (B, 28)
-        expr_bs = self._head(self.emotion_output_proj(emo_out))   # (B, 24)
+        expr_bs = self._head(self.emotion_output_proj(emo_out))   # (Be, 24)
+        if b != be:
+            expr_bs = expr_bs.repeat_interleave(b // be, 0)
 
         blendshapes = mouth_bs.new_zeros((b, self.num_blendshapes))
         blendshapes = blendshapes.index_copy(1, self._mouth_idx, mouth_bs)

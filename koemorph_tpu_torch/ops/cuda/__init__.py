@@ -12,8 +12,8 @@ process each, all started together.
 A wrapper launches on PyTorch's current stream, allocates its output with
 ``torch.empty``, checks the launch's error code and raises on failure. It
 adds one to ``LAUNCHES[name]`` (and to ``SHAPE_LAUNCHES[(name, shape)]``)
-for every launch and nowhere else. The callers in :mod:`..f0` and
-:mod:`..egemaps` route CUDA tensors here and CPU tensors to the plain
+for every launch and nowhere else. The callers in :mod:`..f0`,
+:mod:`..egemaps` and :mod:`..frontend` route CUDA tensors here and CPU tensors to the plain
 PyTorch form; there is no fallback from one to the other.
 """
 
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "build", "build_dir",
-           "reset_launch_counts", "cycle_dsum", "dk_roots"]
+           "reset_launch_counts", "cycle_dsum", "dk_roots", "logmel"]
 
 _HERE = Path(__file__).resolve().parent
 
@@ -43,6 +43,7 @@ SOURCES: dict[str, tuple[str, tuple[str, ...]]] = {
     # the plain form's separate multiply and add
     "cycle_dsum": ("cycle_dsum.cu", ("--fmad=false",)),
     "dk_roots": ("dk_roots.cu", ()),
+    "logmel": ("logmel.cu", ()),
 }
 _COMMON_FLAGS = ("-O3", "-std=c++17", "-gencode",
                  "arch=compute_90a,code=sm_90a", "-shared",
@@ -128,6 +129,11 @@ def _lib(name: str) -> ctypes.CDLL:
             if name == "cycle_dsum":
                 fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
                     + [ctypes.c_void_p]
+            elif name == "logmel":
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+                    + [ctypes.c_void_p]
+                lib.km_logmel_groups.restype = ctypes.c_int
+                lib.km_logmel_groups.argtypes = [ctypes.c_int] * 2
             else:
                 fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
                     + [ctypes.c_void_p]
@@ -175,7 +181,7 @@ def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
         err = fn(frames.data_ptr(), start.data_ptr(), tau.data_ptr(),
                  off.data_ptr(), out.data_ptr(), rows, n, n_cycles,
                  half_lag, stream)
-    _launched("cycle_dsum", (n_cycles, n_lag, n), err)
+    _launched("cycle_dsum", (rows, n_cycles, n_lag, n), err)
     return out
 
 
@@ -215,3 +221,39 @@ def dk_roots(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
                  iters, stream)
     _launched("dk_roots", (rows,), err)
     return torch.view_as_complex(out).reshape(batch + (p,))
+
+
+def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
+           n_mels: int = 80, f_min: float = 80.0, f_max: float = 8000.0
+           ) -> torch.Tensor:
+    """Kernel form of
+    :func:`koemorph_tpu_torch.ops.frontend.frames_to_logmel_plain`:
+    (T, n_fft) un-windowed frames -> (T, n_mels) float32 dB. ``n_fft`` must
+    be a multiple of 32, at most 1024."""
+    from koemorph_tpu_torch.ops.frontend import logmel_constants
+
+    dev = frames.device
+    if dev.type != "cuda":
+        raise ValueError(f"logmel kernel needs CUDA tensors, got {dev}")
+    if frames.dim() != 2:
+        raise ValueError(f"logmel: need (T, n_fft) frames, got "
+                         f"{tuple(frames.shape)}")
+    t, n_fft = frames.shape
+    if n_fft % 32 or not 32 <= n_fft <= 1024:
+        raise ValueError(f"logmel kernel: unsupported n_fft={n_fft}")
+    _check(frames, "frames", torch.float32, dev)
+    cos_t, sin_t, fb = logmel_constants(n_fft, sample_rate, n_mels, f_min,
+                                        f_max, dev)
+    n_bins = cos_t.shape[0]
+    lib = _lib("logmel")
+    partial = torch.empty((lib.km_logmel_groups(t, n_bins), t, n_mels),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((t, n_mels), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.km_logmel(frames.data_ptr(), cos_t.data_ptr(),
+                            sin_t.data_ptr(), fb.data_ptr(),
+                            partial.data_ptr(), out.data_ptr(), t, n_fft,
+                            n_bins, n_mels, stream)
+    _launched("logmel", (t,), err)
+    return out

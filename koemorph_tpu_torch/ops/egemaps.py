@@ -1,6 +1,8 @@
 """eGeMAPS-style low-level descriptors and 88-D functionals (PyTorch).
 
-The streaming refresh computes LLD rows for the newest audio only
+The offline decode computes the LLDs of whole utterances
+(:func:`compute_llds`, :func:`egemaps_concat_windows`); the streaming
+refresh computes LLD rows for the newest audio only
 (:func:`compute_lld_block`, with an :class:`LldCarry` that makes chunked
 rows equal a single pass), rolls them into a ring, and reduces the ring
 into 88 functionals under several offset masks at once
@@ -367,6 +369,16 @@ def roll_lld_ring(ring: dict[str, torch.Tensor],
     """Shift a block of new rows into the ring (newest rows last)."""
     n_new = block["voiced"].shape[0]
     return {k: torch.cat([ring[k][n_new:], block[k]], 0) for k in ring}
+
+
+def compute_llds(audio: torch.Tensor, cfg: EgemapsConfig = EgemapsConfig()
+                 ) -> dict[str, torch.Tensor]:
+    """Frame-level LLDs of ``audio (..., L)``: ``(..., T)`` contours (and
+    ``(..., T, C)`` channels) for ``T = 1 + (L - 512) // hop`` interior
+    frames; the block of :func:`compute_lld_block` from preceding silence
+    with frame 0 as its own spectral-flux predecessor."""
+    lld, _ = compute_lld_block(audio, cfg, carry=None)
+    return lld
 
 
 def compute_lld_block(chunk: torch.Tensor,
@@ -750,6 +762,12 @@ def functionals_from_llds(lld: dict[str, torch.Tensor],
     return torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def egemaps_functionals(audio: torch.Tensor,
+                        cfg: EgemapsConfig = EgemapsConfig()) -> torch.Tensor:
+    """The 88 functionals of ``audio (..., L)`` -> ``(..., 88)``."""
+    return functionals_from_llds(compute_llds(audio, cfg), cfg)
+
+
 #: LLD keys whose trailing axes are (T, C) rather than (T,)
 _CHANNEL_KEYS = frozenset(
     {"mfcc", "formant_freq", "formant_bw", "formant_rel", "formant_valid"})
@@ -773,3 +791,19 @@ def functionals_multi_offset(lld: dict[str, torch.Tensor],
     mask = frame_masks.expand(batch + (n_off, t))
     out = functionals_from_llds(lld_b, cfg, frame_mask=mask)
     return out.reshape(batch + (n_off * NUM_FEATURES,))
+
+
+def egemaps_concat_windows(audio: torch.Tensor,
+                           cfg: EgemapsConfig = EgemapsConfig(),
+                           offsets_sec: tuple[float, ...] = (0.0, 0.3, 0.6)
+                           ) -> torch.Tensor:
+    """Functionals over windows ending ``o`` seconds before the end of
+    ``audio (..., L)`` for each offset ``o``: ``(..., 88 * len(offsets))``,
+    offset-major. The LLDs are computed once; each offset is a frame mask."""
+    lld = compute_llds(audio, cfg)
+    t = lld["voiced"].shape[-1]
+    fp = cfg.hop_length / cfg.sample_rate
+    cuts = torch.tensor([t - int(round(off / fp)) for off in offsets_sec],
+                        device=audio.device)
+    masks = torch.arange(t, device=audio.device)[None, :] < cuts[:, None]
+    return functionals_multi_offset(lld, cfg, masks)

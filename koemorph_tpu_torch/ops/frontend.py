@@ -1,0 +1,156 @@
+"""The fused STFT -> mel -> dB frontend and the librosa-style log-mel.
+
+:func:`frames_to_logmel` maps un-windowed frames ``(..., T, n_fft)`` to dB
+mel rows ``10 log10(max(((f Wc)^2 + (f Ws)^2) FB, 1e-10))``, with the Hann
+window folded into the DFT bases ``Wc``, ``Ws``: a CUDA kernel for CUDA
+tensors (:func:`koemorph_tpu_torch.ops.cuda.logmel`), the plain PyTorch
+form :func:`frames_to_logmel_plain` for CPU tensors. Framing stays outside
+the kernel. The librosa-style frontend (:class:`LogMelFrontend`,
+:func:`log_mel_spectrogram`, :func:`mel_with_temporal_detail`) is that
+function followed by the per-utterance ``ref=max``, the 80 dB clip and
+``(db + 80) / 80``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from koemorph_tpu_torch.ops import cuda as cuda_kernels
+from koemorph_tpu_torch.ops.mel import _mel_filterbank_np
+from koemorph_tpu_torch.ops.window import frame_signal
+
+__all__ = ["LogMelFrontend", "frames_to_logmel", "frames_to_logmel_plain",
+           "fused_log_mel_frontend", "log_mel_spectrogram",
+           "logmel_constants", "mel_with_temporal_detail"]
+
+
+@functools.lru_cache(maxsize=8)
+def _folded_bases_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Bins-major ``(n_bins, n_fft)`` bases ``hann * cos`` and
+    ``hann * -sin``, computed in float64 and rounded once."""
+    n = np.arange(n_fft, dtype=np.float64)
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[:, None]
+    ang = 2.0 * np.pi * k * n[None, :] / n_fft
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)
+    return ((win * np.cos(ang)).astype(np.float32),
+            (win * -np.sin(ang)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=32)
+def _constants(n_fft: int, sample_rate: int, n_mels: int, f_min: float,
+               f_max: float, device: torch.device):
+    wc, ws = _folded_bases_np(n_fft)
+    fb = _mel_filterbank_np(sample_rate, n_fft, n_mels, f_min, f_max, False,
+                            "slaney").T
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (wc, ws, fb))
+
+
+def logmel_constants(n_fft: int, sample_rate: int, n_mels: int,
+                     f_min: float, f_max: float, device
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(Wc, Ws, FB)``: the Hann-folded bases, bins-major
+    ``(n_fft // 2 + 1, n_fft)``, and the Slaney filterbank
+    ``(n_fft // 2 + 1, n_mels)``, float32, cached per device."""
+    return _constants(int(n_fft), int(sample_rate), int(n_mels),
+                      float(f_min), float(f_max), torch.device(device))
+
+
+def frames_to_logmel_plain(frames: torch.Tensor, *, sample_rate: int = 16000,
+                           n_mels: int = 80, f_min: float = 80.0,
+                           f_max: float = 8000.0) -> torch.Tensor:
+    """``(..., T, n_fft)`` un-windowed frames -> ``(..., T, n_mels)`` dB.
+    Plain PyTorch form of the ``logmel`` kernel."""
+    wc, ws, fb = logmel_constants(frames.shape[-1], sample_rate, n_mels,
+                                  f_min, f_max, frames.device)
+    re = torch.matmul(frames, wc.T)
+    im = torch.matmul(frames, ws.T)
+    mel = torch.matmul(re * re + im * im, fb)
+    return 10.0 * torch.log10(torch.clamp_min(mel, 1e-10))
+
+
+def frames_to_logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
+                     n_mels: int = 80, f_min: float = 80.0,
+                     f_max: float = 8000.0) -> torch.Tensor:
+    """:func:`frames_to_logmel_plain`'s function: the CUDA kernel for CUDA
+    tensors, the plain form for CPU tensors."""
+    kw = dict(sample_rate=sample_rate, n_mels=n_mels, f_min=f_min,
+              f_max=f_max)
+    if frames.device.type == "cuda":
+        lead, n_fft = frames.shape[:-1], frames.shape[-1]
+        out = cuda_kernels.logmel(frames.reshape(-1, n_fft).contiguous(),
+                                  **kw)
+        return out.reshape(lead + (n_mels,))
+    if frames.device.type == "cpu":
+        return frames_to_logmel_plain(frames, **kw)
+    raise ValueError(f"frames_to_logmel: unsupported device {frames.device}")
+
+
+def fused_log_mel_frontend(audio: torch.Tensor, *, sample_rate: int = 16000,
+                           n_fft: int = 1024, hop_length: int = 533,
+                           n_mels: int = 80, f_min: float = 80.0,
+                           f_max: float = 8000.0, center: bool = True
+                           ) -> torch.Tensor:
+    """Audio ``(..., L)`` -> ``(..., T, n_mels)`` dB: framing, then
+    :func:`frames_to_logmel`."""
+    frames = frame_signal(audio, n_fft, hop_length, center=center)
+    return frames_to_logmel(frames, sample_rate=sample_rate, n_mels=n_mels,
+                            f_min=f_min, f_max=f_max)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogMelFrontend:
+    """librosa-style log-mel configuration (n_fft 1024, hop ``int(sr /
+    fps)``, Slaney mel, per-utterance ``ref=max``, ``top_db`` 80,
+    ``(db + 80) / 80``). The torchaudio style is not ported."""
+
+    sample_rate: int = 16000
+    target_fps: float = 30.0
+    n_fft: int = 1024
+    n_mels: int = 80
+    f_min: float = 80.0
+    f_max: float | None = 8000.0
+    style: str = "librosa"
+
+    def __post_init__(self):
+        if self.style != "librosa":
+            raise NotImplementedError(
+                f"style={self.style!r} is not ported; only 'librosa' is")
+
+    @property
+    def hop_length(self) -> int:
+        return int(self.sample_rate / self.target_fps)
+
+    @property
+    def effective_f_max(self) -> float:
+        return self.f_max if self.f_max is not None else self.sample_rate / 2.0
+
+    def logmel_kwargs(self) -> dict:
+        return dict(sample_rate=self.sample_rate, n_mels=self.n_mels,
+                    f_min=self.f_min, f_max=self.effective_f_max)
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        return log_mel_spectrogram(audio, self)
+
+
+def log_mel_spectrogram(audio: torch.Tensor, cfg: LogMelFrontend
+                        ) -> torch.Tensor:
+    """Normalized log-mel ``(..., T, n_mels)`` of ``audio (..., L)``: dB
+    relative to the utterance's max, clipped at -80 dB, mapped to [0, 1]."""
+    db = fused_log_mel_frontend(audio, n_fft=cfg.n_fft,
+                                hop_length=cfg.hop_length,
+                                **cfg.logmel_kwargs())
+    ref = db.amax(dim=(-2, -1), keepdim=True)
+    return (torch.clamp_min(db - ref, -80.0) + 80.0) / 80.0
+
+
+def mel_with_temporal_detail(audio: torch.Tensor, cfg: LogMelFrontend
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mel (..., T, 80), detail (..., 3, 80))``: the detail is the last 3
+    frames of the whole spectrogram, before any cut to the model window."""
+    mel = log_mel_spectrogram(audio, cfg)
+    return mel, mel[..., -3:, :]

@@ -79,3 +79,33 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int = 80,
     key = (int(sample_rate), int(n_fft), int(n_mels), float(f_min),
            float(f_max), bool(htk), norm)
     return _fb_tensor(key, torch.device(device or "cpu"))
+
+
+def power_to_db(s: torch.Tensor, *, ref=1.0, amin: float = 1e-10,
+                top_db: float | None = 80.0,
+                ref_axes: tuple[int, ...] | None = None) -> torch.Tensor:
+    """``librosa.power_to_db``: ``10 log10(max(s, amin))`` relative to
+    ``ref`` (a number, a tensor, or ``"max"``: the max over ``ref_axes``,
+    default all), clipped to ``top_db`` below its peak over the same axes."""
+    log_spec = 10.0 * torch.log10(torch.clamp_min(s, amin))
+
+    def amax(x):
+        if ref_axes is None:
+            return x.amax()
+        return x.amax(dim=ref_axes, keepdim=True)
+
+    if isinstance(ref, str):
+        if ref != "max":
+            raise ValueError(f"Unsupported ref: {ref!r}")
+        ref_val = amax(s)
+    else:
+        ref_val = torch.as_tensor(ref, dtype=s.dtype, device=s.device)
+    log_spec = log_spec - 10.0 * torch.log10(torch.clamp_min(ref_val, amin))
+    if top_db is not None:
+        log_spec = torch.maximum(log_spec, amax(log_spec) - top_db)
+    return log_spec
+
+
+def normalize_log_mel(mel_db: torch.Tensor) -> torch.Tensor:
+    """KoeMorph's ``(db + 80) / 80`` normalization to ~[0, 1]."""
+    return (mel_db + 80.0) / 80.0

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from koemorph_tpu_torch.ops.window import frame_signal, hann_window
+
 
 @functools.lru_cache(maxsize=8)
 def _dft_matrices_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
@@ -84,3 +86,40 @@ def autocorr_matmul(frames: torch.Tensor, n_lags: int,
     if n_fft is None:
         n_fft = ((frames.shape[-1] + n_lags + 7) // 8) * 8
     return acf_from_power(power_spectrum_matmul(frames, n_fft), n_fft, n_lags)
+
+
+def stft_power(x: torch.Tensor, *, n_fft: int, hop_length: int,
+               win_length: int | None = None,
+               window: torch.Tensor | None = None, center: bool = True,
+               power: float = 2.0, normalized: bool = False,
+               method: str = "matmul") -> torch.Tensor:
+    """Spectrogram ``(..., n_frames, n_fft // 2 + 1)`` of ``x (..., L)``,
+    time-major: windowed frames (librosa reflect centering when
+    ``center``) against the DFT bases. ``win_length`` shorter than
+    ``n_fft`` centre-pads the window; ``normalized`` divides by
+    ``sum(window ** 2)``; ``power`` 1 gives the magnitude."""
+    if method != "matmul":
+        if method == "rfft":
+            raise NotImplementedError("stft_power(method='rfft') is not "
+                                      "ported; only 'matmul' is")
+        raise ValueError(f"Unknown stft method: {method!r}")
+    if win_length is None:
+        win_length = n_fft
+    if window is None:
+        window = hann_window(win_length, device=x.device)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = torch.nn.functional.pad(
+            window, (lpad, n_fft - win_length - lpad))
+    frames = frame_signal(x, n_fft, hop_length, center=center) * window
+    c, s = dft_matrices(n_fft, x.device)
+    re = torch.matmul(frames, c)
+    im = torch.matmul(frames, s)
+    sq = re * re + im * im
+    if normalized:
+        sq = sq / torch.sum(window * window)
+    if power == 2.0:
+        return sq
+    if power == 1.0:
+        return torch.sqrt(sq)
+    return torch.pow(sq, power / 2.0)

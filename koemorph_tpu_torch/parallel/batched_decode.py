@@ -1,0 +1,134 @@
+"""Batched multi-utterance sequential decoding on one GPU.
+
+The counterpart of ``koemorph_tpu.parallel.batched_decode`` on a single
+device: a batch of equal-length utterances through
+:class:`~koemorph_tpu_torch.models.dual_stream_model.SequentialDualStreamModel`,
+with per-utterance window strides (:meth:`decode_scheduled`) and the
+sequence-parallel decode's window split and EMA replay
+(:meth:`decode_sequence_parallel`), which on one device is the plain decode
+bit for bit. Decoding over several GPUs is not ported.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from koemorph_tpu_torch.device import DeviceLike, resolve_device
+from koemorph_tpu_torch.models.dual_stream_model import (
+    SequentialDualStreamModel, _ema_smooth)
+
+__all__ = ["BatchedSequentialDecoder"]
+
+
+class BatchedSequentialDecoder:
+    """Decode batches of equal-length utterances::
+
+        decoder = BatchedSequentialDecoder(model)
+        out = decoder(audio_batch)          # (B, L) -> (B, T_out, 52)
+
+    The model moves to ``device`` (``cuda`` unless the caller asks for
+    another; raises when CUDA is absent) and runs in eval mode under
+    ``torch.inference_mode``.
+    """
+
+    def __init__(self, model: SequentialDualStreamModel,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+
+    @property
+    def num_devices(self) -> int:
+        return 1
+
+    def _audio(self, audio_batch) -> torch.Tensor:
+        """A tensor on the decoder's device (numpy input is copied)."""
+        if isinstance(audio_batch, torch.Tensor):
+            return audio_batch.to(self.device, torch.float32)
+        return torch.from_numpy(np.array(audio_batch, np.float32)).to(
+            self.device)
+
+    @torch.inference_mode()
+    def __call__(self, audio_batch) -> torch.Tensor:
+        """``(B, L)`` audio -> ``(B, T_out, 52)`` blendshapes (on the
+        device, not waited for)."""
+        return self.model(self._audio(audio_batch))["blendshapes"]
+
+    def _span(self, length: int) -> int:
+        span = length // self.model.hop_length - self.model.window_frames
+        if span < 0:
+            raise ValueError(f"audio shorter than one "
+                             f"{self.model.window_frames}-frame window")
+        return span
+
+    @torch.inference_mode()
+    def decode_scheduled(self, audio_batch, strides
+                         ) -> tuple[torch.Tensor, np.ndarray]:
+        """Per-utterance window strides (an int or ``(B,)``): utterance
+        ``i`` decodes windows at ``0, s_i, 2 s_i, ...``; every row is padded
+        to the densest stride's window count with the final valid start.
+        Returns ``(B, n_max, 52)`` blendshapes and the ``(B, n_max)``
+        validity mask."""
+        audio = self._audio(audio_batch)
+        bsz = audio.shape[0]
+        strides = np.broadcast_to(np.asarray(strides, np.int64),
+                                  (bsz,)).astype(np.int64)
+        if (strides < 1).any():
+            raise ValueError("strides must be >= 1")
+        span = self._span(audio.shape[1])
+        n_per = span // strides + 1
+        n_max = int(n_per.max())
+        grid = np.arange(n_max)[None, :] * strides[:, None]
+        starts = np.minimum(grid, span)
+        mask = np.arange(n_max)[None, :] < n_per[:, None]
+        out = self.model(audio, window_starts=torch.from_numpy(starts))
+        return out["blendshapes"], mask
+
+    @torch.inference_mode()
+    def decode_sequence_parallel(self, audio) -> torch.Tensor:
+        """ONE utterance ``(L,)`` -> ``(T_out, 52)``: the window sequence cut
+        into one contiguous chunk per device, decoded raw, and the EMA
+        replayed over the stitched sequence. On one device this is one
+        chunk, equal to the plain decode."""
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim == 2 and audio.shape[0] == 1:
+            audio = audio[0]
+        if audio.ndim != 1:
+            raise ValueError("decode_sequence_parallel takes ONE utterance "
+                             "(L,); use __call__ for batches")
+        n_dev = self.num_devices
+        span = self._span(audio.shape[0])
+        stride = int(self.model.stride_frames)
+        n_out = span // stride + 1
+        per = -(-n_out // n_dev)
+        starts = np.minimum(np.arange(n_dev * per) * stride, span).reshape(
+            n_dev, per)
+        tiled = np.broadcast_to(audio, (n_dev, audio.shape[0]))
+        raw = self.model(self._audio(tiled),
+                         window_starts=torch.from_numpy(starts),
+                         return_raw=True)["raw_blendshapes"]
+        raw_flat = raw.reshape(n_dev * per, -1)[:n_out]
+        return _ema_smooth(raw_flat, self.model.alpha())
+
+    def throughput_stats(self, audio_batch, iters: int = 10) -> dict:
+        """Frames per second of ``__call__`` on this batch (host clock,
+        each call waited for, after one warm-up call)."""
+        audio = self._audio(audio_batch)
+        out = self(audio)
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = self(audio)
+        self._sync()
+        dt = (time.perf_counter() - t0) / iters
+        b, t_out = out.shape[0], out.shape[1]
+        return {"batch": b, "frames_per_call": b * t_out,
+                "latency_ms": dt * 1e3, "frames_per_s": b * t_out / dt,
+                "frames_per_s_per_device": b * t_out / dt / self.num_devices,
+                "devices": self.num_devices, "device": str(self.device)}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -3,8 +3,8 @@
 Each 33 ms frame (:func:`stream_frame`):
 
 1. shifts ``hop`` new samples into the audio ring (the emotion context),
-2. computes the ONE new mel row the hop makes available, a
-   (1, n_fft) x (n_fft, bins) product, and rolls it into the raw-dB ring,
+2. computes the ONE new mel row the hop makes available (the fused
+   STFT -> mel -> dB function at T = 1) and rolls it into the raw-dB ring,
 3. normalizes the window (``power_to_db ref=max``: subtract the window
    max, so keeping raw dB rows makes the incremental update exact),
 4. every ``emotion_update_frames`` frames refreshes the eGeMAPS emotion
@@ -40,9 +40,7 @@ from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig, LldCarry,
                                             functionals_multi_offset,
                                             init_lld_ring, roll_lld_ring,
                                             silence_lld_carry)
-from koemorph_tpu_torch.ops.mel import mel_filterbank
-from koemorph_tpu_torch.ops.stft import dft_matrices
-from koemorph_tpu_torch.ops.window import hann_window
+from koemorph_tpu_torch.ops import frontend
 
 __all__ = ["StreamingConfig", "StreamState", "StreamingInference",
            "init_stream_state", "stream_frame", "model_for_config"]
@@ -164,18 +162,14 @@ def init_stream_state(cfg: StreamingConfig, device=None) -> StreamState:
 def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
     """dB mel row of the newest computable centered frame: after exactly
     ``hop`` samples per step its window ends ``(-(n_fft//2)) mod hop``
-    samples before the ring end."""
+    samples before the ring end. One launch of the fused frontend at
+    T = 1 on the GPU."""
     offset = (-(cfg.n_fft // 2)) % cfg.hop_length
     end = ring.shape[0] - offset
-    frame = ring[end - cfg.n_fft: end] * hann_window(cfg.n_fft,
-                                                     device=ring.device)
-    cos_m, sin_m = dft_matrices(cfg.n_fft, ring.device)
-    re = frame @ cos_m
-    im = frame @ sin_m
-    fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, n_mels=cfg.n_mels,
-                        f_min=cfg.f_min, f_max=cfg.f_max, device=ring.device)
-    mel_power = (re * re + im * im) @ fb
-    return 10.0 * torch.log10(torch.clamp_min(mel_power, 1e-10))
+    return frontend.frames_to_logmel(ring[end - cfg.n_fft: end][None],
+                                     sample_rate=cfg.sample_rate,
+                                     n_mels=cfg.n_mels, f_min=cfg.f_min,
+                                     f_max=cfg.f_max)[0]
 
 
 def _stream_pre(state: StreamState, hop_audio: torch.Tensor,

@@ -254,3 +254,22 @@ def test_wav_and_streamer_formats(tmp_path):
         s.send(np.asarray(values, np.float32), 1.5)
     row = json.loads((tmp_path / "o.jsonl").read_text())
     assert row["timestamp"] == 1.5 and len(row["blendshapes"]) == 52
+
+
+def test_stereo_replay_mixes_to_mono(tmp_path):
+    """A deliberate deviation from the JAX reader: the port's
+    ``AudioFileReader`` mixes a stereo file to mono, where the JAX reader
+    flattens the (L, 2) samples and so replays them interleaved at twice
+    the length."""
+    from koemorph_tpu.runtime.audio import AudioFileReader as JaxReader
+    from koemorph_tpu_torch.runtime.audio import AudioFileReader
+
+    x = _voice(1600)
+    path = tmp_path / "stereo.wav"
+    write_wav(path, np.stack([x, 0.5 * x], 1), SR, subtype="float32")
+    got = AudioFileReader(path, SR, HOP, realtime=False).audio
+    np.testing.assert_array_equal(got, (0.75 * x).astype(np.float32))
+    jax_audio = JaxReader(path, SR, HOP, realtime=False).audio
+    assert jax_audio.shape == (2 * len(x),)
+    np.testing.assert_array_equal(jax_audio[0::2], x)
+    np.testing.assert_array_equal(jax_audio[1::2], 0.5 * x)
