@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of KoeMorph on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py      # from the repository root
 
 Phases, each printing one JSON line:
 
@@ -11,10 +11,15 @@ Phases, each printing one JSON line:
    both shapes the streaming refresh uses (30 rows) and both shapes the
    flagship decode uses (13,624 rows);
 4. dk_roots: the kernel against its plain form on LPC polynomials of
-   vowel-like frames, at 30 and 13,624 rows;
+   vowel-like frames, at 30 and 13,624 rows, and on diverging rows (one
+   huge or non-finite coefficient) whose roots both forms turn NaN;
 5. logmel: the fused STFT -> mel -> dB kernel against its plain form at
    T = 1 (the stream), 1,040 (the decode's window-edge frames) and 4,104
    (the decode's global STFT), on silent and on near-full-scale frames;
+   two launches bitwise equal at T = 1, 1,040 and 4,104; on a
+   high-dynamic-range set (a near-full-scale tone, noise 90 dB below)
+   both the kernel's and the plain form's errors against a float64 form
+   on the card, mel bins within 80 dB of each frame's maximum;
 6. stream: the flagship streaming model (d_model 256, 8 heads, 256-frame
    window, 80 mels, 264-D eGeMAPS, 20 s ring, refresh every 9 frames) over
    3.5 s of synthetic voiced audio through ``StreamingInference``, with the
@@ -29,8 +34,11 @@ Phases, each printing one JSON line:
    frames per second, profile and stage split, and per-launch kernel times
    (back-to-back launches timed with CUDA events, ``ms``, and the kernels'
    own device duration per call from the profiler, ``device_ms``) beside
-   the plain forms, a library call where one exists and the bound the
-   card's memory and fp32 rates set.
+   the plain forms, a library call where one exists, and the bound the
+   card's memory and fp32 rates set (for ``logmel`` also the 3xTF32
+   tensor-core bound, ``bound_tc_ms``), counting the work this run's
+   inputs need (for ``logmel`` the live bins and the nonzero filter
+   weights).
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. The last lines are the kernels table, the
@@ -42,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,9 +63,11 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12                # dense tensor-core TF32
 K1_RTOL = K1_ATOL = 1e-5
 DK_MEDIAN_MAX, DK_MAX = 1e-5, 1e-3
 K3_RTOL, K3_ATOL = 1e-4, 1e-3          # dB; the JAX kernel test's bound
+K3_HDR_FLOOR = 1e-3                    # dB; the 2x rule's floor
 STREAM_PLAIN_MAX = 1e-4
 DECODE_PLAIN_MAX = 1e-4
 EXACT_EDGE_MAX = 1e-3                  # docs/flagship_parity.json e2e gate
@@ -123,20 +134,30 @@ def top_ops(prof, per: float, n: int = 8) -> dict:
     return dict(sorted(acc.items(), key=lambda kv: -kv[1])[:n])
 
 
-def kernel_device_ms(fn, pattern: str, iters: int = 50):
+def kernel_device_ms(fn, pattern: str, iters: int = 50, by_kernel=None):
     """Device time (ms) per call of ``fn`` spent in the kernels named like
     ``pattern``, over ``iters`` calls, from the profiler; None if it saw
-    none."""
+    none. ``by_kernel``, a dict, receives the µs per call of each such
+    kernel by name."""
     def run():
         for _ in range(iters):
             fn()
-    times = [us for name, us in device_kernels(run) if pattern in name]
-    return float(np.sum(times)) / 1e3 / iters if times else None
+    times = [(name, us) for name, us in device_kernels(run)
+             if pattern in name]
+    if by_kernel is not None:
+        for name, us in times:
+            key = re.split(r"[(<]", name.replace(
+                "(anonymous namespace)::", "").replace("void ", ""))[0]
+            by_kernel[key] = by_kernel.get(key, 0.0) + us / iters
+    return (float(np.sum([us for _, us in times])) / 1e3 / iters
+            if times else None)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least time in ms, what binds it) at the card's peak rates."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+def bound(nbytes: float, ops: float, rate: float = PEAK_FP32_PER_S
+          ) -> tuple[float, str]:
+    """(least time in ms, what binds it) at the card's memory rate and
+    ``rate`` operations per second."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -178,6 +199,19 @@ def plain_forms():
         yield
     finally:
         f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
+
+
+def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
+    """(t, 1024) frames of a near-full-scale tone (0.95, a different
+    frequency and phase per frame) plus white noise 90 dB below the
+    tone's power."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(1024)
+    f0 = 200.0 + (7791.0 - 200.0) * rng.random(t)
+    ph = 2 * np.pi * rng.random(t)
+    tone = 0.95 * np.sin(2 * np.pi * f0[:, None] * n / SR + ph[:, None])
+    sigma = 0.95 / np.sqrt(2.0) * 10.0 ** (-90.0 / 20.0)
+    return (tone + sigma * rng.standard_normal((t, 1024))).astype(np.float32)
 
 
 def main() -> int:  # noqa: C901
@@ -329,6 +363,34 @@ def main() -> int:  # noqa: C901
               "max_bound": DK_MAX, "ok": ok})
         check(ok, f"dk_roots kernel disagrees with plain at {rows} rows")
 
+    # diverging rows (one huge or non-finite coefficient), 3 per warp
+    # between LPC rows: a root thrown far out makes the next products
+    # inf - inf; both forms step on a NaN product, so every root of such a
+    # row turns NaN, and the LPC rows beside them are untouched
+    wild = [(10, 1e38), (1, 1e30), (5, 1e20), (10, 1e12), (10, -3e37),
+            (3, float("inf")), (4, float("nan"))]
+    a = lpc_polys(3 * len(wild))
+    for r, (k, v) in enumerate(wild):
+        a[3 * r + 1] = 0.0
+        a[3 * r + 1, 0], a[3 * r + 1, k] = 1.0, v
+    got = ck.dk_roots(a)
+    want = eg.poly_roots_plain(a)
+    wild_rows = torch.arange(len(wild), device=dev) * 3 + 1
+    tame = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+    tame[wild_rows] = False
+    exact = torch.linalg.eigvals(companion(a[tame].double()))
+    conv = hausdorff(want[tame].to(torch.complex128), exact) < DK_MAX
+    h = hausdorff(got[tame], want[tame])[conv]
+    ok = bool(torch.equal(got.isnan(), want.isnan())
+              and want[wild_rows].isnan().all()
+              and torch.isfinite(got[tame]).all() and h.max() < DK_MAX)
+    emit({"phase": "dk_roots_diverging", "rows": int(a.shape[0]),
+          "diverging_rows": len(wild),
+          "nan_roots_kernel": int(got.isnan().sum()),
+          "nan_roots_plain": int(want.isnan().sum()),
+          "hausdorff_max_other_rows": float(h.max()), "ok": ok})
+    check(ok, "dk_roots kernel and plain differ on diverging rows")
+
     # ---- 5. logmel: kernel vs plain ----
     # the frames the decode gives the kernel: its global STFT frames, and
     # the mirrored edge frames of its windows (one per end at 30 fps)
@@ -341,6 +403,9 @@ def main() -> int:  # noqa: C901
     loud = np.sign(np.sin(2 * np.pi * 440 * np.arange(1024) / SR)) * 0.999
     k3_inputs = {
         "T=1": audio_dev[0, 40000:41024][None].contiguous(),
+        # frames that start off a 16-byte boundary (as the stream's do)
+        "T=1 offset 1": audio_dev[0, 40001:41025][None],
+        "T=16 offset 3": audio_dev[0, 3:3 + 16 * 1024].reshape(16, 1024),
         f"T={edge_frames.shape[0]}": edge_frames.contiguous(),
         f"T={global_frames.shape[0]}": global_frames.contiguous(),
         "silence T=1": torch.zeros((1, 1024), device=dev),
@@ -368,6 +433,36 @@ def main() -> int:  # noqa: C901
               "min_db": float(want.min()), "max_db": float(want.max()),
               "rtol": K3_RTOL, "atol_db": K3_ATOL, "ok": ok})
         check(ok, f"logmel kernel disagrees with plain at {label}")
+        if label in ("T=1", f"T={t_edges}", f"T={t_global}"):
+            again = ck.logmel(x)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, again))
+            emit({"phase": "logmel_bitwise", "shape": label, "equal": same})
+            check(same, f"two logmel launches differ at {label}")
+
+    # high dynamic range: errors against float64 on the card, mel bins
+    # within 80 dB of each frame's maximum; the kernel's at most 2x the
+    # plain form's, or K3_HDR_FLOOR dB
+    wc64, ws64, fb64 = (c.double() for c in frontend.logmel_constants(
+        1024, SR, 80, 80.0, 8000.0, dev))
+    for t_hdr in (1, 256):
+        x = torch.from_numpy(hdr_frames(t_hdr)).to(dev)
+        x64 = x.double()
+        ref = 10.0 * torch.log10(torch.clamp_min(
+            ((x64 @ wc64.T) ** 2 + (x64 @ ws64.T) ** 2) @ fb64, 1e-10))
+        keep = ref >= ref.amax(1, keepdim=True) - 80.0
+        got = ck.logmel(x).double()
+        plain = frontend.frames_to_logmel_plain(x).double()
+        e_k = float((got - ref).abs()[keep].max())
+        e_p = float((plain - ref).abs()[keep].max())
+        ok = e_k <= max(2.0 * e_p, K3_HDR_FLOOR)
+        emit({"phase": "logmel_hdr", "T": t_hdr,
+              "bins_within_80db": int(keep.sum()),
+              "kernel_max_err_db": e_k, "plain_max_err_db": e_p,
+              "kernel_median_err_db": float((got - ref).abs()[keep].median()),
+              "plain_median_err_db": float((plain - ref).abs()[keep].median()),
+              "rule": "kernel <= max(2 x plain, 1e-3 dB)", "ok": ok})
+        check(ok, f"logmel high-dynamic-range error at T={t_hdr}")
 
     # ---- 6. the flagship stream through the user entry points ----
     model, cfg = build_streaming_model(seed=0)
@@ -635,14 +730,21 @@ def main() -> int:  # noqa: C901
     kernels = []
 
     def entry(kname, source, replaces, launches, max_abs_err, fn, pattern,
-              plain_fn, nbytes, ops, library_ms, library=None):
+              plain_fn, nbytes, ops, library_ms, library=None,
+              tensor_cores=False):
         bound_ms, bound_by = bound(nbytes, ops)
+        by_kernel = {}
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": time_ms(fn),
-                "device_ms": kernel_device_ms(fn, pattern),
+                "device_ms": kernel_device_ms(fn, pattern,
+                                              by_kernel=by_kernel),
+                "device_us_by_kernel": by_kernel,
                 "plain_ms": time_ms(plain_fn, iters=20),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_tc_ms": (bound(nbytes, 3.0 * ops,
+                                      PEAK_TF32_PER_S)[0]
+                                if tensor_cores else None),
                 "library_ms": library_ms, "library": library, "card": card}
 
     for label, c in k1.items():
@@ -667,8 +769,8 @@ def main() -> int:  # noqa: C901
             c["max_abs_err"], lambda: ck.cycle_dsum(*args, **kw),
             "cycle_dsum_kernel",
             lambda: f0_ops.cycle_dsum_plain(*args, **kw),
-            rows * (n * 4 + 12) + rows * K * L * 4, 3.0 * L * float(m.sum()),
-            None))
+            rows * (n * 4 + 12) + rows * K * L * 4,
+            3.0 * L * float(m.sum()), None))
 
     for rows, c in k2.items():
         a = c["a"]
@@ -691,7 +793,12 @@ def main() -> int:  # noqa: C901
 
     # logmel: the chain the JAX model path runs (window, two DFT products,
     # power, mel product, dB) as three cuBLAS fp32 products is the
-    # library yardstick; no single PyTorch call computes this function
+    # library yardstick; no single PyTorch call computes this function.
+    # The bound counts the work the function needs: the live bins' bases
+    # and DFT products, the nonzero filter weights and their products
+    # (every other bin adds exactly +0)
+    lc = frontend.logmel_kernel_constants(1024, SR, 80, 80.0, 8000.0, dev)
+    live, nnz = lc.hi - lc.lo, lc.fb_nz.numel()
     win = hann_window(1024, device=dev)
     cos_m, sin_m = dft_matrices(1024, dev)
     fb = mel_filterbank(SR, 1024, 80, 80.0, 8000.0, device=dev)
@@ -713,15 +820,15 @@ def main() -> int:  # noqa: C901
             shapes.get(("logmel", (t,)), 0), k3[label]["max_abs_err"],
             lambda: ck.logmel(x), "logmel_",
             lambda: frontend.frames_to_logmel_plain(x),
-            4.0 * (t * 1024 + 2 * 1024 * 513 + 513 * 80 + t * 80),
-            t * (2.0 * 1024 * 513 * 2 + 2.0 * 513 * 80),
+            4.0 * (t * 1024 + 2 * 1024 * live + nnz + t * 80),
+            t * (2.0 * 1024 * live * 2 + 2.0 * nnz),
             time_ms(lambda: cublas_chain(x), iters=50),
             "chain: window, 2 DFT matmuls, power, mel matmul, dB "
-            "(3 cuBLAS fp32 products)"))
+            "(3 cuBLAS fp32 products)", tensor_cores=True))
+
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "
           + str([k["name"] for k in kernels if k["launches"] == 0]))
-
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_script, 1)})
     emit({"kernels": kernels})

@@ -118,25 +118,26 @@ def build(names=None) -> dict[str, Path]:
     return {name: _lib_path(name) for name in names}
 
 
+#: kernel name -> {C entry point: (pointer arguments, int arguments)}; every
+#: entry point takes the stream last and returns a cudaError_t
+_ENTRIES = {
+    "cycle_dsum": {"km_cycle_dsum": (5, 4)},
+    "dk_roots": {"km_dk_roots": (3, 3)},
+    "logmel": {"km_logmel_batch": (5, 4), "km_logmel_rows": (7, 4)},
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, f"km_{name}")
-            fn.restype = ctypes.c_int
-            if name == "cycle_dsum":
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-                    + [ctypes.c_void_p]
-            elif name == "logmel":
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-                    + [ctypes.c_void_p]
-                lib.km_logmel_groups.restype = ctypes.c_int
-                lib.km_logmel_groups.argtypes = [ctypes.c_int] * 2
-            else:
-                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-                    + [ctypes.c_void_p]
+            for entry, (n_ptr, n_int) in _ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * n_ptr \
+                    + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             _LIBS[name] = lib
         return lib
 
@@ -223,14 +224,18 @@ def dk_roots(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
     return torch.view_as_complex(out).reshape(batch + (p,))
 
 
+#: frames up to which ``logmel`` takes its single-frame path
+LOGMEL_SMALL_T = 8
+
+
 def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
            n_mels: int = 80, f_min: float = 80.0, f_max: float = 8000.0
            ) -> torch.Tensor:
     """Kernel form of
     :func:`koemorph_tpu_torch.ops.frontend.frames_to_logmel_plain`:
     (T, n_fft) un-windowed frames -> (T, n_mels) float32 dB. ``n_fft`` must
-    be a multiple of 32, at most 1024."""
-    from koemorph_tpu_torch.ops.frontend import logmel_constants
+    be a multiple of 32, at most 1024; ``n_mels`` at most 256."""
+    from koemorph_tpu_torch.ops.frontend import logmel_kernel_constants
 
     dev = frames.device
     if dev.type != "cuda":
@@ -239,21 +244,31 @@ def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
         raise ValueError(f"logmel: need (T, n_fft) frames, got "
                          f"{tuple(frames.shape)}")
     t, n_fft = frames.shape
-    if n_fft % 32 or not 32 <= n_fft <= 1024:
-        raise ValueError(f"logmel kernel: unsupported n_fft={n_fft}")
+    if n_fft % 32 or not 32 <= n_fft <= 1024 or not 1 <= n_mels <= 256:
+        raise ValueError(f"logmel kernel: unsupported n_fft={n_fft}, "
+                         f"n_mels={n_mels}")
     _check(frames, "frames", torch.float32, dev)
-    cos_t, sin_t, fb = logmel_constants(n_fft, sample_rate, n_mels, f_min,
-                                        f_max, dev)
-    n_bins = cos_t.shape[0]
+    c = logmel_kernel_constants(n_fft, sample_rate, n_mels, f_min, f_max,
+                                dev)
     lib = _lib("logmel")
-    partial = torch.empty((lib.km_logmel_groups(t, n_bins), t, n_mels),
-                          dtype=torch.float32, device=dev)
     out = torch.empty((t, n_mels), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.km_logmel(frames.data_ptr(), cos_t.data_ptr(),
-                            sin_t.data_ptr(), fb.data_ptr(),
-                            partial.data_ptr(), out.data_ptr(), t, n_fft,
-                            n_bins, n_mels, stream)
+        if t <= LOGMEL_SMALL_T:
+            power = torch.empty((t, c.hi - c.lo), dtype=torch.float32,
+                                device=dev)
+            err = lib.km_logmel_rows(
+                frames.data_ptr(), c.wc.data_ptr(), c.ws.data_ptr(),
+                c.fb_nz.data_ptr(), c.spans.data_ptr(), power.data_ptr(),
+                out.data_ptr(), t, n_fft, c.hi - c.lo, n_mels, stream)
+        else:
+            if frames.data_ptr() % 16:
+                frames = frames.clone()    # cp.async copies 16-byte chunks
+            partial = torch.empty((c.groups, t, n_mels), dtype=torch.float32,
+                                  device=dev)
+            err = lib.km_logmel_batch(
+                frames.data_ptr(), c.bases.data_ptr(), c.fb.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), t, n_fft, c.groups,
+                n_mels, stream)
     _launched("logmel", (t,), err)
     return out

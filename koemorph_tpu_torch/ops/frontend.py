@@ -23,9 +23,11 @@ from koemorph_tpu_torch.ops import cuda as cuda_kernels
 from koemorph_tpu_torch.ops.mel import _mel_filterbank_np
 from koemorph_tpu_torch.ops.window import frame_signal
 
-__all__ = ["LogMelFrontend", "frames_to_logmel", "frames_to_logmel_plain",
-           "fused_log_mel_frontend", "log_mel_spectrogram",
-           "logmel_constants", "mel_with_temporal_detail"]
+__all__ = ["LogMelFrontend", "LogmelKernelConstants", "frames_to_logmel",
+           "frames_to_logmel_plain", "fused_log_mel_frontend",
+           "log_mel_spectrogram", "logmel_constants",
+           "logmel_kernel_constants", "logmel_live_bins",
+           "mel_with_temporal_detail", "tf32_split"]
 
 
 @functools.lru_cache(maxsize=8)
@@ -58,6 +60,97 @@ def logmel_constants(n_fft: int, sample_rate: int, n_mels: int,
     ``(n_fft // 2 + 1, n_mels)``, float32, cached per device."""
     return _constants(int(n_fft), int(sample_rate), int(n_mels),
                       float(f_min), float(f_max), torch.device(device))
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` with ``big = tf32(x)`` and ``small = tf32(x - big)``,
+    float32 with the low 13 mantissa bits zero: rounded to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds. ``big + small`` is
+    ``x`` to within ``2**-21 |x|``; the ``logmel`` kernel's tensor-core
+    products are ``big*big + big*small + small*big`` (3xTF32)."""
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x.to(torch.float32))
+    return big, rna(x.to(torch.float32) - big)
+
+
+@functools.lru_cache(maxsize=32)
+def logmel_live_bins(n_fft: int, sample_rate: int, n_mels: int,
+                     f_min: float, f_max: float) -> tuple[int, int]:
+    """``[lo, hi)``: the DFT bins with a nonzero weight in the Slaney
+    filterbank (``[6, 512)`` at n_fft 1024, 16 kHz, 80 mels, 80-8000 Hz).
+    Every other bin adds exactly +0 to every mel sum of finite frames."""
+    fb = _mel_filterbank_np(int(sample_rate), int(n_fft), int(n_mels),
+                            float(f_min), float(f_max), False, "slaney")
+    live = np.flatnonzero(fb.any(axis=0))
+    return int(live[0]), int(live[-1]) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LogmelKernelConstants:
+    """What the ``logmel`` kernel reads, restricted to the live bins
+    ``[lo, hi)`` and padded with zero rows to ``groups`` x 64 bins.
+
+    ``bases`` (4, groups*64, n_fft): the TF32 split of the folded bases,
+    ``Wc`` big, ``Wc`` small, ``Ws`` big, ``Ws`` small (batch path);
+    ``fb`` (groups*64, n_mels) the filterbank rows of those bins; for
+    single frames ``wc``, ``ws`` (hi-lo, n_fft), the float32 bases,
+    ``fb_nz`` each mel's nonzero weights in bin order, mel after mel, and
+    ``spans`` (n_mels, 3) int32 on the CPU (the kernel gets them by value):
+    each mel's nonzero bins ``[first, last + 1)`` counted from ``lo``, and
+    the offset of its weights in ``fb_nz``."""
+
+    lo: int
+    hi: int
+    groups: int
+    bases: torch.Tensor
+    fb: torch.Tensor
+    wc: torch.Tensor
+    ws: torch.Tensor
+    fb_nz: torch.Tensor
+    spans: torch.Tensor
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_constants(n_fft: int, sample_rate: int, n_mels: int,
+                      f_min: float, f_max: float, device: torch.device
+                      ) -> LogmelKernelConstants:
+    lo, hi = logmel_live_bins(n_fft, sample_rate, n_mels, f_min, f_max)
+    groups = -(-(hi - lo) // 64)
+    wc, ws, fb = _constants(n_fft, sample_rate, n_mels, f_min, f_max,
+                            torch.device("cpu"))
+    rows = groups * 64
+    bases = torch.zeros((4, rows, n_fft), dtype=torch.float32)
+    for q, basis in enumerate((wc, ws)):
+        big, small = tf32_split(basis[lo:hi])
+        bases[2 * q, :hi - lo] = big
+        bases[2 * q + 1, :hi - lo] = small
+    fb_pad = torch.zeros((rows, n_mels), dtype=torch.float32)
+    fb_pad[:hi - lo] = fb[lo:hi]
+    fb_t = fb[lo:hi].T
+    spans = torch.zeros((n_mels, 3), dtype=torch.int32)
+    weights = []
+    for m in range(n_mels):
+        nz = torch.nonzero(fb_t[m]).flatten()
+        first, last = (int(nz[0]), int(nz[-1]) + 1) if nz.numel() else (0, 0)
+        spans[m] = torch.tensor([first, last, sum(map(len, weights))])
+        weights.append(fb_t[m, first:last])
+    return LogmelKernelConstants(
+        lo, hi, groups, *(t.to(device) for t in (
+            bases, fb_pad, wc[lo:hi].contiguous(), ws[lo:hi].contiguous(),
+            torch.cat(weights).contiguous())), spans)
+
+
+def logmel_kernel_constants(n_fft: int, sample_rate: int, n_mels: int,
+                            f_min: float, f_max: float, device
+                            ) -> LogmelKernelConstants:
+    """The ``logmel`` kernel's constants (:class:`LogmelKernelConstants`),
+    cached per device."""
+    return _kernel_constants(int(n_fft), int(sample_rate), int(n_mels),
+                             float(f_min), float(f_max),
+                             torch.device(device))
 
 
 def frames_to_logmel_plain(frames: torch.Tensor, *, sample_rate: int = 16000,

@@ -74,6 +74,24 @@ class TestPolyRoots:
                           for row in a[:8]])
         assert _hausdorff(got[:8], exact).max() < 1e-3
 
+    def test_plain_diverging_rows_turn_nan_as_jax_and_pallas(self):
+        # one huge (or non-finite) coefficient: the first step throws the
+        # roots far out, the next step's products overflow to inf - inf,
+        # and every form steps on a NaN product, so every root is NaN
+        rows = []
+        for k, v in ((10, 1e38), (1, 1e30), (5, 1e20), (10, 1e12),
+                     (10, -3e37), (3, np.inf), (4, np.nan)):
+            a = np.zeros(11, np.float32)
+            a[0], a[k] = 1.0, v
+            rows.append(a)
+        a = np.concatenate([np.stack(rows), _lpc_polys(3)])
+        got = eg.poly_roots_plain(torch.from_numpy(a)).numpy()
+        for ref in (np.asarray(jeg._poly_roots_dk(jnp.asarray(a))),
+                    np.asarray(poly_roots_dk_pallas(jnp.asarray(a),
+                                                    interpret=True))):
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        assert np.isnan(got[:7]).all() and np.isfinite(got[7:]).all()
+
     def test_cpu_wrapper_and_batch_shape(self):
         a = torch.from_numpy(_lpc_polys(6))
         nested = eg.poly_roots(a.reshape(3, 2, 11))
