@@ -9,7 +9,11 @@ Phases, each printing one JSON line:
 2. build: the CUDA kernels compiled from ``koemorph_tpu_torch/ops/cuda``;
 3. cycle_dsum: the kernel against its plain PyTorch form on the card, at
    both shapes the streaming refresh uses (30 rows) and both shapes the
-   flagship decode uses (13,624 rows);
+   flagship decode uses (13,624 rows), on contiguous frames and on the
+   same kind of strided views the paths pass (read in place), on cycle
+   boundaries that fall on integer samples, tau 8 and tau_max, zero phase
+   and non-finite periods and phases; two launches bitwise equal at 30 and
+   13,624 rows;
 4. dk_roots: the kernel against its plain form on LPC polynomials of
    vowel-like frames, at 30 and 13,624 rows, and on diverging rows (one
    huge or non-finite coefficient) whose roots both forms turn NaN;
@@ -28,7 +32,9 @@ Phases, each printing one JSON line:
    utterances of 17.06 s (stride 4, reflect window edges), with launch
    counts, then with the plain forms; ``decode_scheduled`` with strides
    4 and 8; a 60 fps decode; ``exact_window_stft`` against the reflect
-   splice on 9 s;
+   splice on 9 s; the arguments the stream and the decode passed
+   ``cycle_dsum`` (recorded in phases 6 and 7: frame views, not copies)
+   against the plain form;
 8. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
 9. times: per-frame stream times and profiles, the decode's time per call,
    frames per second, profile and stage split, and per-launch kernel times
@@ -38,7 +44,10 @@ Phases, each printing one JSON line:
    card's memory and fp32 rates set (for ``logmel`` also the 3xTF32
    tensor-core bound, ``bound_tc_ms``), counting the work this run's
    inputs need (for ``logmel`` the live bins and the nonzero filter
-   weights).
+   weights; for ``cycle_dsum`` the distinct samples its frame views cover
+   and the masked samples, with ``bound_materialized_ms`` counting every
+   frame's samples as the copy the paths no longer make); ``cycle_dsum``
+   also on the arguments the stream and the decode passed it.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. The last lines are the kernels table, the
@@ -201,6 +210,67 @@ def plain_forms():
         f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
 
 
+def k1_cases(case: str, rows: int, half_lag: int, rng, tau_max: int = 291):
+    """(start, tau, off) numpy rows for the boundary sets: cycle bounds on
+    integer samples, many cycles (tau 8), tau_max, zero phase, and
+    non-finite or negative periods and phases (nothing selected)."""
+    pick = rng.integers(32, tau_max, size=rows)
+    start = np.clip(pick - half_lag, 0, tau_max + half_lag).astype(np.int32)
+    start[:3] = [0, tau_max + half_lag, 1]
+    tau = (pick + rng.uniform(-0.5, 0.5, rows)).astype(np.float32)
+    off = (rng.uniform(0, 0.5, rows) * tau).astype(np.float32)
+    if case == "integer_bounds":
+        tau[::2] = rng.integers(8, tau_max + 1, size=tau[::2].shape)
+        off[::2] = rng.integers(0, 40, size=off[::2].shape)
+        tau[1::2] = rng.integers(16, 2 * tau_max, size=tau[1::2].shape) + 0.5
+        off[1::2] = 0.5
+    elif case == "tau8":
+        tau[:] = 8.0
+        tau[1::2] += rng.uniform(0, 0.5, tau[1::2].shape).astype(np.float32)
+        off = rng.uniform(0, 8, rows).astype(np.float32)
+    elif case == "tau_max":
+        tau[:] = tau_max
+        tau[1::2] += 0.5
+        start[:] = tau_max - half_lag
+    elif case == "off0":
+        off[:] = 0.0
+    elif case == "nonfinite":
+        tau[0::5], off[1::5] = np.nan, np.nan
+        tau[2::5], off[3::5] = np.inf, -np.inf
+        tau[4::10] = -tau[4::10]
+    return start, tau, off
+
+
+def k1_bytes(frames, rows: int, n_out: int) -> float:
+    """Bytes ``cycle_dsum`` must move: the distinct samples its frame view
+    covers, read once, the per-row start, tau and off, the output."""
+    from koemorph_tpu_torch.ops import cuda as ck
+    lay = ck.frame_layout(frames)
+    n = frames.shape[-1]
+    per_batch = ((lay.frames - 1) * lay.frame_stride + n
+                 if lay.frame_stride <= n else lay.frames * n)
+    return 4.0 * lay.batches * per_batch + rows * (4.0 * n_out + 12)
+
+
+@contextlib.contextmanager
+def recording_k1(store: dict, tag: str):
+    """``cycle_dsum``'s kernel wrapper, recording the last arguments each
+    shape was called with under ``(tag, n)``; launches and counts as
+    usual."""
+    from koemorph_tpu_torch.ops import cuda as ck
+    real = ck.cycle_dsum
+
+    def record(frames, start, tau, off, **kw):
+        store[(tag, frames.shape[-1])] = (frames, start, tau, off, kw)
+        return real(frames, start, tau, off, **kw)
+
+    ck.cycle_dsum = record
+    try:
+        yield
+    finally:
+        ck.cycle_dsum = real
+
+
 def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
     """(t, 1024) frames of a near-full-scale tone (0.95, a different
     frequency and phase per frame) plus white noise 90 dB below the
@@ -260,6 +330,11 @@ def main() -> int:  # noqa: C901
           "ptxas": {k: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, log in ck.BUILD_LOGS.items()}})
+    spills = [ln for ln in ck.BUILD_LOGS.get("cycle_dsum", "").splitlines()
+              if "spill" in ln]
+    check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads"
+                               in ln for ln in spills),
+          f"cycle_dsum spills registers: {spills}")
 
     # the decode's audio, used by several phases
     audio_b = np.stack([voiced_audio(DECODE_LEN / SR, seed=s)
@@ -306,11 +381,61 @@ def main() -> int:  # noqa: C901
         ok = bool((err <= K1_ATOL + K1_RTOL * want.abs()).all())
         k1[label] = dict(args=args, kw=kw, rows=rows, n=n, K=K, L=2 * H + 1,
                          max_abs_err=float(err.max()))
+        again = ck.cycle_dsum(*args, **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
         emit({"phase": "cycle_dsum", "shape": label, "rows": rows,
               "max_abs_err": float(err.max()),
               "max_ref": float(want.abs().max()), "rtol": K1_RTOL,
-              "atol": K1_ATOL, "ok": ok})
+              "atol": K1_ATOL, "ok": ok, "two_launches_equal": same})
         check(ok, f"cycle_dsum kernel disagrees with plain at {label}")
+        check(same, f"two cycle_dsum launches differ at {label}")
+
+    def k1_check(label, frames, start, tau, off, kw):
+        got = ck.cycle_dsum(frames, start, tau, off, **kw)
+        want = f0_ops.cycle_dsum_plain(frames, start, tau, off, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool((err <= K1_ATOL + K1_RTOL * want.abs()).all()
+                  and torch.equal(got.isnan(), want.isnan()))
+        emit({"phase": "cycle_dsum", "shape": label,
+              "frames": list(frames.shape), "strides": list(frames.stride()),
+              "max_abs_err": float(err.max()),
+              "max_ref": float(want.abs().max()),
+              "rows_all_zero": int((want.flatten(-2).abs().amax(-1) == 0)
+                                   .sum()),
+              "rtol": K1_RTOL, "atol": K1_ATOL, "ok": ok})
+        check(ok, f"cycle_dsum kernel disagrees with plain at {label}")
+
+    # the same kind of frames as the paths hold them: the decode's unfold
+    # of each utterance (8, 1703, n), and the stream's 30 frames of a ring
+    # slice that starts off a 16-byte boundary; read in place
+    lld_audio = torch.cat([torch.zeros((DECODE_B, 512), device=dev),
+                           audio_dev], -1)
+    for n, K, H in ((512, 8, 8), (1024, 5, 16)):
+        kw = dict(n_cycles=K, half_lag=H)
+        views = {
+            f"decode view n{n}": frame_signal(
+                audio_dev if n == 512 else lld_audio, n, 160, center=False),
+            f"stream view n{n}": frame_signal(
+                audio_dev[1, 7:7 + 29 * 160 + n], n, 160, center=False)}
+        for label, frames_v in views.items():
+            check(not frames_v.is_contiguous(), f"{label} is a view")
+            lead = tuple(frames_v.shape[:-1])
+            st, tau, off = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                            for v in k1_cases("random", int(np.prod(lead)),
+                                              H, rng))
+            k1_check(label, frames_v, st.reshape(lead), tau.reshape(lead),
+                     off.reshape(lead), kw)
+        # cycle bounds on integer samples, many cycles, tau_max, zero
+        # phase, non-finite and negative periods and phases
+        for case in ("integer_bounds", "tau8", "tau_max", "off0",
+                     "nonfinite"):
+            frames_c = torch.from_numpy(
+                rng.standard_normal((200, n)).astype(np.float32) * 0.3).to(dev)
+            st, tau, off = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                            for v in k1_cases(case, 200, H, rng))
+            k1_check(f"{case} n{n}", frames_c, st, tau, off, kw)
 
     # ---- 4. dk_roots: kernel vs plain on LPC polynomials ----
     def lpc_polys(rows):
@@ -469,8 +594,10 @@ def main() -> int:  # noqa: C901
     engine = StreamingInference(model, cfg)
     audio = voiced_audio(3.5, seed=1)
     engine.warmup()
+    k1_args: dict = {}
     ck.reset_launch_counts()
-    frames = engine.process_audio(audio)
+    with recording_k1(k1_args, "stream"):
+        frames = engine.process_audio(audio)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     stream_shapes = dict(ck.SHAPE_LAUNCHES)
@@ -517,7 +644,8 @@ def main() -> int:  # noqa: C901
     decoder(audio_dev)                              # warm-up
     torch.cuda.synchronize()
     ck.reset_launch_counts()
-    out = decoder(audio_dev)
+    with recording_k1(k1_args, "decode"):
+        out = decoder(audio_dev)
     torch.cuda.synchronize()
     dec_launches = dict(ck.LAUNCHES)
     dec_shapes = dict(ck.SHAPE_LAUNCHES)
@@ -597,6 +725,17 @@ def main() -> int:  # noqa: C901
           "bound": EXACT_EDGE_MAX})
     check(r9.shape == e9.shape == (1, 15, 52), "exact decode shape")
     check(d_exact <= EXACT_EDGE_MAX, "exact_window_stft != reflect splice")
+
+    # what the stream and the decode passed cycle_dsum: frame views (the
+    # frames are not copied), against the plain form
+    check(sorted(k1_args) == [("decode", 512), ("decode", 1024),
+                              ("stream", 512), ("stream", 1024)],
+          f"cycle_dsum calls recorded: {sorted(k1_args)}")
+    with torch.inference_mode():
+        for (tag, n), (frames_a, st, tau, off, kw) in sorted(k1_args.items()):
+            check(not frames_a.is_contiguous(),
+                  f"the {tag} passed cycle_dsum copied frames")
+            k1_check(f"{tag} args n{n}", frames_a, st, tau, off, kw)
 
     # ---- 8. the offline CLI ----
     work = ROOT / "build" / "chip_smoke"
@@ -747,30 +886,45 @@ def main() -> int:  # noqa: C901
                                 if tensor_cores else None),
                 "library_ms": library_ms, "library": library, "card": card}
 
-    for label, c in k1.items():
-        args, kw = c["args"], c["kw"]
-        frames_t, start, tau, off = args
-        rows, n, K, L = c["rows"], c["n"], c["K"], c["L"]
+    def k1_entry(label, frames_k, start, tau, off, kw, launches_k,
+                 max_abs_err):
+        n, K, L = frames_k.shape[-1], kw["n_cycles"], 2 * kw["half_lag"] + 1
+        rows = start.numel()
         # the samples the cycle masks select, from these inputs
-        span = n - L + 1
-        j = torch.arange(span, device=dev, dtype=torch.float32)
-        kk = torch.arange(K, device=dev, dtype=torch.float32)[:, None]
-        lim = (n - 1.0) - 2.0 * (L // 2) - start.float()
-        m = ((j >= off[:, None, None] + kk * tau[:, None, None])
-             & (j < off[:, None, None] + (kk + 1.0) * tau[:, None, None])
-             & (j <= lim[:, None, None]))
-        shape_key = ("cycle_dsum", (rows, K, L, n))
-        launches_k = (stream_shapes if rows == 30 else dec_shapes).get(
-            shape_key, 0)
-        kernels.append(entry(
-            f"cycle_dsum[{label}]",
-            "koemorph_tpu_torch/ops/cuda/cycle_dsum.cu",
-            "koemorph_tpu/ops/pallas/cycle_dsum_kernel.py:79", launches_k,
-            c["max_abs_err"], lambda: ck.cycle_dsum(*args, **kw),
-            "cycle_dsum_kernel",
-            lambda: f0_ops.cycle_dsum_plain(*args, **kw),
-            rows * (n * 4 + 12) + rows * K * L * 4,
-            3.0 * L * float(m.sum()), None))
+        masked = float(f0_ops.cycle_masks(
+            n, start.reshape(-1), tau.reshape(-1), off.reshape(-1),
+            **kw).sum())
+        e = entry(f"cycle_dsum[{label}]",
+                  "koemorph_tpu_torch/ops/cuda/cycle_dsum.cu",
+                  "koemorph_tpu/ops/pallas/cycle_dsum_kernel.py:79",
+                  launches_k, max_abs_err,
+                  lambda: ck.cycle_dsum(frames_k, start, tau, off, **kw),
+                  "cycle_dsum_kernel",
+                  lambda: f0_ops.cycle_dsum_plain(frames_k, start, tau, off,
+                                                  **kw),
+                  k1_bytes(frames_k, rows, K * L), 3.0 * L * masked, None)
+        e["bound_materialized_ms"] = bound(
+            rows * (n * 4.0 + 12) + rows * K * L * 4.0, 3.0 * L * masked)[0]
+        e["masked_samples_per_row"] = masked / rows
+        return e
+
+    for label, c in k1.items():
+        frames_t, start, tau, off = c["args"]
+        shape_key = ("cycle_dsum", (c["rows"], c["K"], c["L"], c["n"]))
+        kernels.append(k1_entry(
+            label, frames_t, start, tau, off, c["kw"],
+            (stream_shapes if c["rows"] == 30 else dec_shapes).get(
+                shape_key, 0), c["max_abs_err"]))
+    with torch.inference_mode():
+        for (tag, n), (frames_a, st, tau, off, kw) in sorted(k1_args.items()):
+            L = 2 * kw["half_lag"] + 1
+            key = ("cycle_dsum", (st.numel(), kw["n_cycles"], L, n))
+            got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+            want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+            kernels.append(k1_entry(
+                f"{tag} args n{n}", frames_a, st, tau, off, kw,
+                (stream_shapes if tag == "stream" else dec_shapes).get(key, 0),
+                float((got - want).abs().max())))
 
     for rows, c in k2.items():
         a = c["a"]

@@ -23,25 +23,26 @@ import collections
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "build", "build_dir",
-           "reset_launch_counts", "cycle_dsum", "dk_roots", "logmel"]
+           "reset_launch_counts", "FrameLayout", "frame_layout",
+           "cycle_dsum", "dk_roots", "logmel"]
 
 _HERE = Path(__file__).resolve().parent
 
 #: kernel name -> (source file, extra nvcc flags)
 SOURCES: dict[str, tuple[str, tuple[str, ...]]] = {
-    # no FMA contraction: the cycle boundaries off + k*tau must round like
-    # the plain form's separate multiply and add
-    "cycle_dsum": ("cycle_dsum.cu", ("--fmad=false",)),
+    "cycle_dsum": ("cycle_dsum.cu", ()),
     "dk_roots": ("dk_roots.cu", ()),
     "logmel": ("logmel.cu", ()),
 }
@@ -121,7 +122,7 @@ def build(names=None) -> dict[str, Path]:
 #: kernel name -> {C entry point: (pointer arguments, int arguments)}; every
 #: entry point takes the stream last and returns a cudaError_t
 _ENTRIES = {
-    "cycle_dsum": {"km_cycle_dsum": (5, 4)},
+    "cycle_dsum": {"km_cycle_dsum": (5, 7)},
     "dk_roots": {"km_dk_roots": (3, 3)},
     "logmel": {"km_logmel_batch": (5, 4), "km_logmel_rows": (7, 4)},
 }
@@ -157,31 +158,93 @@ def _launched(name: str, shape: tuple, err: int) -> None:
     SHAPE_LAUNCHES[(name, shape)] += 1
 
 
+class FrameLayout(NamedTuple):
+    """Where the frames of a ``(..., T, n)`` view lie in its storage, in
+    elements: frame ``t`` of batch ``b`` starts at ``offset + b *
+    batch_stride + t * frame_stride``."""
+
+    offset: int
+    batch_stride: int
+    frame_stride: int
+    frames: int        # T, frames per batch
+    batches: int       # the leading dims, merged
+
+
+def frame_layout(frames: torch.Tensor) -> FrameLayout:
+    """The layout ``cycle_dsum`` reads ``frames`` in place by. Raises
+    ``ValueError`` where the samples of a frame are not adjacent (last
+    stride not 1) or the leading dims do not merge into one batch dim; the
+    frames are never copied."""
+    if frames.dim() < 2:
+        raise ValueError(f"need (..., T, n) frames, got "
+                         f"{tuple(frames.shape)}")
+    n, t = frames.shape[-1], frames.shape[-2]
+    if n > 1 and frames.stride(-1) != 1:
+        raise ValueError(f"frames: the last stride must be 1, got "
+                         f"strides {frames.stride()}")
+    lead = [(size, stride) for size, stride in
+            zip(frames.shape[:-2], frames.stride()[:-2]) if size != 1]
+    for (_, outer), (size, inner) in zip(lead, lead[1:]):
+        if outer != inner * size:
+            raise ValueError(f"frames: leading dims {tuple(frames.shape)} "
+                             f"with strides {frames.stride()} do not merge "
+                             "into one batch dim")
+    return FrameLayout(
+        offset=frames.storage_offset(),
+        batch_stride=lead[-1][1] if lead else 0,
+        frame_stride=frames.stride(-2) if t > 1 else n,
+        frames=t, batches=math.prod(frames.shape[:-2]))
+
+
+#: the half_lag values ``cycle_dsum.cu`` is compiled for
+CYCLE_DSUM_HALF_LAGS = (8, 16)
+
+
 def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
                off: torch.Tensor, *, n_cycles: int, half_lag: int
                ) -> torch.Tensor:
     """Kernel form of :func:`koemorph_tpu_torch.ops.f0.cycle_dsum_plain`:
-    (rows, n) frames -> (rows, n_cycles, 2*half_lag+1) float32."""
+    ``(..., T, n)`` frames with ``(..., T)`` start, tau and off ->
+    ``(..., T, n_cycles, 2*half_lag+1)`` float32. The frames are read in
+    place by their :func:`frame_layout` (an ``unfold`` view is not
+    copied); ``half_lag`` is 8 or 16, ``n`` at most 8192, ``n_cycles`` at
+    most 32."""
     dev = frames.device
     if dev.type != "cuda":
         raise ValueError(f"cycle_dsum kernel needs CUDA tensors, got {dev}")
-    rows, n = frames.shape
+    lay = frame_layout(frames)
+    n = frames.shape[-1]
     n_lag = 2 * half_lag + 1
-    if not (n_lag <= n <= 12288) or n_cycles < 1:
+    if (half_lag not in CYCLE_DSUM_HALF_LAGS or not n_lag <= n <= 8192
+            or not 1 <= n_cycles <= 32):
         raise ValueError(f"cycle_dsum: unsupported n={n}, "
                          f"n_cycles={n_cycles}, half_lag={half_lag}")
-    _check(frames, "frames", torch.float32, dev)
+    if max(lay.batch_stride, lay.frame_stride) >= 2 ** 31:
+        raise ValueError(f"cycle_dsum: strides {frames.stride()} exceed "
+                         "the kernel's 32-bit strides")
+    if frames.dtype != torch.float32:
+        raise ValueError(f"frames: need float32, got {frames.dtype}")
+    rows = lay.batches * lay.frames
+    # the per-row scalars are tiny: flattened (copied only if strided)
+    start, tau, off = (v.reshape(-1).contiguous() for v in (start, tau, off))
+    if not start.numel() == tau.numel() == off.numel() == rows:
+        raise ValueError(f"cycle_dsum: need {rows} start, tau and off "
+                         f"values, got {start.numel()}, {tau.numel()}, "
+                         f"{off.numel()}")
     _check(start, "start", torch.int32, dev)
     _check(tau, "tau", torch.float32, dev)
     _check(off, "off", torch.float32, dev)
+    out = torch.empty(frames.shape[:-1] + (n_cycles, n_lag),
+                      dtype=torch.float32, device=dev)
+    if rows == 0:
+        return out
     fn = _lib("cycle_dsum").km_cycle_dsum
-    out = torch.empty((rows, n_cycles, n_lag), dtype=torch.float32,
-                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(frames.data_ptr(), start.data_ptr(), tau.data_ptr(),
-                 off.data_ptr(), out.data_ptr(), rows, n, n_cycles,
-                 half_lag, stream)
+                 off.data_ptr(), out.data_ptr(), lay.batches, lay.frames,
+                 lay.batch_stride, lay.frame_stride, n, n_cycles, half_lag,
+                 stream)
     _launched("cycle_dsum", (rows, n_cycles, n_lag, n), err)
     return out
 

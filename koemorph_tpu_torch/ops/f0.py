@@ -220,6 +220,22 @@ def _refine_period_local(d_sub: torch.Tensor, pick: torch.Tensor,
             + _parabola_offset(ys[..., 0], y1, ys[..., 1]))
 
 
+def cycle_masks(n: int, start: torch.Tensor, tau: torch.Tensor,
+                off: torch.Tensor, *, n_cycles: int, half_lag: int
+                ) -> torch.Tensor:
+    """(rows, n_cycles, n - 2*half_lag) bool: sample ``j`` is in cycle
+    ``k`` of row ``r`` (see :func:`cycle_dsum_plain`)."""
+    dev = tau.device
+    span = n - 2 * half_lag
+    iota = torch.arange(span, dtype=torch.float32, device=dev)
+    k = torch.arange(n_cycles, dtype=torch.float32, device=dev)[:, None]
+    tau_b = tau[:, None, None]
+    off_b = off[:, None, None]
+    lim = ((n - 1.0) - 2.0 * half_lag) - start.to(torch.float32)
+    return ((iota >= off_b + k * tau_b) & (iota < off_b + (k + 1.0) * tau_b)
+            & (iota <= lim[:, None, None]))
+
+
 def cycle_dsum_plain(frames: torch.Tensor, start: torch.Tensor,
                      tau: torch.Tensor, off: torch.Tensor, *,
                      n_cycles: int, half_lag: int) -> torch.Tensor:
@@ -232,15 +248,17 @@ def cycle_dsum_plain(frames: torch.Tensor, start: torch.Tensor,
     ``j <= n - 1 - 2*half_lag - start``.
 
     Args:
-        frames: (rows, n) float32 frames.
-        start: (rows,) int comparison-span starts, in [0, n).
-        tau: (rows,) float32 frame-level periods.
-        off: (rows,) float32 cycle-grid phase offsets.
+        frames: (..., T, n) float32 frames (any view).
+        start: (..., T) int comparison-span starts, in [0, n).
+        tau: (..., T) float32 frame-level periods.
+        off: (..., T) float32 cycle-grid phase offsets.
 
     Returns:
-        (rows, n_cycles, 2*half_lag + 1) float32.
+        (..., T, n_cycles, 2*half_lag + 1) float32.
     """
-    rows, n = frames.shape
+    lead, n = frames.shape[:-1], frames.shape[-1]
+    frames = frames.reshape(-1, n)
+    start, tau, off = (v.reshape(-1) for v in (start, tau, off))
     dev = frames.device
     n_lag = 2 * half_lag + 1
     span = n - n_lag + 1
@@ -248,25 +266,20 @@ def cycle_dsum_plain(frames: torch.Tensor, start: torch.Tensor,
            + torch.arange(n, device=dev)[None, :])
     z = torch.gather(F.pad(frames, (0, n)), 1, idx)         # x[j + start]
     e = (frames[:, None, :span] - z.unfold(1, span, 1)) ** 2   # (R, L, J)
-    iota = torch.arange(span, dtype=torch.float32, device=dev)
-    k = torch.arange(n_cycles, dtype=torch.float32, device=dev)[:, None]
-    tau_b = tau[:, None, None]
-    off_b = off[:, None, None]
-    lim = ((n - 1.0) - 2.0 * half_lag) - start.to(torch.float32)
-    m = ((iota >= off_b + k * tau_b) & (iota < off_b + (k + 1.0) * tau_b)
-         & (iota <= lim[:, None, None]))
-    return torch.einsum("rkj,rlj->rkl", m.to(frames.dtype), e)
+    m = cycle_masks(n, start, tau, off, n_cycles=n_cycles, half_lag=half_lag)
+    return torch.einsum("rkj,rlj->rkl", m.to(frames.dtype), e).reshape(
+        lead + (n_cycles, n_lag))
 
 
 def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
                off: torch.Tensor, *, n_cycles: int, half_lag: int
                ) -> torch.Tensor:
     """Cycle-restricted difference sums (see :func:`cycle_dsum_plain`):
-    the CUDA kernel for CUDA tensors, the plain form for CPU tensors."""
+    the CUDA kernel for CUDA tensors (the frames read in place), the plain
+    form for CPU tensors."""
     if frames.device.type == "cuda":
         return cuda_kernels.cycle_dsum(
-            frames.contiguous(), start.to(torch.int32).contiguous(),
-            tau.contiguous(), off.contiguous(),
+            frames, start.to(torch.int32), tau, off,
             n_cycles=n_cycles, half_lag=half_lag)
     if frames.device.type == "cpu":
         return cycle_dsum_plain(frames, start, tau, off,
@@ -297,10 +310,8 @@ def _per_cycle_periods(frames: torch.Tensor, tau_max: int,
     p0 = torch.argmax(torch.where(m0, frames.abs(), -1.0), -1)
     grid_off = torch.clamp_min(p0.to(torch.float32) - 0.5 * tau, 0.0)
 
-    lead = frames.shape[:-1]
-    d = cycle_dsum(frames.reshape(-1, n), start.reshape(-1), tau.reshape(-1),
-                   grid_off.reshape(-1), n_cycles=n_cycles,
-                   half_lag=half_lag).reshape(lead + (n_cycles, n_lag))
+    d = cycle_dsum(frames, start, tau, grid_off, n_cycles=n_cycles,
+                   half_lag=half_lag)
 
     o_star = torch.argmin(d, -1)
     y1 = torch.amin(d, -1)
