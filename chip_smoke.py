@@ -19,8 +19,10 @@ Phases, each printing one JSON line:
    huge or non-finite coefficient) whose roots both forms turn NaN;
 5. logmel: the fused STFT -> mel -> dB kernel against its plain form at
    T = 1 (the stream), 1,040 (the decode's window-edge frames) and 4,104
-   (the decode's global STFT), on silent and on near-full-scale frames;
-   two launches bitwise equal at T = 1, 1,040 and 4,104; on a
+   (the decode's global STFT), on the 64 rows of a multi-session audio
+   ring that the server reads in place (odd row stride, unaligned), on
+   silent and on near-full-scale frames; two launches bitwise equal at
+   T = 1, 64, 1,040 and 4,104; on a
    high-dynamic-range set (a near-full-scale tone, noise 90 dB below)
    both the kernel's and the plain form's errors against a float64 form
    on the card, mel bins within 80 dB of each frame's maximum;
@@ -35,8 +37,24 @@ Phases, each printing one JSON line:
    splice on 9 s; the arguments the stream and the decode passed
    ``cycle_dsum`` (recorded in phases 6 and 7: frame views, not copies)
    against the plain form;
-8. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
-9. times: per-frame stream times and profiles, the decode's time per call,
+8. serving: ``MultiStreamInference`` at the flagship width, 64 sessions
+   of the voiced pattern shifted 0.25 s per lane, 105 steps, with one
+   refresh clock and with 8 refresh cohorts (``multistream``: launch
+   counts, ``logmel`` once per step at T = 64, ``cycle_dsum`` twice and
+   ``dk_roots`` once per refreshing cohort-step at 1,920 or 240 rows);
+   lanes of cohorts 0, 1, 5 and 7 against dedicated ``StreamingInference``
+   engines whose clocks start at the cohort's phase
+   (``multistream_lanes``); both clock settings with the plain forms
+   (``multistream_plain``); a lane reset against a fresh phase-shifted
+   engine, the other lanes untouched (``multistream_reset``); int16 input
+   bitwise equal to float (``multistream_int16``); step times, kernels
+   and device busy per step, ``sustained_stats`` at 64 and 256 sessions
+   with 8 cohorts and with one clock (``multistream_times``); ``python
+   -m koemorph_tpu_torch.serve`` in replay mode (``serve_cli``) and in
+   listen mode fed over loopback by ``python -m
+   koemorph_tpu_torch.feed_serve`` (``serve_listen``);
+9. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
+10. times: per-frame stream times and profiles, the decode's time per call,
    frames per second, profile and stage split, and per-launch kernel times
    (back-to-back launches timed with CUDA events, ``ms``, and the kernels'
    own device duration per call from the profiler, ``device_ms``) beside
@@ -60,6 +78,7 @@ import contextlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -80,8 +99,12 @@ K3_HDR_FLOOR = 1e-3                    # dB; the 2x rule's floor
 STREAM_PLAIN_MAX = 1e-4
 DECODE_PLAIN_MAX = 1e-4
 EXACT_EDGE_MAX = 1e-3                  # docs/flagship_parity.json e2e gate
+SERVE_PLAIN_MAX = 1e-4                 # kernels vs plain forms, served
+SERVE_LANE_MAX = 1e-4                  # a lane vs its dedicated engine
+SERVE_UNTOUCHED_MAX = 1e-6             # lanes beside a reset lane
 SR, HOP = 16000, 533
 DECODE_B, DECODE_LEN, DECODE_STRIDE = 8, 512 * HOP, 4
+SERVE_S, SERVE_BIG, SERVE_STEPS, SERVE_SHIFT = 64, 256, 105, 4000
 
 
 def emit(obj) -> None:
@@ -143,6 +166,20 @@ def top_ops(prof, per: float, n: int = 8) -> dict:
     return dict(sorted(acc.items(), key=lambda kv: -kv[1])[:n])
 
 
+def q(x) -> dict:
+    """Median, p99 and count of a set of times in ms."""
+    return {"median_ms": float(np.median(x)),
+            "p99_ms": float(np.percentile(x, 99)), "n": int(len(x))}
+
+
+def profile_summary(ks, per: float, top_n: int = 8) -> dict:
+    """Device µs per ``per`` of the ``top_n`` largest kernels by name."""
+    top: dict = {}
+    for kname, us in ks:
+        top[kname[:60]] = top.get(kname[:60], 0.0) + us / per
+    return dict(sorted(top.items(), key=lambda kv: -kv[1])[:top_n])
+
+
 def kernel_device_ms(fn, pattern: str, iters: int = 50, by_kernel=None):
     """Device time (ms) per call of ``fn`` spent in the kernels named like
     ``pattern``, over ``iters`` calls, from the profiler; None if it saw
@@ -192,6 +229,42 @@ def voiced_audio(seconds: float, seed: int, sr: int = SR):
     gate = ((t % 1.0) < 0.9).astype(np.float64)
     x = 0.3 * x / np.abs(x).max() * gate
     return (x + 0.003 * rng.standard_normal(n)).astype(np.float32)
+
+
+def lane_audio(lanes: int, steps: int, shift: int = SERVE_SHIFT
+               ) -> np.ndarray:
+    """(lanes, steps*HOP) float32: one voiced pattern, lane ``l`` starting
+    ``l * shift`` samples (0.25 s) into it."""
+    n = steps * HOP
+    base = voiced_audio(((lanes - 1) * shift + n) / SR, seed=1)
+    return np.stack([base[i * shift: i * shift + n] for i in range(lanes)])
+
+
+@contextlib.contextmanager
+def recording_kernels(store: dict, tag: str):
+    """Every kernel wrapper, recording the last arguments each launch
+    shape was called with under ``(name, tag, shape)``; launches and
+    counts as usual."""
+    from koemorph_tpu_torch.ops import cuda as ck
+    real = {name: getattr(ck, name)
+            for name in ("cycle_dsum", "dk_roots", "logmel")}
+
+    def wrap(name, key_fn):
+        def record(*args, **kw):
+            store[(name, tag, key_fn(*args, **kw))] = (args, kw)
+            return real[name](*args, **kw)
+        return record
+
+    ck.cycle_dsum = wrap("cycle_dsum", lambda frames, start, *a, **kw: (
+        start.numel(), frames.shape[-1]))
+    ck.dk_roots = wrap("dk_roots", lambda a, **kw: a.numel() // a.shape[-1])
+    ck.logmel = wrap("logmel", lambda frames, **kw: frames.numel()
+                     // frames.shape[-1])
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ck, name, fn)
 
 
 @contextlib.contextmanager
@@ -252,25 +325,6 @@ def k1_bytes(frames, rows: int, n_out: int) -> float:
     return 4.0 * lay.batches * per_batch + rows * (4.0 * n_out + 12)
 
 
-@contextlib.contextmanager
-def recording_k1(store: dict, tag: str):
-    """``cycle_dsum``'s kernel wrapper, recording the last arguments each
-    shape was called with under ``(tag, n)``; launches and counts as
-    usual."""
-    from koemorph_tpu_torch.ops import cuda as ck
-    real = ck.cycle_dsum
-
-    def record(frames, start, tau, off, **kw):
-        store[(tag, frames.shape[-1])] = (frames, start, tau, off, kw)
-        return real(frames, start, tau, off, **kw)
-
-    ck.cycle_dsum = record
-    try:
-        yield
-    finally:
-        ck.cycle_dsum = real
-
-
 def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
     """(t, 1024) frames of a near-full-scale tone (0.95, a different
     frequency and phase per frame) plus white noise 90 dB below the
@@ -302,8 +356,10 @@ def main() -> int:  # noqa: C901
     from koemorph_tpu_torch.ops.window import frame_signal, hann_window
     from koemorph_tpu_torch.parallel.batched_decode import (
         BatchedSequentialDecoder)
+    from koemorph_tpu_torch.runtime import MultiStreamInference
     from koemorph_tpu_torch.runtime.engine import build_streaming_model
-    from koemorph_tpu_torch.runtime.streaming import StreamingInference
+    from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
+                                                      StreamingInference)
 
     # full-f32 products everywhere (TF32 keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -346,6 +402,14 @@ def main() -> int:  # noqa: C901
     t_global = DECODE_B * (DECODE_LEN // HOP + 1)               # 4,104
     t_edges = DECODE_B * n_out * 2                              # 1,040
     lld_rows = DECODE_B * (1 + (DECODE_LEN - 512) // 160)       # 13,624
+    # the served sessions' audio (phase 8), and their audio rings as the
+    # server holds them after it (phase 5): the newest frame of each lane
+    # is a row of a (64, 329,927) tensor, read in place
+    lanes_np = lane_audio(SERVE_S, SERVE_STEPS)
+    ring_len = StreamingConfig().emotion_ring_len
+    rings = torch.zeros((SERVE_S, ring_len), device=dev)
+    rings[:, -lanes_np.shape[1]:] = torch.from_numpy(lanes_np).to(dev)
+    ring_off = ring_len - 1024 - (-512) % HOP
 
     # ---- 3. cycle_dsum: kernel vs plain ----
     rng = np.random.default_rng(0)
@@ -531,6 +595,7 @@ def main() -> int:  # noqa: C901
         # frames that start off a 16-byte boundary (as the stream's do)
         "T=1 offset 1": audio_dev[0, 40001:41025][None],
         "T=16 offset 3": audio_dev[0, 3:3 + 16 * 1024].reshape(16, 1024),
+        f"T={SERVE_S} ring rows": rings[:, ring_off:ring_off + 1024],
         f"T={edge_frames.shape[0]}": edge_frames.contiguous(),
         f"T={global_frames.shape[0]}": global_frames.contiguous(),
         "silence T=1": torch.zeros((1, 1024), device=dev),
@@ -558,7 +623,8 @@ def main() -> int:  # noqa: C901
               "min_db": float(want.min()), "max_db": float(want.max()),
               "rtol": K3_RTOL, "atol_db": K3_ATOL, "ok": ok})
         check(ok, f"logmel kernel disagrees with plain at {label}")
-        if label in ("T=1", f"T={t_edges}", f"T={t_global}"):
+        if label in ("T=1", f"T={SERVE_S} ring rows", f"T={t_edges}",
+                     f"T={t_global}"):
             again = ck.logmel(x)
             torch.cuda.synchronize()
             same = bool(torch.equal(got, again))
@@ -594,9 +660,9 @@ def main() -> int:  # noqa: C901
     engine = StreamingInference(model, cfg)
     audio = voiced_audio(3.5, seed=1)
     engine.warmup()
-    k1_args: dict = {}
+    path_rec: dict = {}
     ck.reset_launch_counts()
-    with recording_k1(k1_args, "stream"):
+    with recording_kernels(path_rec, "stream"):
         frames = engine.process_audio(audio)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
@@ -644,7 +710,7 @@ def main() -> int:  # noqa: C901
     decoder(audio_dev)                              # warm-up
     torch.cuda.synchronize()
     ck.reset_launch_counts()
-    with recording_k1(k1_args, "decode"):
+    with recording_kernels(path_rec, "decode"):
         out = decoder(audio_dev)
     torch.cuda.synchronize()
     dec_launches = dict(ck.LAUNCHES)
@@ -728,6 +794,10 @@ def main() -> int:  # noqa: C901
 
     # what the stream and the decode passed cycle_dsum: frame views (the
     # frames are not copied), against the plain form
+    # the last cycle_dsum call of each frame length, as (tag, n)
+    k1_args = {(tag, key[1]): (*args, kw)
+               for (name, tag, key), (args, kw) in path_rec.items()
+               if name == "cycle_dsum"}
     check(sorted(k1_args) == [("decode", 512), ("decode", 1024),
                               ("stream", 512), ("stream", 1024)],
           f"cycle_dsum calls recorded: {sorted(k1_args)}")
@@ -737,17 +807,303 @@ def main() -> int:  # noqa: C901
                   f"the {tag} passed cycle_dsum copied frames")
             k1_check(f"{tag} args n{n}", frames_a, st, tau, off, kw)
 
-    # ---- 8. the offline CLI ----
+    # ---- 8. multi-session serving ----
+    k_ref = cfg.emotion_update_frames
+    hop = cfg.hop_length
+    block_rows = cfg.lld_block_rows                             # 30
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def serve_steps(srv, audio, first=0, steps=SERVE_STEPS):
+        """(steps, S, 52) on the card: one ``step`` per hop of ``audio``
+        from hop ``first``."""
+        return torch.stack([srv.step(audio[:, (first + i) * hop:
+                                           (first + i + 1) * hop])
+                            for i in range(steps)])
+
+    def engine_frames(lane, clock, first=0):
+        eng = StreamingInference(model, cfg)
+        eng.state.frame_count = clock
+        return np.stack(eng.process_audio(lanes_np[lane, first * hop:]))
+
+    serve_rec: dict = {}
+    serve_out, serve_shapes, phases = {}, {}, {}
+    for g in (1, 8):
+        srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
+        srv.warmup()
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with recording_kernels(serve_rec, f"G={g}"):
+            out_g = serve_steps(srv, lanes_np)
+        torch.cuda.synchronize()
+        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        serve_out[g], serve_shapes[g] = out_g.cpu().numpy(), shapes
+        phases[g] = srv.phases
+        rows = SERVE_S // g * block_rows
+        refreshing = sum(len(range(-p % k_ref, SERVE_STEPS, k_ref))
+                         for p in srv.phases)
+        o = serve_out[g]
+        emit({"phase": "multistream", "sessions": SERVE_S,
+              "refresh_cohorts": g, "phases": list(srv.phases),
+              "steps": SERVE_STEPS, "refreshing_cohort_steps": refreshing,
+              "refresh_rows": rows, "shape": list(o.shape),
+              "finite": bool(np.isfinite(o).all()), "min": float(o.min()),
+              "max": float(o.max()), "launches": launches,
+              "launches_by_shape": {f"{kk[0]}{list(kk[1])}": v
+                                    for kk, v in shapes.items()},
+              "performance_stats": srv.performance_stats()})
+        check(o.shape == (SERVE_STEPS, SERVE_S, 52)
+              and bool(np.isfinite(o).all()), f"G={g}: served output")
+        check(o.min() >= 0.0 and o.max() <= 1.0,
+              f"G={g}: blendshapes outside [0, 1]")
+        check(launches["logmel"] == SERVE_STEPS
+              and shapes.get(("logmel", (SERVE_S,)), 0) == SERVE_STEPS,
+              f"G={g}: logmel not once per step at T={SERVE_S}: {launches}")
+        check(launches["cycle_dsum"] == 2 * refreshing
+              and launches["dk_roots"] == refreshing
+              and all(shapes.get(key, 0) == refreshing for key in (
+                  ("cycle_dsum", (rows, 8, 17, 512)),
+                  ("cycle_dsum", (rows, 5, 33, 1024)),
+                  ("dk_roots", (rows,)))),
+              f"G={g}: refresh launches {shapes} for {refreshing} "
+              f"refreshing cohort-steps of {rows} rows")
+        del srv, out_g
+
+    # lanes of four cohorts against dedicated engines on the card
+    lane_ids = (0, 1, 5, 7)
+    d_lanes = {}
+    for lane in lane_ids:
+        want = engine_frames(lane, phases[8][lane % 8])
+        d_lanes[lane] = float(np.abs(serve_out[8][:, lane] - want).max())
+    emit({"phase": "multistream_lanes", "refresh_cohorts": 8,
+          "lanes": list(lane_ids),
+          "cohort_phase": [phases[8][i % 8] for i in lane_ids],
+          "max_abs_diff_vs_engine": d_lanes, "bound": SERVE_LANE_MAX})
+    check(max(d_lanes.values()) <= SERVE_LANE_MAX,
+          f"served lanes differ from dedicated engines: {d_lanes}")
+
+    # both clock settings with the plain forms
+    d_plain = {}
+    with plain_forms():
+        before = dict(ck.LAUNCHES)
+        for g in (1, 8):
+            srv = MultiStreamInference(model, cfg, SERVE_S,
+                                       refresh_cohorts=g)
+            plain_g = serve_steps(srv, lanes_np).cpu().numpy()
+            d_plain[g] = float(np.abs(plain_g - serve_out[g]).max())
+        check(dict(ck.LAUNCHES) == before, "the plain server launched a "
+              "kernel")
+        del srv
+    emit({"phase": "multistream_plain", "max_abs_diff_blendshapes":
+          {f"G={g}": d for g, d in d_plain.items()},
+          "bound": SERVE_PLAIN_MAX})
+    check(max(d_plain.values()) <= SERVE_PLAIN_MAX,
+          f"kernel server != plain server: {d_plain}")
+
+    # a lane reset mid-run: a fresh session whose clock is its cohort's
+    half, reset_lane = SERVE_STEPS * 3 // 7, 5              # step 45
+    srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
+    first = serve_steps(srv, lanes_np, steps=half)
+    srv.reset_sessions([reset_lane])
+    second = serve_steps(srv, lanes_np, first=half,
+                         steps=SERVE_STEPS - half)
+    out_r = torch.cat([first, second]).cpu().numpy()
+    fresh = engine_frames(reset_lane, phases[8][reset_lane % 8] + half,
+                          first=half)
+    others = [i for i in range(SERVE_S) if i != reset_lane]
+    d_fresh = float(np.abs(out_r[half:, reset_lane] - fresh).max())
+    d_others = float(np.abs(out_r[:, others] - serve_out[8][:, others]).max())
+    d_moved = float(np.abs(out_r[half:, reset_lane]
+                           - serve_out[8][half:, reset_lane]).max())
+    emit({"phase": "multistream_reset", "lane": reset_lane, "at_step": half,
+          "clocks_after": srv.clocks,
+          "max_abs_diff_vs_fresh_engine": d_fresh,
+          "max_abs_diff_other_lanes": d_others,
+          "reset_lane_moved_by": d_moved, "bound_fresh": SERVE_LANE_MAX,
+          "bound_others": SERVE_UNTOUCHED_MAX})
+    check(d_fresh <= SERVE_LANE_MAX, "reset lane != fresh engine")
+    check(d_others <= SERVE_UNTOUCHED_MAX, "a reset moved other lanes")
+    check(d_moved > 1e-3, "the reset lane did not change")
+    del srv, first, second
+
+    # int16 PCM on the card: the same bits as its float twin
+    n16 = 2 * k_ref + 2
+    pcm = np.clip(np.round(lanes_np[:, :n16 * hop] * 32767.0), -32768,
+                  32767).astype(np.int16)
+    as_float = pcm.astype(np.float32) / 32768.0
+    srv_f = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
+    srv_i = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
+    srv_i.warmup(dtype=torch.int16)
+    same16 = [bool(torch.equal(
+        srv_f.step(as_float[:, i * hop:(i + 1) * hop]),
+        srv_i.step(pcm[:, i * hop:(i + 1) * hop]))) for i in range(n16)]
+    emit({"phase": "multistream_int16", "steps": n16,
+          "bitwise_equal_steps": sum(same16)})
+    check(all(same16), "int16 input differs from its float twin")
+    del srv_f, srv_i
+
+    # step times between CUDA events, split by whether a cohort
+    # refreshes; kernels and device busy per step from the profiler;
+    # sustained throughput at 64 and 256 sessions
+    serve_times = {}
+    profiled(lambda: None)       # the profiler's first use starts its tracer
+    for g in (1, 8):
+        srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
+        srv.warmup()
+        evs, due = [], []
+        for i in range(SERVE_STEPS):
+            due.append(bool(srv.due_cohorts()))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            step_out = srv.step(lanes_np[:, i * hop:(i + 1) * hop])
+            e1.record()
+            step_out.cpu()
+            evs.append((e0, e1))
+        torch.cuda.synchronize()
+        st = np.asarray([a.elapsed_time(b) for a, b in evs])
+        due = np.asarray(due)
+        prof_rows = {}
+        windows = ((("refresh", True, 1), ("other", False, 8)) if g == 1
+                   else (("9 steps", None, 9),))
+        for label, want_due, n_steps in windows:
+            i0 = SERVE_STEPS
+            while want_due is not None and bool(srv.due_cohorts()) \
+                    != want_due:
+                srv.step(lanes_np[:, (i0 % SERVE_STEPS) * hop:
+                                  (i0 % SERVE_STEPS + 1) * hop])
+                i0 += 1
+
+            def steps_run():
+                for j in range(n_steps):
+                    t = (i0 + j) % SERVE_STEPS
+                    srv.step(lanes_np[:, t * hop:(t + 1) * hop]).cpu()
+            t0 = time.perf_counter()
+            prof = profiled(steps_run)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            ks = device_kernels(None, prof)
+            prof_rows[label] = {
+                "kernels_per_step": len(ks) / n_steps,
+                "device_busy_ms_per_step":
+                    sum(us for _, us in ks) / 1e3 / n_steps,
+                "profiled_wall_ms_per_step": wall_ms,
+                "top_kernels_us_per_step": profile_summary(ks, n_steps)}
+        serve_times[g] = {
+            "refresh_steps": q(st[due]) if due.any() else None,
+            "other_steps": q(st[~due]) if (~due).any() else None,
+            "profile": prof_rows}
+        del srv
+    sustained = {}
+    for g in (8, 1):
+        for n_s in (SERVE_S, SERVE_BIG):
+            torch.cuda.reset_peak_memory_stats()
+            srv = MultiStreamInference(model, cfg, n_s, refresh_cohorts=g)
+            stats_s = srv.sustained_stats(n_frames=5 * k_ref)
+            stats_s["peak_memory_gb"] = (
+                torch.cuda.max_memory_allocated() / 1e9)
+            sustained[f"S={n_s} G={g}"] = stats_s
+            del srv
+    emit({"phase": "multistream_times", "card": card, "sessions": SERVE_S,
+          "step_times": {f"G={g}": v for g, v in serve_times.items()},
+          "sustained_stats": sustained})
+
+    # the serve entry point, replay mode
+    serve_wav = work / "serve.wav"
+    write_wav(serve_wav, voiced_audio(2.0, seed=3), SR)
+    serve_jsonl = work / "serve.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
+         str(serve_wav), "--sessions", "16", "--refresh-cohorts", "8",
+         "--output", "file", "--output-file", str(serve_jsonl),
+         "--no-realtime", "--max-frames", "30"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"serve CLI failed:\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in serve_jsonl.read_text().splitlines()]
+    stats = [json.loads(ln)["performance_stats"]
+             for ln in proc.stdout.splitlines() if "performance_stats" in ln]
+    emit({"phase": "serve_cli", "rows": len(rows),
+          "sessions": sorted({r["session"] for r in rows}),
+          "seconds": round(time.perf_counter() - t0, 2),
+          "performance_stats": stats[-1] if stats else None})
+    check(len(rows) == 30 * 16
+          and sorted({r["session"] for r in rows}) == list(range(16))
+          and all(len(r["blendshapes"]) == 52 for r in rows),
+          "serve CLI rows")
+    check(bool(stats) and stats[-1]["ticks"] == 30
+          and stats[-1]["frames_sent"] == 480, "serve CLI stats line")
+
+    # the serve entry point, listen mode: session 1 fed over loopback by
+    # the feeder, session 0 underruns and is served silence
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        listen_port = probe.getsockname()[1]
+    listen_log, listen_jsonl = work / "listen.log", work / "listen.jsonl"
+    listen_ticks = 60
+    with open(listen_log, "w") as log_fh:
+        server_p = subprocess.Popen(
+            [sys.executable, "-m", "koemorph_tpu_torch.serve", "--listen",
+             "--listen-port", str(listen_port), "--sessions", "2",
+             "--output", "file", "--output-file", str(listen_jsonl),
+             "--max-frames", str(listen_ticks)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=log_fh, text=True)
+        try:
+            deadline = time.time() + 300
+            while ("loop is live" not in listen_log.read_text()
+                   and server_p.poll() is None and time.time() < deadline):
+                time.sleep(0.1)
+            check(server_p.poll() is None, "listen server exited early:\n"
+                  + listen_log.read_text()[-3000:])
+            feed = subprocess.run(
+                [sys.executable, "-m", "koemorph_tpu_torch.feed_serve",
+                 "--port", str(listen_port), "--sessions", "1",
+                 "--first-session", "1", "--ticks", str(2 * listen_ticks),
+                 str(serve_wav)], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=120)
+            listen_out, _ = server_p.communicate(timeout=120)
+        finally:
+            if server_p.poll() is None:
+                server_p.kill()
+                server_p.communicate()
+    check(feed.returncode == 0, f"feeder failed:\n{feed.stderr[-2000:]}")
+    check(server_p.returncode == 0, "listen server failed:\n"
+          + listen_log.read_text()[-3000:])
+    rows = [json.loads(line)
+            for line in listen_jsonl.read_text().splitlines()]
+    bs = {sid: np.asarray([r["blendshapes"] for r in rows
+                           if r["session"] == sid]) for sid in (0, 1)}
+    stats = [json.loads(ln)["performance_stats"]
+             for ln in listen_out.splitlines() if "performance_stats" in ln]
+    # session 0 is a fresh stream of silence from clock 0 (the server's
+    # weights are seed 0's, as this script's model)
+    eng = StreamingInference(model, cfg)
+    silent = np.stack(eng.process_audio(np.zeros(listen_ticks * hop,
+                                                 np.float32)))
+    d_silent = (float(np.abs(bs[0] - silent).max())
+                if bs[0].shape == silent.shape else float("inf"))
+    d_fed = float(np.abs(bs[1] - bs[0]).max()) if len(bs[1]) else 0.0
+    emit({"phase": "serve_listen", "rows": len(rows),
+          "feeder": feed.stdout.strip(),
+          "session0_max_abs_diff_vs_silent_engine": d_silent,
+          "session1_max_abs_diff_vs_session0": d_fed,
+          "performance_stats": stats[-1] if stats else None})
+    check(len(rows) == 2 * listen_ticks and len(bs[0]) == len(bs[1]),
+          "listen rows")
+    check(d_silent <= SERVE_LANE_MAX,
+          "the underrun session was not served silence")
+    check(d_fed > 1e-3, "the fed session's audio did not arrive")
+    check(bool(stats) and stats[-1]["dropped_datagrams"] == 0,
+          "listen stats line")
+
+    # ---- 9. the offline CLI ----
     wav, jsonl = work / "speech.wav", work / "frames.jsonl"
     write_wav(wav, voiced_audio(10.0, seed=10), SR)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "koemorph_tpu_torch.infer", "--input",
          str(wav), "--output", str(jsonl)], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
-        text=True, timeout=600)
+        env=env, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"infer CLI failed:\n{proc.stderr[-3000:]}")
     rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
@@ -759,8 +1115,7 @@ def main() -> int:  # noqa: C901
           "log": [ln for ln in proc.stderr.splitlines() if "RTF" in ln]})
     check(len(rows) == n_cli and stamps_ok, "infer CLI output")
 
-    # ---- 9. times ----
-    hop = cfg.hop_length
+    # ---- 10. times ----
     engine.reset()
     evs = []
     with torch.inference_mode():
@@ -776,18 +1131,8 @@ def main() -> int:  # noqa: C901
     ft = np.asarray([a.elapsed_time(b) for a, b in evs])
     is_ref = np.arange(n_frames) % cfg.emotion_update_frames == 0
 
-    def q(x):
-        return {"median_ms": float(np.median(x)),
-                "p99_ms": float(np.percentile(x, 99)), "n": int(len(x))}
-
     emit({"phase": "frame_times", "card": card, "refresh": q(ft[is_ref]),
           "other": q(ft[~is_ref])})
-
-    def profile_summary(ks, per, top_n=8):
-        top = {}
-        for kname, us in ks:
-            top[kname[:60]] = top.get(kname[:60], 0.0) + us / per
-        return dict(sorted(top.items(), key=lambda kv: -kv[1])[:top_n])
 
     # where a frame's time goes: device kernels per frame, their summed
     # device time, and the host wall time of the same frames
@@ -979,6 +1324,58 @@ def main() -> int:  # noqa: C901
             time_ms(lambda: cublas_chain(x), iters=50),
             "chain: window, 2 DFT matmuls, power, mel matmul, dB "
             "(3 cuBLAS fp32 products)", tensor_cores=True))
+
+    # the serving shapes, on the arguments the server passed them (phase
+    # 8): K3 on the lanes' newest frames, K1 and K2 on a refreshing
+    # cohort's LLD block (all lanes at G = 1, 8 lanes at G = 8)
+    (x_s,), kw_s = serve_rec[("logmel", "G=8", SERVE_S)]
+    with torch.inference_mode():
+        err_s = float((ck.logmel(x_s, **kw_s)
+                       - frontend.frames_to_logmel_plain(x_s, **kw_s))
+                      .abs().max())
+    kernels.append(entry(
+        f"logmel[T={SERVE_S}]", "koemorph_tpu_torch/ops/cuda/logmel.cu",
+        "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+        serve_shapes[8].get(("logmel", (SERVE_S,)), 0), err_s,
+        lambda: ck.logmel(x_s, **kw_s), "logmel_",
+        lambda: frontend.frames_to_logmel_plain(x_s, **kw_s),
+        4.0 * (SERVE_S * 1024 + 2 * 1024 * live + nnz + SERVE_S * 80),
+        SERVE_S * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+        time_ms(lambda: cublas_chain(x_s), iters=50),
+        "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+        "(3 cuBLAS fp32 products)", tensor_cores=True))
+    with torch.inference_mode():
+        for g in (1, 8):
+            rows = SERVE_S // g * block_rows
+            for n, n_cyc, L in ((512, 8, 17), (1024, 5, 33)):
+                (frames_a, st, tau, off), kw = serve_rec[
+                    ("cycle_dsum", f"G={g}", (rows, n))]
+                got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+                want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+                kernels.append(k1_entry(
+                    f"serve G={g} args n{n} x{rows}", frames_a, st, tau, off,
+                    kw, serve_shapes[g].get(
+                        ("cycle_dsum", (rows, n_cyc, L, n)), 0),
+                    float((got - want).abs().max())))
+            (a_s,), _ = serve_rec[("dk_roots", f"G={g}", rows)]
+            a_s = a_s.reshape(rows, a_s.shape[-1])      # (lanes, 30, 11)
+            got, want = ck.dk_roots(a_s), eg.poly_roots_plain(a_s)
+            exact = torch.linalg.eigvals(companion(a_s.double()))
+            conv = hausdorff(want.to(torch.complex128), exact) < DK_MAX
+            comp_s = companion(a_s)
+            kernels.append(entry(
+                f"dk_roots[serve G={g}, {rows} rows]",
+                "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+                "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+                serve_shapes[g].get(("dk_roots", (rows,)), 0),
+                float(hausdorff(got, want)[conv].max()),
+                lambda: ck.dk_roots(a_s), "dk_roots_kernel",
+                lambda: eg.poly_roots_plain(a_s),
+                rows * 11 * 4 + rows * 10 * 8 + 10 * 8,
+                20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows,
+                time_ms(lambda: torch.linalg.eigvals(comp_s), iters=2,
+                        warmup=1),
+                "torch.linalg.eigvals of the companion matrices"))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

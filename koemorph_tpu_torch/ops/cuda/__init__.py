@@ -124,7 +124,7 @@ def build(names=None) -> dict[str, Path]:
 _ENTRIES = {
     "cycle_dsum": {"km_cycle_dsum": (5, 7)},
     "dk_roots": {"km_dk_roots": (3, 3)},
-    "logmel": {"km_logmel_batch": (5, 4), "km_logmel_rows": (7, 4)},
+    "logmel": {"km_logmel_batch": (5, 7), "km_logmel_rows": (7, 7)},
 }
 
 
@@ -171,10 +171,10 @@ class FrameLayout(NamedTuple):
 
 
 def frame_layout(frames: torch.Tensor) -> FrameLayout:
-    """The layout ``cycle_dsum`` reads ``frames`` in place by. Raises
-    ``ValueError`` where the samples of a frame are not adjacent (last
-    stride not 1) or the leading dims do not merge into one batch dim; the
-    frames are never copied."""
+    """The layout ``cycle_dsum`` and ``logmel`` read ``frames`` in place
+    by. Raises ``ValueError`` where the samples of a frame are not adjacent
+    (last stride not 1) or the leading dims do not merge into one batch
+    dim; the frames are never copied."""
     if frames.dim() < 2:
         raise ValueError(f"need (..., T, n) frames, got "
                          f"{tuple(frames.shape)}")
@@ -196,6 +196,17 @@ def frame_layout(frames: torch.Tensor) -> FrameLayout:
         frames=t, batches=math.prod(frames.shape[:-2]))
 
 
+def _check_strides(name: str, frames: torch.Tensor, lay: FrameLayout
+                   ) -> None:
+    """The kernels take strides as 32-bit ints and reach a frame by
+    64-bit arithmetic; the last frame's offset must fit in 32 bits too."""
+    if (max(lay.batch_stride, lay.frame_stride,
+            (lay.batches - 1) * lay.batch_stride) >= 2 ** 31):
+        raise ValueError(f"{name}: strides {frames.stride()} of frames "
+                         f"{tuple(frames.shape)} exceed the kernel's "
+                         "32-bit strides")
+
+
 #: the half_lag values ``cycle_dsum.cu`` is compiled for
 CYCLE_DSUM_HALF_LAGS = (8, 16)
 
@@ -209,9 +220,6 @@ def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
     place by their :func:`frame_layout` (an ``unfold`` view is not
     copied); ``half_lag`` is 8 or 16, ``n`` at most 8192, ``n_cycles`` at
     most 32."""
-    dev = frames.device
-    if dev.type != "cuda":
-        raise ValueError(f"cycle_dsum kernel needs CUDA tensors, got {dev}")
     lay = frame_layout(frames)
     n = frames.shape[-1]
     n_lag = 2 * half_lag + 1
@@ -219,11 +227,12 @@ def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
             or not 1 <= n_cycles <= 32):
         raise ValueError(f"cycle_dsum: unsupported n={n}, "
                          f"n_cycles={n_cycles}, half_lag={half_lag}")
-    if max(lay.batch_stride, lay.frame_stride) >= 2 ** 31:
-        raise ValueError(f"cycle_dsum: strides {frames.stride()} exceed "
-                         "the kernel's 32-bit strides")
+    _check_strides("cycle_dsum", frames, lay)
     if frames.dtype != torch.float32:
         raise ValueError(f"frames: need float32, got {frames.dtype}")
+    dev = frames.device
+    if dev.type != "cuda":
+        raise ValueError(f"cycle_dsum kernel needs CUDA tensors, got {dev}")
     rows = lay.batches * lay.frames
     # the per-row scalars are tiny: flattened (copied only if strided)
     start, tau, off = (v.reshape(-1).contiguous() for v in (start, tau, off))
@@ -296,25 +305,33 @@ def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
            ) -> torch.Tensor:
     """Kernel form of
     :func:`koemorph_tpu_torch.ops.frontend.frames_to_logmel_plain`:
-    (T, n_fft) un-windowed frames -> (T, n_mels) float32 dB. ``n_fft`` must
-    be a multiple of 32, at most 1024; ``n_mels`` at most 256."""
+    ``(..., T, n_fft)`` un-windowed frames -> ``(..., T, n_mels)`` float32
+    dB. The frames are read in place by their :func:`frame_layout` (a view
+    into audio rings or an ``unfold`` is not copied; a frame may start at
+    any 4-byte address); ``n_fft`` must be a multiple of 32, at most
+    1024; ``n_mels`` at most 256."""
     from koemorph_tpu_torch.ops.frontend import logmel_kernel_constants
 
-    dev = frames.device
-    if dev.type != "cuda":
-        raise ValueError(f"logmel kernel needs CUDA tensors, got {dev}")
-    if frames.dim() != 2:
-        raise ValueError(f"logmel: need (T, n_fft) frames, got "
-                         f"{tuple(frames.shape)}")
-    t, n_fft = frames.shape
+    lay = frame_layout(frames)
+    n_fft = frames.shape[-1]
     if n_fft % 32 or not 32 <= n_fft <= 1024 or not 1 <= n_mels <= 256:
         raise ValueError(f"logmel kernel: unsupported n_fft={n_fft}, "
                          f"n_mels={n_mels}")
-    _check(frames, "frames", torch.float32, dev)
+    _check_strides("logmel", frames, lay)
+    if frames.dtype != torch.float32:
+        raise ValueError(f"frames: need float32, got {frames.dtype}")
+    dev = frames.device
+    if dev.type != "cuda":
+        raise ValueError(f"logmel kernel needs CUDA tensors, got {dev}")
+    t = lay.batches * lay.frames
+    out = torch.empty(frames.shape[:-1] + (n_mels,), dtype=torch.float32,
+                      device=dev)
+    if t == 0:
+        return out
     c = logmel_kernel_constants(n_fft, sample_rate, n_mels, f_min, f_max,
                                 dev)
     lib = _lib("logmel")
-    out = torch.empty((t, n_mels), dtype=torch.float32, device=dev)
+    geometry = (lay.frames, lay.batch_stride, lay.frame_stride)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if t <= LOGMEL_SMALL_T:
@@ -323,15 +340,14 @@ def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
             err = lib.km_logmel_rows(
                 frames.data_ptr(), c.wc.data_ptr(), c.ws.data_ptr(),
                 c.fb_nz.data_ptr(), c.spans.data_ptr(), power.data_ptr(),
-                out.data_ptr(), t, n_fft, c.hi - c.lo, n_mels, stream)
+                out.data_ptr(), t, n_fft, c.hi - c.lo, n_mels, *geometry,
+                stream)
         else:
-            if frames.data_ptr() % 16:
-                frames = frames.clone()    # cp.async copies 16-byte chunks
             partial = torch.empty((c.groups, t, n_mels), dtype=torch.float32,
                                   device=dev)
             err = lib.km_logmel_batch(
                 frames.data_ptr(), c.bases.data_ptr(), c.fb.data_ptr(),
                 partial.data_ptr(), out.data_ptr(), t, n_fft, c.groups,
-                n_mels, stream)
+                n_mels, *geometry, stream)
     _launched("logmel", (t,), err)
     return out

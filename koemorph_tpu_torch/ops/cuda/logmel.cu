@@ -28,7 +28,8 @@
 //   the same tile, so the power re^2 + im^2 is formed in registers. A ring
 //   of STAGES shared-memory stages is filled with cp.async (16-byte copies,
 //   the swizzle applied by hand), the load of tile k+STAGES-1 overlapping
-//   the products on tile k. The epilogue writes the power tile to shared
+//   the products on tile k (a frame that starts off a 16-byte boundary is
+//   copied 4 bytes at a time). The epilogue writes the power tile to shared
 //   memory and computes the group's share of the mel sums on CUDA cores
 //   (bins in ascending order) into a scratch buffer (groups, T, n_mels);
 //   logmel_reduce_kernel adds the groups in a fixed order and takes the log.
@@ -39,6 +40,11 @@
 //   each bin's power; logmel_rows_mel_kernel then sums each mel over its
 //   nonzero bins (a warp per mel, lanes in a fixed order, the spans passed
 //   by value) and takes the log.
+//
+// Frames are read in place: frame r lies at (r / per_batch) * batch_stride
+// + (r % per_batch) * frame_stride floats from `frames`, samples adjacent,
+// at any 4-byte alignment (the server's frames are rows of its (S, L) audio
+// rings, L odd; the decode's are `unfold` views at the hop).
 //
 // No atomics: two launches give the same bits. The log is taken in double
 // precision and rounded once, so all-zero frames give exactly -100 dB, as
@@ -70,6 +76,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4-byte global -> shared copy (any 4-byte aligned source); `valid` false
+// fills the 4 bytes with zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -161,6 +174,18 @@ struct Wgmma<16> {
   }
 };
 
+// where the frames lie: frame r at (r / per_batch) * batch_stride
+// + (r % per_batch) * frame_stride floats from the base
+struct FrameGeom {
+  int per_batch, batch_stride, frame_stride;
+};
+
+__device__ __forceinline__ const float* frame_ptr(const float* frames,
+                                                  int r, FrameGeom g) {
+  return frames + static_cast<size_t>(r / g.per_batch) * g.batch_stride
+         + static_cast<size_t>(r % g.per_batch) * g.frame_stride;
+}
+
 // byte offset of the 16-byte chunk c (of 8) of row r in a 128-byte-swizzled
 // tile whose base is 1,024-byte aligned
 __device__ __forceinline__ int swz(int r, int c) {
@@ -173,7 +198,7 @@ logmel_wgmma_kernel(const float* __restrict__ frames,
                     const float* __restrict__ bases,
                     const float* __restrict__ fb,
                     float* __restrict__ partial,
-                    int T, int n_fft, int rows, int n_mels) {
+                    int T, int n_fft, int rows, int n_mels, FrameGeom geom) {
   constexpr int WN = BN / 2;                 // frames per warpgroup
   constexpr int kAcc = WN / 2;               // accumulators per thread
   constexpr int kA = kTileB * kTileK * 4;    // one basis tile, bytes
@@ -191,6 +216,20 @@ logmel_wgmma_kernel(const float* __restrict__ frames,
   const int g = blockIdx.y;
   const int b0 = g * kTileB;
   const int n_k = n_fft / kTileK;
+  constexpr int kFrameChunks = (BN * 8) / kThreads;   // per thread per stage
+
+  // the frame rows this thread copies, the same at every stage: where each
+  // starts, and whether it is 16-byte aligned (then 16-byte copies, else
+  // four 4-byte ones); rows past T are zero-filled
+  const float* frow[kFrameChunks];
+  bool fok[kFrameChunks], fal[kFrameChunks];
+#pragma unroll
+  for (int i = 0; i < kFrameChunks; ++i) {
+    const int t = t0 + (tid + i * kThreads) / 8;
+    fok[i] = t < T;
+    frow[i] = frame_ptr(frames, fok[i] ? t : 0, geom);
+    fal[i] = (reinterpret_cast<uintptr_t>(frow[i]) & 15) == 0;
+  }
 
   auto load_stage = [&](int kt) {
     uint8_t* st = smem + (kt % STAGES) * kStage;
@@ -206,13 +245,17 @@ logmel_wgmma_kernel(const float* __restrict__ frames,
       cp_async16(smem_u32(st + q * kA + swz(r, c)), src, true);
     }
 #pragma unroll
-    for (int i = 0; i < (BN * 8) / kThreads; ++i) {
+    for (int i = 0; i < kFrameChunks; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / 8, c = idx % 8;
-      const bool ok = t0 + r < T;
-      const float* src = frames
-          + static_cast<size_t>(ok ? t0 + r : 0) * n_fft + k0 + c * 4;
-      cp_async16(smem_u32(st + 4 * kA + swz(r, c)), src, ok);
+      const float* src = frow[i] + k0 + c * 4;
+      const uint32_t dst = smem_u32(st + 4 * kA + swz(r, c));
+      if (fal[i]) {
+        cp_async16(dst, src, fok[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cp_async4(dst + 4 * j, src + j, fok[i]);
+      }
     }
   };
 
@@ -359,8 +402,9 @@ __global__ void logmel_reduce_kernel(const float* __restrict__ partial,
 // each frame, summed over the warp by a fixed shuffle tree (lane 0 holds
 // the sums). Each lane issues its 16-byte basis loads all at once; frames
 // are read 4 bytes at a time, since a frame may start anywhere (the
-// stream's frame is a view into its audio ring).
+// stream's frames are views into its audio rings).
 __device__ __forceinline__ void half_power(const float* __restrict__ frames,
+                                          FrameGeom geom,
                                           const float* __restrict__ wc,
                                           const float* __restrict__ ws,
                                           int b, int h, int lane, int T,
@@ -385,8 +429,7 @@ __device__ __forceinline__ void half_power(const float* __restrict__ frames,
 #pragma unroll
     for (int t = 0; t < kSmallT; ++t) {
       if (t >= T) break;
-      const float* fr = frames + static_cast<size_t>(t) * n_fft
-                        + h * (n_fft / 2);
+      const float* fr = frame_ptr(frames, t, geom) + h * (n_fft / 2);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int q = lane + 32 * i;
@@ -425,14 +468,15 @@ logmel_rows_power_kernel(const float* __restrict__ frames,
                          const float* __restrict__ wc,
                          const float* __restrict__ ws,
                          float* __restrict__ power,
-                         int T, int n_fft, int n_live) {
+                         int T, int n_fft, int n_live, FrameGeom geom) {
   __shared__ float half_re[kRowBins][2][kSmallT];
   __shared__ float half_im[kRowBins][2][kSmallT];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int j = warp / 2, h = warp % 2;
   const int b = blockIdx.x * kRowBins + j;
   float re[kSmallT], im[kSmallT];
-  half_power(frames, wc, ws, b < n_live ? b : -1, h, lane, T, n_fft, re, im);
+  half_power(frames, geom, wc, ws, b < n_live ? b : -1, h, lane, T, n_fft,
+             re, im);
   if (lane == 0)
 #pragma unroll
     for (int t = 0; t < kSmallT; ++t) {
@@ -497,7 +541,7 @@ logmel_rows_mel_kernel(const float* __restrict__ power,
 template <int BN, int STAGES>
 int launch_wgmma(const float* frames, const float* bases, const float* fb,
                  float* partial, int T, int n_fft, int groups, int n_mels,
-                 cudaStream_t st) {
+                 FrameGeom geom, cudaStream_t st) {
   constexpr int kStage = 4 * kTileB * kTileK * 4 + 2 * BN * kTileK * 4;
   const size_t ring = static_cast<size_t>(STAGES) * kStage;
   const size_t tail = (static_cast<size_t>(kTileB) * (BN + 4)
@@ -509,17 +553,19 @@ int launch_wgmma(const float* frames, const float* bases, const float* fb,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((T + BN - 1) / BN, groups);
   logmel_wgmma_kernel<BN, STAGES><<<grid, kThreads, smem, st>>>(
-      frames, bases, fb, partial, T, n_fft, groups * kTileB, n_mels);
+      frames, bases, fb, partial, T, n_fft, groups * kTileB, n_mels, geom);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Batch path. frames (T, n_fft) f32, 16-byte aligned; bases
-// (4, groups*64, n_fft) f32: the TF32 split (big, small) of Wc, then of Ws,
-// live bins only, zero-padded rows; fb (groups*64, n_mels) f32; partial
-// (groups, T, n_mels) f32 scratch; out (T, n_mels) f32; all contiguous on
-// the current device; n_fft a multiple of 32, n_mels <= 256. Launches on
+// Batch path. frames: T frames of n_fft f32 samples (adjacent), frame r at
+// (r / per_batch) * batch_stride + (r % per_batch) * frame_stride floats
+// from `frames`, any 4-byte alignment; bases (4, groups*64, n_fft) f32: the
+// TF32 split (big, small) of Wc, then of Ws, live bins only, zero-padded
+// rows; fb (groups*64, n_mels) f32; partial (groups, T, n_mels) f32
+// scratch; out (T, n_mels) f32; all but the frames contiguous, on the
+// current device; n_fft a multiple of 32, n_mels <= 256. Launches on
 // `stream` and returns the first error (cudaError_t).
 //
 // Tile: 128 frames per block with 3 stages (one block per SM) where that
@@ -529,10 +575,13 @@ int launch_wgmma(const float* frames, const float* bases, const float* fb,
 extern "C" int km_logmel_batch(const float* frames, const float* bases,
                                const float* fb, float* partial, float* out,
                                int T, int n_fft, int groups, int n_mels,
-                               void* stream) {
+                               int per_batch, int batch_stride,
+                               int frame_stride, void* stream) {
   if (T <= 0) return 0;
-  if (n_fft % kTileK != 0 || n_mels > kMaxMels || groups <= 0)
+  if (n_fft % kTileK != 0 || n_mels > kMaxMels || groups <= 0
+      || per_batch <= 0 || batch_stride < 0 || frame_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const FrameGeom geom{per_batch, batch_stride, frame_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
   cudaError_t q = cudaGetDevice(&dev);
@@ -542,9 +591,10 @@ extern "C" int km_logmel_batch(const float* frames, const float* bases,
   const bool wide = static_cast<long long>((T + 127) / 128) * groups
                     >= 2LL * sms;
   const int err = wide ? launch_wgmma<128, 3>(frames, bases, fb, partial, T,
-                                              n_fft, groups, n_mels, st)
+                                              n_fft, groups, n_mels, geom, st)
                        : launch_wgmma<32, 2>(frames, bases, fb, partial, T,
-                                             n_fft, groups, n_mels, st);
+                                             n_fft, groups, n_mels, geom,
+                                             st);
   if (err != 0) return err;
   const int count = T * n_mels;
   logmel_reduce_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0,
@@ -552,9 +602,9 @@ extern "C" int km_logmel_batch(const float* frames, const float* bases,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Single-frame path, 1 <= T <= 8. frames (T, n_fft) f32; wc, ws (n_live,
-// n_fft) f32, the live bins; fb_nz f32, each mel's nonzero weights in bin
-// order, mel after mel; spans (n_mels, 3) int32 in host memory, each mel's
+// Single-frame path, 1 <= T <= 8. frames as for the batch path; wc, ws
+// (n_live, n_fft) f32, the live bins; fb_nz f32, each mel's nonzero
+// weights in bin order, mel after mel; spans (n_mels, 3) int32 in host memory, each mel's
 // nonzero bins [first, last+1) and the offset of its weights in fb_nz;
 // power (T, n_live) f32 scratch; out (T, n_mels) f32; n_fft a multiple of
 // 32, at most 1024; n_mels at most 256. Launches on `stream` and returns
@@ -563,15 +613,18 @@ extern "C" int km_logmel_rows(const float* frames, const float* wc,
                               const float* ws, const float* fb_nz,
                               const int* spans, float* power, float* out,
                               int T, int n_fft, int n_live, int n_mels,
-                              void* stream) {
+                              int per_batch, int batch_stride,
+                              int frame_stride, void* stream) {
   if (T <= 0) return 0;
   if (T > kSmallT || n_fft % 32 != 0 || n_fft > 1024 || n_live <= 0
-      || n_mels > kMaxMels)
+      || n_mels > kMaxMels || per_batch <= 0 || batch_stride < 0
+      || frame_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const FrameGeom geom{per_batch, batch_stride, frame_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   logmel_rows_power_kernel<<<(n_live + kRowBins - 1) / kRowBins,
                              64 * kRowBins, 0, st>>>(frames, wc, ws, power,
-                                                     T, n_fft, n_live);
+                                                     T, n_fft, n_live, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   MelSpans sp;

@@ -326,16 +326,19 @@ def _long_jitter_active(cfg: EgemapsConfig) -> bool:
 
 
 def silence_lld_carry(cfg: EgemapsConfig = EgemapsConfig(),
-                      device=None) -> LldCarry:
-    """Carry representing preceding silence (stream start)."""
+                      device=None, lanes: Optional[int] = None) -> LldCarry:
+    """Carry representing preceding silence (stream start); with
+    ``lanes``, one such carry per lane along a leading dim."""
     n_bins = cfg.n_fft // 2 + 1
+    lead = () if lanes is None else (lanes,)
     long_fields = {}
     if _long_jitter_active(cfg):
         long_fields = dict(
-            audio_tail=torch.zeros((512,), dtype=torch.float32,
+            audio_tail=torch.zeros(lead + (512,), dtype=torch.float32,
                                    device=device),
-            ctx_filled=torch.zeros((), dtype=torch.int32, device=device))
-    return LldCarry(prev_mag=torch.full((n_bins,), 1e-10, device=device),
+            ctx_filled=torch.zeros(lead, dtype=torch.int32, device=device))
+    return LldCarry(prev_mag=torch.full(lead + (n_bins,), 1e-10,
+                                        device=device),
                     **long_fields)
 
 
@@ -358,17 +361,33 @@ LLD_RING_SPEC: tuple = (
 )
 
 
-def init_lld_ring(rows: int, device=None) -> dict[str, torch.Tensor]:
-    """All-silence LLD ring: zeros, unvoiced, no formants."""
-    return {k: torch.zeros((rows,) + shape, dtype=dtype, device=device)
+#: LLD channel -> the position of its row axis, counted from the end
+_RING_ROW_AXIS = {k: -1 - len(shape) for k, shape, _ in LLD_RING_SPEC}
+
+
+def init_lld_ring(rows: int, device=None, lanes: Optional[int] = None
+                  ) -> dict[str, torch.Tensor]:
+    """All-silence LLD ring: zeros, unvoiced, no formants; ``(rows,
+    *trailing)`` per channel, with ``lanes`` ``(lanes, rows, *trailing)``."""
+    lead = () if lanes is None else (lanes,)
+    return {k: torch.zeros(lead + (rows,) + shape, dtype=dtype,
+                           device=device)
             for k, shape, dtype in LLD_RING_SPEC}
 
 
 def roll_lld_ring(ring: dict[str, torch.Tensor],
                   block: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Shift a block of new rows into the ring (newest rows last)."""
-    n_new = block["voiced"].shape[0]
-    return {k: torch.cat([ring[k][n_new:], block[k]], 0) for k in ring}
+    """Shift a block of new rows into the ring (newest rows last). Each
+    channel is ``(..., rows, *trailing)``: the roll runs along its row
+    axis, so any leading (lane) dims pass through."""
+    n_new = block["voiced"].shape[-1]
+    out = {}
+    for k in ring:
+        axis = _RING_ROW_AXIS[k]
+        old = ring[k]
+        out[k] = torch.cat([old.narrow(axis, n_new, old.shape[axis] - n_new),
+                            block[k]], axis)
+    return out
 
 
 def compute_llds(audio: torch.Tensor, cfg: EgemapsConfig = EgemapsConfig()

@@ -170,14 +170,11 @@ def frames_to_logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
                      n_mels: int = 80, f_min: float = 80.0,
                      f_max: float = 8000.0) -> torch.Tensor:
     """:func:`frames_to_logmel_plain`'s function: the CUDA kernel for CUDA
-    tensors, the plain form for CPU tensors."""
+    tensors (the frames read in place), the plain form for CPU tensors."""
     kw = dict(sample_rate=sample_rate, n_mels=n_mels, f_min=f_min,
               f_max=f_max)
     if frames.device.type == "cuda":
-        lead, n_fft = frames.shape[:-1], frames.shape[-1]
-        out = cuda_kernels.logmel(frames.reshape(-1, n_fft).contiguous(),
-                                  **kw)
-        return out.reshape(lead + (n_mels,))
+        return cuda_kernels.logmel(frames, **kw)
     if frames.device.type == "cpu":
         return frames_to_logmel_plain(frames, **kw)
     raise ValueError(f"frames_to_logmel: unsupported device {frames.device}")

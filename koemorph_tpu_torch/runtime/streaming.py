@@ -147,41 +147,62 @@ class StreamState:
     lld_carry: LldCarry
 
 
-def init_stream_state(cfg: StreamingConfig, device=None) -> StreamState:
+def init_stream_state(cfg: StreamingConfig, device=None,
+                      lanes: Optional[int] = None) -> StreamState:
+    """A fresh stream's state; with ``lanes``, that of ``lanes`` fresh
+    streams, every field but ``frame_count`` with a leading lane dim (the
+    EMA carry ``(lanes, 52)``)."""
+    lead = () if lanes is None else (lanes,)
     return StreamState(
-        audio_ring=torch.zeros((cfg.emotion_ring_len,), device=device),
-        mel_db=torch.full((cfg.window_frames + 1, cfg.n_mels), -100.0,
+        audio_ring=torch.zeros(lead + (cfg.emotion_ring_len,), device=device),
+        mel_db=torch.full(lead + (cfg.window_frames + 1, cfg.n_mels), -100.0,
                           device=device),
-        emotion_raw=torch.zeros((cfg.emotion_raw_dim,), device=device),
+        emotion_raw=torch.zeros(lead + (cfg.emotion_raw_dim,), device=device),
         frame_count=0,
-        temporal=TemporalState.create(1, cfg.num_blendshapes, device),
-        lld_ring=init_lld_ring(cfg.lld_ring_rows, device),
-        lld_carry=silence_lld_carry(cfg.egemaps_config, device))
+        temporal=TemporalState.create(lanes or 1, cfg.num_blendshapes,
+                                      device),
+        lld_ring=init_lld_ring(cfg.lld_ring_rows, device, lanes),
+        lld_carry=silence_lld_carry(cfg.egemaps_config, device, lanes))
 
 
 def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
-    """dB mel row of the newest computable centered frame: after exactly
-    ``hop`` samples per step its window ends ``(-(n_fft//2)) mod hop``
-    samples before the ring end. One launch of the fused frontend at
-    T = 1 on the GPU."""
+    """dB mel row of the newest computable centered frame of each ring
+    ``(..., ring_len)`` -> ``(..., n_mels)``: after exactly ``hop`` samples
+    per step its window ends ``(-(n_fft//2)) mod hop`` samples before the
+    ring end. One launch of the fused frontend on the GPU, over a view of
+    the rings (T = the number of rings; no copy)."""
     offset = (-(cfg.n_fft // 2)) % cfg.hop_length
-    end = ring.shape[0] - offset
-    return frontend.frames_to_logmel(ring[end - cfg.n_fft: end][None],
-                                     sample_rate=cfg.sample_rate,
-                                     n_mels=cfg.n_mels, f_min=cfg.f_min,
-                                     f_max=cfg.f_max)[0]
+    end = ring.shape[-1] - offset
+    frames = ring[..., end - cfg.n_fft: end]
+    db = frontend.frames_to_logmel(frames.reshape(-1, cfg.n_fft),
+                                   sample_rate=cfg.sample_rate,
+                                   n_mels=cfg.n_mels, f_min=cfg.f_min,
+                                   f_max=cfg.f_max)
+    return db.reshape(frames.shape[:-1] + (cfg.n_mels,))
 
 
 def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
                 cfg: StreamingConfig):
-    """Ring shift, one new mel row, per-window ref=max normalization."""
-    ring = torch.cat([state.audio_ring[cfg.hop_length:], hop_audio])
+    """Ring shift, one new mel row, per-window ref=max normalization, each
+    over the leading (lane) dims of the state: the max is each window's
+    own. Returns the new ring and dB rows, and ``mel (B, W, n_mels)`` and
+    ``detail (B, 3, n_mels)`` (B = 1 for an unbatched state)."""
+    ring = torch.cat([state.audio_ring[..., cfg.hop_length:], hop_audio], -1)
     row = _new_mel_row(cfg, ring)
-    mel_db = torch.cat([state.mel_db[1:], row[None, :]], 0)
-    norm = (torch.clamp_min(mel_db - mel_db.max(), -80.0) + 80.0) / 80.0
-    mel = norm[None, : cfg.window_frames, :]          # (1, W, n_mels)
-    detail = norm[None, -3:, :]                       # (1, 3, n_mels)
+    mel_db = torch.cat([state.mel_db[..., 1:, :], row[..., None, :]], -2)
+    wmax = mel_db.amax(dim=(-2, -1), keepdim=True)
+    norm = (torch.clamp_min(mel_db - wmax, -80.0) + 80.0) / 80.0
+    norm = norm.reshape((-1,) + norm.shape[-2:])
+    mel = norm[:, : cfg.window_frames, :]             # (B, W, n_mels)
+    detail = norm[:, -3:, :]                          # (B, 3, n_mels)
     return ring, mel_db, mel, detail
+
+
+def _refresh_tail_len(cfg: StreamingConfig) -> int:
+    """Samples at the end of the post-hop audio ring that a refresh
+    reads: the LLD block's chunk (its low-pitch left context comes from
+    the carry)."""
+    return (cfg.lld_block_rows - 1) * cfg.egemaps_config.hop_length + 512
 
 
 @functools.lru_cache(maxsize=8)
@@ -194,14 +215,17 @@ def _offset_masks(rows: int, cuts: tuple, device: torch.device
 def _stream_refresh(state: StreamState, ring: torch.Tensor,
                     cfg: StreamingConfig, do_refresh: bool):
     """The eGeMAPS refresh on refresh frames; otherwise the cached vector.
-    Returns (emotion_raw, lld_ring, lld_carry)."""
+    ``ring`` is the post-hop audio ring ``(..., ring_len)``, or any view
+    of it whose last ``_refresh_tail_len(cfg)`` samples are its end; only
+    ``emotion_raw``, ``lld_ring`` and ``lld_carry`` of ``state`` are read,
+    with the same leading (lane) dims. Returns (emotion_raw, lld_ring,
+    lld_carry)."""
     if not do_refresh:
         return state.emotion_raw, state.lld_ring, state.lld_carry
     ecfg = cfg.egemaps_config
     rows = cfg.lld_ring_rows
-    chunk_len = (cfg.lld_block_rows - 1) * ecfg.hop_length + 512
-    block, carry = compute_lld_block(ring[-chunk_len:], ecfg,
-                                     state.lld_carry)
+    block, carry = compute_lld_block(ring[..., -_refresh_tail_len(cfg):],
+                                     ecfg, state.lld_carry)
     lld_ring = roll_lld_ring(state.lld_ring, block)
     fp = ecfg.hop_length / ecfg.sample_rate
     offsets = (cfg.emotion_config.window_offsets
@@ -214,10 +238,11 @@ def _stream_refresh(state: StreamState, ring: torch.Tensor,
 def _stream_post(model: StreamingDualStreamModel, mel: torch.Tensor,
                  detail: torch.Tensor, emotion_raw: torch.Tensor,
                  temporal: TemporalState):
-    """Emotion projection, dual-stream attention, EMA."""
-    out = model(mel, detail, emotion_raw[None, :])
-    smoothed, temporal = _ema_step(out, temporal, model.alpha())
-    return {"blendshapes": smoothed[0]}, temporal
+    """Emotion projection, dual-stream attention, EMA over ``B`` windows
+    (``emotion_raw`` ``(D_raw,)`` for B = 1, or ``(B, D_raw)``). Returns
+    the ``(B, 52)`` smoothed blendshapes and the new EMA carry."""
+    out = model(mel, detail, emotion_raw.reshape(-1, emotion_raw.shape[-1]))
+    return _ema_step(out, temporal, model.alpha())
 
 
 def stream_frame(model: StreamingDualStreamModel, state: StreamState,
@@ -244,9 +269,9 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
     ring, mel_db, mel, detail = _stream_pre(state, hop_audio, cfg)
     emotion_raw, lld_ring, lld_carry = _stream_refresh(state, ring, cfg,
                                                        do_refresh)
-    result, temporal = _stream_post(model, mel, detail, emotion_raw,
-                                    state.temporal)
-    return result, StreamState(
+    smoothed, temporal = _stream_post(model, mel, detail, emotion_raw,
+                                      state.temporal)
+    return {"blendshapes": smoothed[0]}, StreamState(
         audio_ring=ring, mel_db=mel_db, emotion_raw=emotion_raw,
         frame_count=state.frame_count + 1, temporal=temporal,
         lld_ring=lld_ring, lld_carry=lld_carry)
