@@ -26,36 +26,59 @@ Phases, each printing one JSON line:
    high-dynamic-range set (a near-full-scale tone, noise 90 dB below)
    both the kernel's and the plain form's errors against a float64 form
    on the card, mel bins within 80 dB of each frame's maximum;
+Every path runs as the card runs it by default, one CUDA graph replay
+per step (``runtime/graphs.py``), and each is held bit for bit against
+the same path run eagerly (``graphs=False``), which also records the
+arguments each kernel was called with. Each main path is driven with the
+launch counts set to 0 just before its engine is built: the wrappers
+count the warm-up runs' launches and those each capture records, and the
+replays, which run without the wrappers, are counted from the profiler's
+kernel names over the whole run and held equal to what the replayed
+graphs recorded. The plain-form comparisons run eager engines built
+inside ``plain_forms()``.
+
 6. stream: the flagship streaming model (d_model 256, 8 heads, 256-frame
    window, 80 mels, 264-D eGeMAPS, 20 s ring, refresh every 9 frames) over
-   3.5 s of synthetic voiced audio through ``StreamingInference``, with the
-   kernels' launch counts, then the same stream with the plain forms;
+   3.5 s of synthetic voiced audio through ``StreamingInference`` (four
+   graphs), with the kernels' launch counts, against the eager stream
+   bitwise, then the same stream with the plain forms;
 7. decode: ``BatchedSequentialDecoder`` at the flagship width over 8
-   utterances of 17.06 s (stride 4, reflect window edges), with launch
-   counts, then with the plain forms; ``decode_scheduled`` with strides
-   4 and 8; a 60 fps decode; ``exact_window_stft`` against the reflect
-   splice on 9 s; the arguments the stream and the decode passed
-   ``cycle_dsum`` (recorded in phases 6 and 7: frame views, not copies)
-   against the plain form;
+   utterances of 17.06 s (stride 4, reflect window edges), one graph,
+   with launch counts, against the eager decode bitwise, then with the
+   plain forms; ``decode_scheduled`` (eager) with strides 4 and 8; a
+   60 fps decode; ``exact_window_stft`` against the reflect splice on
+   9 s; the first and second calls of an unseen length, graphed and
+   eager (``decode_new_length``); eager decodes of 40 other lengths,
+   which evict the cached constants the graphs read from their caches,
+   then the decode's and the stream's graphs again, bitwise as before
+   (``graphs_hold_constants``); the arguments the stream and the decode
+   passed ``cycle_dsum`` (recorded in phases 6 and 7: frame views, not
+   copies) against the plain form;
 8. serving: ``MultiStreamInference`` at the flagship width, 64 sessions
    of the voiced pattern shifted 0.25 s per lane, 105 steps, with one
-   refresh clock and with 8 refresh cohorts (``multistream``: launch
-   counts, ``logmel`` once per step at T = 64, ``cycle_dsum`` twice and
-   ``dk_roots`` once per refreshing cohort-step at 1,920 or 240 rows);
+   refresh clock and with 8 refresh cohorts (``multistream``: 2(G+1)
+   graphs, launch counts, ``logmel`` once per step at T = 64,
+   ``cycle_dsum`` twice and ``dk_roots`` once per refreshing cohort-step
+   at 1,920 or 240 rows, bitwise equal to the eager server);
    lanes of cohorts 0, 1, 5 and 7 against dedicated ``StreamingInference``
    engines whose clocks start at the cohort's phase
    (``multistream_lanes``); both clock settings with the plain forms
    (``multistream_plain``); a lane reset against a fresh phase-shifted
-   engine, the other lanes untouched (``multistream_reset``); int16 input
-   bitwise equal to float (``multistream_int16``); step times, kernels
-   and device busy per step, ``sustained_stats`` at 64 and 256 sessions
-   with 8 cohorts and with one clock (``multistream_times``); ``python
-   -m koemorph_tpu_torch.serve`` in replay mode (``serve_cli``) and in
-   listen mode fed over loopback by ``python -m
-   koemorph_tpu_torch.feed_serve`` (``serve_listen``);
+   engine, the other lanes untouched, graphed bitwise equal to eager
+   (``multistream_reset``); int16 input bitwise equal to float, graphed
+   and eager (``multistream_int16``); step times, kernels and device busy
+   per step, graph count, capture time and peak memory, graphed and
+   eager, ``sustained_stats`` at 64 and 256 sessions with 8 cohorts and
+   with one clock, and one clock's refreshing step at 256 sessions
+   (``multistream_times``); ``python -m koemorph_tpu_torch.serve`` in
+   replay mode (``serve_cli``) and in listen mode fed over loopback by
+   ``python -m koemorph_tpu_torch.feed_serve`` (``serve_listen``);
 9. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
-10. times: per-frame stream times and profiles, the decode's time per call,
-   frames per second, profile and stage split, and per-launch kernel times
+10. times: per-frame stream times and profiles (graphed and eager; the
+   eager refresh frame also with the eGeMAPS index copies put back, and
+   in a profiling window without a lead-in), the
+   decode's time per call, frames per second and profile (graphed and
+   eager) and stage split, and per-launch kernel times
    (back-to-back launches timed with CUDA events, ``ms``, and the kernels'
    own device duration per call from the profiler, ``device_ms``) beside
    the plain forms, a library call where one exists, and the bound the
@@ -68,12 +91,19 @@ Phases, each printing one JSON line:
    also on the arguments the stream and the decode passed it.
 
 Every check that fails raises, so the script exits non-zero; no phase
-catches its own failure. The last lines are the kernels table, the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+catches its own failure. Among the checks: the graphed single-session
+refresh frame and the graphed 64-session refreshing step with one clock
+have a p99 under the 33.3 ms frame budget, the kernels each main path's
+replays ran (the profiler's kernel names) are those their captures
+recorded, and a graphed non-refreshing server step is no busier on the
+device than the eager one (within 5%). The last lines are the kernels
+table, the ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -102,6 +132,7 @@ EXACT_EDGE_MAX = 1e-3                  # docs/flagship_parity.json e2e gate
 SERVE_PLAIN_MAX = 1e-4                 # kernels vs plain forms, served
 SERVE_LANE_MAX = 1e-4                  # a lane vs its dedicated engine
 SERVE_UNTOUCHED_MAX = 1e-6             # lanes beside a reset lane
+BUDGET_MS = 1e3 / 30                   # a 30 fps frame
 SR, HOP = 16000, 533
 DECODE_B, DECODE_LEN, DECODE_STRIDE = 8, 512 * HOP, 4
 SERVE_S, SERVE_BIG, SERVE_STEPS, SERVE_SHIFT = 64, 256, 105, 4000
@@ -133,32 +164,130 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+MEASURED = "chip_smoke.measured"
+
+
 def profiled(fn):
-    """Run ``fn()`` under ``torch.profiler`` (input shapes recorded)."""
+    """Run ``fn()`` under ``torch.profiler`` (input shapes recorded) in a
+    ``MEASURED`` range, after a lead-in: a profiling window loses its
+    first few device activities, so it starts with 64 tiny kernels, a
+    synchronization and 20 ms of sleep, which ``measured_events`` leaves
+    out. ``prof.wall_s`` is the host time of ``fn()`` to a
+    synchronization."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        fn()
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(64):
+            lead.add_(1.0)
         torch.cuda.synchronize()
+        time.sleep(0.02)
+        t0 = time.perf_counter()
+        with record_function(MEASURED):
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.wall_s = wall
     return prof
 
 
+def measured_events(prof):
+    """The profile's events that start inside its ``MEASURED`` range (1 ms
+    of slack for clock alignment; the lead-in ended 20 ms before)."""
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == MEASURED)
+    return [e for e in events
+            if e.name != MEASURED and e.time_range.start >= start - 1000]
+
+
 def device_kernels(fn, prof=None):
-    """The device kernels ``fn()`` ran as (name, microseconds) pairs, from
-    ``torch.profiler`` (empty when the profiler sees no device activity);
-    ``prof`` reuses a profile of ``fn`` already taken."""
+    """The device activities (kernels, copies, fills) ``fn()`` ran as
+    (name, microseconds) pairs, from ``torch.profiler`` (empty when the
+    profiler sees no device activity); ``prof`` reuses a profile of
+    ``fn`` already taken."""
     prof = prof or profiled(fn)
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if str(e.device_type).endswith("CUDA")]
+    return [(e.name, e.time_range.elapsed_us()) for e in
+            measured_events(prof) if str(e.device_type).endswith("CUDA")]
+
+
+#: the profiler's kernel names of each hand-written kernel's source
+KERNEL_PATTERNS = {"cycle_dsum": "cycle_dsum_kernel",
+                   "dk_roots": "dk_roots_kernel", "logmel": "logmel_"}
+#: the kernels one launch of each wrapper runs (the logmel wrapper: its
+#: power or product pass and its mel or reduction pass)
+KERNELS_PER_LAUNCH = {"cycle_dsum": 1, "dk_roots": 1, "logmel": 2}
+
+
+def own_kernels(ks, per: float = 1.0) -> dict:
+    """Device kernels of each hand-written source among profiled (name,
+    µs) pairs, per ``per`` (the logmel wrapper launches two: its power or
+    product pass and its mel or reduction pass)."""
+    return {src: sum(pat in name for name, _ in ks) / per
+            for src, pat in KERNEL_PATTERNS.items()}
+
+
+def copies(ks, per: float = 1.0) -> dict:
+    """Copies and fills among profiled (name, µs) pairs, by kind, per
+    ``per``: the device activities that are not kernels."""
+    out: dict = {}
+    for name, _ in ks:
+        if name.startswith(("Memcpy", "Memset")):
+            out[name] = out.get(name, 0.0) + 1.0 / per
+    return out
+
+
+def recorded(graphs, key) -> dict:
+    """The launches the capture of ``key`` recorded, by kernel."""
+    by = dict.fromkeys(KERNEL_PATTERNS, 0)
+    for (name, _), n in graphs.launches(key).items():
+        by[name] += n
+    return by
+
+
+def graph_info(graphs) -> dict:
+    """Graph count, capture seconds (warm-up runs included), the launches
+    each graph's capture recorded, by kernel, and its replays."""
+    return {"count": len(graphs), "capture_s": graphs.capture_s,
+            "recorded_launches": {str(k): recorded(graphs, k)
+                                  for k in graphs.keys()},
+            "replays": {str(k): n for k, n in graphs.replays.items()}}
+
+
+def refresh_record(t: int, rows: int, refresh: bool) -> dict:
+    """The launches, by ``(name, shape)``, a stream or server step records:
+    ``logmel`` on its ``t`` newest frames; on a refresh ``cycle_dsum`` at
+    both frame lengths and ``dk_roots`` on ``rows`` LLD rows."""
+    rec = {("logmel", (t,)): 1}
+    if refresh:
+        rec.update({("cycle_dsum", (rows, 8, 17, 512)): 1,
+                    ("cycle_dsum", (rows, 5, 33, 1024)): 1,
+                    ("dk_roots", (rows,)): 1})
+    return rec
+
+
+def replayed_launches(graphs, fn) -> tuple[dict, dict]:
+    """Run ``fn()`` profiled. Returns the launches of each hand-written
+    kernel the profiler saw, from the kernel names, and those the graphs
+    ``fn()`` replayed recorded at capture (each graph's record times its
+    replays in the run)."""
+    before = collections.Counter(graphs.replays)
+    ks = device_kernels(None, profiled(fn))
+    seen = {src: n / KERNELS_PER_LAUNCH[src]
+            for src, n in own_kernels(ks).items()}
+    want = dict.fromkeys(KERNEL_PATTERNS, 0)
+    for key, n in graphs.replays.items():
+        for name, c in recorded(graphs, key).items():
+            want[name] += (n - before[key]) * c
+    return seen, want
 
 
 def top_ops(prof, per: float, n: int = 8) -> dict:
     """Device microseconds per call by the host operator (with its input
     shapes) that launched each kernel, the ``n`` largest."""
     acc: dict = {}
-    for e in prof.events():
+    for e in measured_events(prof):
         for k in getattr(e, "kernels", []) or []:
             shapes = [list(s) for s in (e.input_shapes or []) if s]
             key = f"{e.name}{shapes}"[:90]
@@ -656,19 +785,24 @@ def main() -> int:  # noqa: C901
         check(ok, f"logmel high-dynamic-range error at T={t_hdr}")
 
     # ---- 6. the flagship stream through the user entry points ----
+    # graphed, the card's default: warmup() captures the step's graphs
+    # (the wrappers count the warm-up runs and the captures); the replays
+    # are counted from the profiler's kernel names
     model, cfg = build_streaming_model(seed=0)
-    engine = StreamingInference(model, cfg)
     audio = voiced_audio(3.5, seed=1)
-    engine.warmup()
-    path_rec: dict = {}
+    profiled(lambda: None)       # the profiler's first use starts its tracer
     ck.reset_launch_counts()
-    with recording_kernels(path_rec, "stream"):
-        frames = engine.process_audio(audio)
-    torch.cuda.synchronize()
+    engine = StreamingInference(model, cfg)
+    engine.warmup()
+    check(engine.step_graphs.enabled and len(engine.step_graphs) == 4,
+          "the stream did not capture its four graphs")
+    box = []
+    seen, want = replayed_launches(
+        engine.step_graphs, lambda: box.append(engine.process_audio(audio)))
     launches = dict(ck.LAUNCHES)
     stream_shapes = dict(ck.SHAPE_LAUNCHES)
-    bs = np.stack(frames)
-    n_frames = len(frames)
+    bs = np.stack(box[0])
+    n_frames = len(bs)
     n_refresh = -(-n_frames // cfg.emotion_update_frames)
     emit({"phase": "stream", "frames": n_frames, "refreshes": n_refresh,
           "shape": list(bs.shape), "finite": bool(np.isfinite(bs).all()),
@@ -676,21 +810,39 @@ def main() -> int:  # noqa: C901
           "launches": launches,
           "launches_by_shape": {f"{k[0]}{list(k[1])}": v
                                 for k, v in stream_shapes.items()},
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "graphs": graph_info(engine.step_graphs),
           "performance_stats": engine.performance_stats()})
     check(n_frames >= 90 and bs.shape[1:] == (52,), "stream shape")
     check(bool(np.isfinite(bs).all()), "stream has non-finite values")
     check(bs.min() >= 0.0 and bs.max() <= 1.0, "blendshapes outside [0, 1]")
-    check(launches["cycle_dsum"] == 2 * n_refresh
-          and launches["dk_roots"] == n_refresh
-          and launches["logmel"] == n_frames,
-          f"kernel launches {launches} for {n_frames} frames and "
-          f"{n_refresh} refreshes")
+    for key in engine.step_graphs.keys():          # (refresh, parity)
+        rec = dict(engine.step_graphs.launches(key))
+        check(rec == refresh_record(1, 30, key[0]),
+              f"the stream's graph {key} recorded {rec}")
+    check(seen == want == {"cycle_dsum": 2 * n_refresh,
+                           "dk_roots": n_refresh, "logmel": n_frames},
+          f"the stream's replays ran {seen}, their captures recorded "
+          f"{want}, for {n_frames} frames and {n_refresh} refreshes")
+
+    # the same stream eager, the reference the graphs are held to bit for
+    # bit; it records the arguments each kernel was called with
+    path_rec: dict = {}
+    eager_engine = StreamingInference(model, cfg, graphs=False)
+    eager_engine.warmup()
+    with recording_kernels(path_rec, "stream"):
+        eager_bs = np.stack(eager_engine.process_audio(audio))
+    emit({"phase": "stream_graphed_vs_eager", "frames": n_frames,
+          "bitwise_equal": bool(np.array_equal(bs, eager_bs)),
+          "max_abs_diff": float(np.abs(bs - eager_bs).max())})
+    check(np.array_equal(bs, eager_bs), "graphed stream != eager stream")
 
     # the same stream with the plain forms on the card
     with plain_forms():
-        engine.reset()
+        plain_engine = StreamingInference(model, cfg, graphs=False)
         before = dict(ck.LAUNCHES)
-        plain = np.stack(engine.process_audio(audio))
+        plain = np.stack(plain_engine.process_audio(audio))
         check(dict(ck.LAUNCHES) == before, "the plain stream launched a "
               "kernel")
     d_plain = float(np.abs(plain - bs).max())
@@ -704,24 +856,36 @@ def main() -> int:  # noqa: C901
         m.init_random(torch.Generator().manual_seed(seed))
         return m
 
-    decoder = BatchedSequentialDecoder(seq_model(
-        mel_sequence_length=256, target_fps=30,
-        stride_frames=DECODE_STRIDE, window_edge="reflect"))
-    decoder(audio_dev)                              # warm-up
-    torch.cuda.synchronize()
+    dec_model = seq_model(mel_sequence_length=256, target_fps=30,
+                          stride_frames=DECODE_STRIDE, window_edge="reflect")
     ck.reset_launch_counts()
-    with recording_kernels(path_rec, "decode"):
-        out = decoder(audio_dev)
-    torch.cuda.synchronize()
+    decoder = BatchedSequentialDecoder(dec_model)
+    decoder(audio_dev)                  # the first call captures its graph
+    box = []
+    seen, want = replayed_launches(
+        decoder.step_graphs, lambda: box.append(decoder(audio_dev)))
     dec_launches = dict(ck.LAUNCHES)
     dec_shapes = dict(ck.SHAPE_LAUNCHES)
-    out_np = out.cpu().numpy()
+    out_np = box[0].cpu().numpy()
     emit({"phase": "decode", "card": card, "shape": list(out_np.shape),
           "finite": bool(np.isfinite(out_np).all()),
           "min": float(out_np.min()), "max": float(out_np.max()),
           "launches": dec_launches,
           "launches_by_shape": {f"{k[0]}{list(k[1])}": v
-                                for k, v in dec_shapes.items()}})
+                                for k, v in dec_shapes.items()},
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "graphs": graph_info(decoder.step_graphs)})
+    check(len(decoder.step_graphs) == 1, "the decode was not one graph")
+    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2},
+          f"the decode's replay ran {seen}, its capture recorded {want}")
+    eager_decoder = BatchedSequentialDecoder(decoder.model, graphs=False)
+    with recording_kernels(path_rec, "decode"):
+        eager_np = eager_decoder(audio_dev).cpu().numpy()
+    emit({"phase": "decode_graphed_vs_eager",
+          "bitwise_equal": bool(np.array_equal(out_np, eager_np)),
+          "max_abs_diff": float(np.abs(out_np - eager_np).max())})
+    check(np.array_equal(out_np, eager_np), "graphed decode != eager")
     check(out_np.shape == (DECODE_B, n_out, 52), "decode shape")
     check(bool(np.isfinite(out_np).all()), "decode has non-finite values")
     check(out_np.min() >= 0.0 and out_np.max() <= 1.0,
@@ -734,7 +898,7 @@ def main() -> int:  # noqa: C901
 
     with plain_forms(), torch.inference_mode():
         before = dict(ck.LAUNCHES)
-        plain_out = decoder(audio_dev).cpu().numpy()
+        plain_out = eager_decoder(audio_dev).cpu().numpy()
         emo_plain = decoder.model.emotion_raw(audio_dev)
         check(dict(ck.LAUNCHES) == before, "the plain decode launched a "
               "kernel")
@@ -766,16 +930,17 @@ def main() -> int:  # noqa: C901
 
     dec60 = BatchedSequentialDecoder(seq_model(
         mel_sequence_length=512, target_fps=60, stride_frames=4))
-    ck.reset_launch_counts()
     out60 = dec60(audio_dev[:1]).cpu().numpy()
     n60 = (DECODE_LEN // 266 - 512) // 4 + 1
+    (key60,) = dec60.step_graphs.keys()
+    rec60 = dict(dec60.step_graphs.launches(key60))
     emit({"phase": "decode_60fps", "shape": list(out60.shape),
           "finite": bool(np.isfinite(out60).all()),
-          "launches_by_shape": {f"{k[0]}{list(k[1])}": v
-                                for k, v in ck.SHAPE_LAUNCHES.items()}})
+          "recorded_launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                         for k, v in rec60.items()}})
     check(out60.shape == (1, n60, 52) and bool(np.isfinite(out60).all())
           and out60.min() >= 0.0 and out60.max() <= 1.0, "60 fps decode")
-    check(ck.SHAPE_LAUNCHES.get(("logmel", (n60 * 2 * 2,)), 0) == 1,
+    check(rec60.get(("logmel", (n60 * 2 * 2,)), 0) == 1,
           "60 fps decode: two edge frames per window end")
 
     reflect_model = seq_model(mel_sequence_length=256, target_fps=30)
@@ -791,6 +956,61 @@ def main() -> int:  # noqa: C901
           "bound": EXACT_EDGE_MAX})
     check(r9.shape == e9.shape == (1, 15, 52), "exact decode shape")
     check(d_exact <= EXACT_EDGE_MAX, "exact_window_stft != reflect splice")
+
+    # the first call of a length the decoder has not seen (graphed: a
+    # warm-up run, a capture and a replay) against eager's first call of
+    # another unseen length, and the second calls: host wall ms to a
+    # synchronization
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    new_len = {"graphed": (decoder, DECODE_LEN - 1100),
+               "eager": (eager_decoder, DECODE_LEN - 3300)}
+    first_calls = {}
+    for tag, (dec, n_len) in new_len.items():
+        x = audio_dev[:, :n_len].contiguous()
+        capture_s = dec.step_graphs.capture_s
+        first_calls[tag] = {
+            "samples": n_len, "first_ms": wall_ms(lambda: dec(x)),
+            "second_ms": wall_ms(lambda: dec(x)),
+            "capture_s": dec.step_graphs.capture_s - capture_s}
+    emit({"phase": "decode_new_length", "card": card, "batch": DECODE_B,
+          **first_calls, "graphs_kept": len(decoder.step_graphs),
+          "max_graphs": decoder.max_graphs})
+    check(len(decoder.step_graphs) == 2, "the new length's graph")
+
+    # a graph holds the cached constants it reads: eager decodes of 40
+    # other lengths push every shape-keyed entry the decode's and the
+    # stream's graphs read (masks, index grids) out of its cache; both
+    # graphs then replay bitwise as before
+    caches = {"offset_masks": eg.offset_masks,
+              "index_grid": dm._index_grid}
+    misses = {k: f.cache_info().misses for k, f in caches.items()}
+    with torch.inference_mode():
+        for k in range(1, 41):
+            eager_decoder(audio_dev[:1, :DECODE_LEN - k * 2200])
+    misses = {k: f.cache_info().misses - misses[k]
+              for k, f in caches.items()}
+    dec_again = decoder(audio_dev).cpu().numpy()
+    engine.reset()
+    stream_again = np.stack(engine.process_audio(audio))
+    emit({"phase": "graphs_hold_constants", "other_lengths": 40,
+          "cache_misses": misses,
+          "cache_sizes": {k: f.cache_info().maxsize
+                          for k, f in caches.items()},
+          "decode_bitwise_equal": bool(np.array_equal(dec_again, out_np)),
+          "stream_bitwise_equal": bool(np.array_equal(stream_again, bs))})
+    check(all(misses[k] > f.cache_info().maxsize
+              for k, f in caches.items()),
+          f"the other lengths did not cycle the caches: {misses}")
+    check(np.array_equal(dec_again, out_np),
+          "the decode's graph changed after its constants left the cache")
+    check(np.array_equal(stream_again, bs),
+          "the stream's graph changed after its constants left the cache")
 
     # what the stream and the decode passed cycle_dsum: frame views (the
     # frames are not copied), against the plain form
@@ -830,16 +1050,22 @@ def main() -> int:  # noqa: C901
     serve_rec: dict = {}
     serve_out, serve_shapes, phases = {}, {}, {}
     for g in (1, 8):
+        ck.reset_launch_counts()
         srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
         srv.warmup()
-        torch.cuda.synchronize()
-        ck.reset_launch_counts()
-        with recording_kernels(serve_rec, f"G={g}"):
-            out_g = serve_steps(srv, lanes_np)
-        torch.cuda.synchronize()
+        box = []
+        seen, want = replayed_launches(
+            srv.step_graphs, lambda: box.append(serve_steps(srv, lanes_np)))
         launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        out_g = box[0]
         serve_out[g], serve_shapes[g] = out_g.cpu().numpy(), shapes
         phases[g] = srv.phases
+        # the eager twin, the reference the graphs are held to bit for
+        # bit; it records the arguments each kernel was called with
+        ref_srv = MultiStreamInference(model, cfg, SERVE_S,
+                                       refresh_cohorts=g, graphs=False)
+        with recording_kernels(serve_rec, f"G={g}"):
+            eager_g = serve_steps(ref_srv, lanes_np).cpu().numpy()
         rows = SERVE_S // g * block_rows
         refreshing = sum(len(range(-p % k_ref, SERVE_STEPS, k_ref))
                          for p in srv.phases)
@@ -852,23 +1078,32 @@ def main() -> int:  # noqa: C901
               "max": float(o.max()), "launches": launches,
               "launches_by_shape": {f"{kk[0]}{list(kk[1])}": v
                                     for kk, v in shapes.items()},
+              "replayed_launches_profiled": seen,
+              "replayed_launches_recorded": want,
+              "graphs": graph_info(srv.step_graphs),
+              "graphed_bitwise_equal_eager": bool(np.array_equal(o, eager_g)),
+              "max_abs_diff_vs_eager": float(np.abs(o - eager_g).max()),
               "performance_stats": srv.performance_stats()})
+        check(len(srv.step_graphs) == 2 * (g + 1),
+              f"G={g}: {len(srv.step_graphs)} graphs, not 2(G+1)")
         check(o.shape == (SERVE_STEPS, SERVE_S, 52)
               and bool(np.isfinite(o).all()), f"G={g}: served output")
         check(o.min() >= 0.0 and o.max() <= 1.0,
               f"G={g}: blendshapes outside [0, 1]")
-        check(launches["logmel"] == SERVE_STEPS
-              and shapes.get(("logmel", (SERVE_S,)), 0) == SERVE_STEPS,
-              f"G={g}: logmel not once per step at T={SERVE_S}: {launches}")
-        check(launches["cycle_dsum"] == 2 * refreshing
-              and launches["dk_roots"] == refreshing
-              and all(shapes.get(key, 0) == refreshing for key in (
-                  ("cycle_dsum", (rows, 8, 17, 512)),
-                  ("cycle_dsum", (rows, 5, 33, 1024)),
-                  ("dk_roots", (rows,)))),
-              f"G={g}: refresh launches {shapes} for {refreshing} "
+        for key in srv.step_graphs.keys():     # (due, parity, dtype)
+            rec = dict(srv.step_graphs.launches(key))
+            check(rec == refresh_record(SERVE_S, rows, bool(key[0])),
+                  f"G={g}: the graph {key} recorded {rec}")
+        check(seen == want == {"cycle_dsum": 2 * refreshing,
+                               "dk_roots": refreshing,
+                               "logmel": SERVE_STEPS},
+              f"G={g}: the replays ran {seen}, their captures recorded "
+              f"{want}, for {SERVE_STEPS} steps and {refreshing} "
               f"refreshing cohort-steps of {rows} rows")
-        del srv, out_g
+        check(all(launches[k] > 0 for k in KERNEL_PATTERNS),
+              f"G={g}: a kernel was not launched: {launches}")
+        check(np.array_equal(o, eager_g), f"G={g}: graphed server != eager")
+        del srv, ref_srv, out_g
 
     # lanes of four cohorts against dedicated engines on the card
     lane_ids = (0, 1, 5, 7)
@@ -889,7 +1124,7 @@ def main() -> int:  # noqa: C901
         before = dict(ck.LAUNCHES)
         for g in (1, 8):
             srv = MultiStreamInference(model, cfg, SERVE_S,
-                                       refresh_cohorts=g)
+                                       refresh_cohorts=g, graphs=False)
             plain_g = serve_steps(srv, lanes_np).cpu().numpy()
             d_plain[g] = float(np.abs(plain_g - serve_out[g]).max())
         check(dict(ck.LAUNCHES) == before, "the plain server launched a "
@@ -901,14 +1136,21 @@ def main() -> int:  # noqa: C901
     check(max(d_plain.values()) <= SERVE_PLAIN_MAX,
           f"kernel server != plain server: {d_plain}")
 
-    # a lane reset mid-run: a fresh session whose clock is its cohort's
+    # a lane reset mid-run: a fresh session whose clock is its cohort's;
+    # graphed (captured at the first step) and eager
     half, reset_lane = SERVE_STEPS * 3 // 7, 5              # step 45
-    srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
-    first = serve_steps(srv, lanes_np, steps=half)
-    srv.reset_sessions([reset_lane])
-    second = serve_steps(srv, lanes_np, first=half,
-                         steps=SERVE_STEPS - half)
-    out_r = torch.cat([first, second]).cpu().numpy()
+    out_rs = {}
+    for graphed in (True, False):
+        srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8,
+                                   graphs=graphed)
+        first = serve_steps(srv, lanes_np, steps=half)
+        srv.reset_sessions([reset_lane])
+        second = serve_steps(srv, lanes_np, first=half,
+                             steps=SERVE_STEPS - half)
+        out_rs[graphed] = torch.cat([first, second]).cpu().numpy()
+        clocks_after = srv.clocks
+        del srv, first, second
+    out_r = out_rs[True]
     fresh = engine_frames(reset_lane, phases[8][reset_lane % 8] + half,
                           first=half)
     others = [i for i in range(SERVE_S) if i != reset_lane]
@@ -917,96 +1159,161 @@ def main() -> int:  # noqa: C901
     d_moved = float(np.abs(out_r[half:, reset_lane]
                            - serve_out[8][half:, reset_lane]).max())
     emit({"phase": "multistream_reset", "lane": reset_lane, "at_step": half,
-          "clocks_after": srv.clocks,
+          "clocks_after": clocks_after,
           "max_abs_diff_vs_fresh_engine": d_fresh,
           "max_abs_diff_other_lanes": d_others,
           "reset_lane_moved_by": d_moved, "bound_fresh": SERVE_LANE_MAX,
-          "bound_others": SERVE_UNTOUCHED_MAX})
+          "bound_others": SERVE_UNTOUCHED_MAX,
+          "graphed_bitwise_equal_eager": bool(np.array_equal(
+              out_rs[True], out_rs[False]))})
     check(d_fresh <= SERVE_LANE_MAX, "reset lane != fresh engine")
     check(d_others <= SERVE_UNTOUCHED_MAX, "a reset moved other lanes")
     check(d_moved > 1e-3, "the reset lane did not change")
-    del srv, first, second
+    check(np.array_equal(out_rs[True], out_rs[False]),
+          "graphed server with a reset != eager")
 
-    # int16 PCM on the card: the same bits as its float twin
+    # int16 PCM on the card: the same bits as its float twin, graphed
+    # (int16 graphs captured by warmup) and eager
     n16 = 2 * k_ref + 2
     pcm = np.clip(np.round(lanes_np[:, :n16 * hop] * 32767.0), -32768,
                   32767).astype(np.int16)
     as_float = pcm.astype(np.float32) / 32768.0
     srv_f = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
     srv_i = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8)
+    srv_e = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8,
+                                 graphs=False)
     srv_i.warmup(dtype=torch.int16)
-    same16 = [bool(torch.equal(
-        srv_f.step(as_float[:, i * hop:(i + 1) * hop]),
-        srv_i.step(pcm[:, i * hop:(i + 1) * hop]))) for i in range(n16)]
+    same16, same_eager = [], []
+    for i in range(n16):
+        sl = slice(i * hop, (i + 1) * hop)
+        got_i = srv_i.step(pcm[:, sl])
+        same16.append(bool(torch.equal(srv_f.step(as_float[:, sl]), got_i)))
+        same_eager.append(bool(torch.equal(got_i, srv_e.step(pcm[:, sl]))))
     emit({"phase": "multistream_int16", "steps": n16,
-          "bitwise_equal_steps": sum(same16)})
+          "bitwise_equal_steps": sum(same16),
+          "graphed_equal_eager_steps": sum(same_eager),
+          "int16_graphs": sum(k[2] == torch.int16
+                              for k in srv_i.step_graphs.keys())})
     check(all(same16), "int16 input differs from its float twin")
-    del srv_f, srv_i
+    check(all(same_eager), "graphed int16 server != eager")
+    del srv_f, srv_i, srv_e
 
     # step times between CUDA events, split by whether a cohort
-    # refreshes; kernels and device busy per step from the profiler;
-    # sustained throughput at 64 and 256 sessions
+    # refreshes; kernels and device busy per step from the profiler (for
+    # a graph, the kernels its replay ran); graphed and eager; graph
+    # count, capture time and peak memory; sustained throughput at 64 and
+    # 256 sessions; G = 1's refreshing step at 256 sessions
     serve_times = {}
     profiled(lambda: None)       # the profiler's first use starts its tracer
     for g in (1, 8):
-        srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
+        for graphed in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            srv = MultiStreamInference(model, cfg, SERVE_S,
+                                       refresh_cohorts=g, graphs=graphed)
+            srv.warmup()
+            evs, due = [], []
+            for i in range(SERVE_STEPS):
+                due.append(bool(srv.due_cohorts()))
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                step_out = srv.step(lanes_np[:, i * hop:(i + 1) * hop])
+                e1.record()
+                step_out.cpu()
+                evs.append((e0, e1))
+            torch.cuda.synchronize()
+            st = np.asarray([a.elapsed_time(b) for a, b in evs])
+            due = np.asarray(due)
+            prof_rows = {}
+            windows = ((("refresh", True, 1), ("other", False, 8)) if g == 1
+                       else (("9 steps", None, 9),))
+            for label, want_due, n_steps in windows:
+                i0 = SERVE_STEPS
+                while want_due is not None and bool(srv.due_cohorts()) \
+                        != want_due:
+                    srv.step(lanes_np[:, (i0 % SERVE_STEPS) * hop:
+                                      (i0 % SERVE_STEPS + 1) * hop])
+                    i0 += 1
+
+                def steps_run():
+                    for j in range(n_steps):
+                        t = (i0 + j) % SERVE_STEPS
+                        srv.step(lanes_np[:, t * hop:(t + 1) * hop]).cpu()
+                prof = profiled(steps_run)
+                wall_ms = prof.wall_s * 1e3 / n_steps
+                ks = device_kernels(None, prof)
+                prof_rows[label] = {
+                    "kernels_per_step": len(ks) / n_steps,
+                    "device_busy_ms_per_step":
+                        sum(us for _, us in ks) / 1e3 / n_steps,
+                    "own_kernels_per_step": own_kernels(ks, n_steps),
+                    "copies_per_step": copies(ks, n_steps),
+                    "profiled_wall_ms_per_step": wall_ms,
+                    "top_kernels_us_per_step": profile_summary(ks, n_steps)}
+            serve_times[(g, graphed)] = {
+                "refresh_steps": q(st[due]) if due.any() else None,
+                "other_steps": q(st[~due]) if (~due).any() else None,
+                "profile": prof_rows,
+                "graphs": len(srv.step_graphs),
+                "capture_s": srv.step_graphs.capture_s,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del srv
+    sustained = {}
+    for g in (8, 1):
+        for n_s in (SERVE_S, SERVE_BIG):
+            for graphed in (True, False):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                srv = MultiStreamInference(model, cfg, n_s,
+                                           refresh_cohorts=g, graphs=graphed)
+                srv.warmup()
+                stats_s = srv.sustained_stats(n_frames=5 * k_ref)
+                stats_s["peak_memory_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+                sustained[f"S={n_s} G={g} "
+                          f"{'graphed' if graphed else 'eager'}"] = stats_s
+                del srv
+    big_lanes = lane_audio(SERVE_BIG, 5 * k_ref)
+    big_steps = {}
+    for graphed in (True, False):
+        srv = MultiStreamInference(model, cfg, SERVE_BIG, graphs=graphed)
         srv.warmup()
         evs, due = [], []
-        for i in range(SERVE_STEPS):
+        for i in range(5 * k_ref):
             due.append(bool(srv.due_cohorts()))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            step_out = srv.step(lanes_np[:, i * hop:(i + 1) * hop])
+            step_out = srv.step(big_lanes[:, i * hop:(i + 1) * hop])
             e1.record()
             step_out.cpu()
             evs.append((e0, e1))
         torch.cuda.synchronize()
         st = np.asarray([a.elapsed_time(b) for a, b in evs])
         due = np.asarray(due)
-        prof_rows = {}
-        windows = ((("refresh", True, 1), ("other", False, 8)) if g == 1
-                   else (("9 steps", None, 9),))
-        for label, want_due, n_steps in windows:
-            i0 = SERVE_STEPS
-            while want_due is not None and bool(srv.due_cohorts()) \
-                    != want_due:
-                srv.step(lanes_np[:, (i0 % SERVE_STEPS) * hop:
-                                  (i0 % SERVE_STEPS + 1) * hop])
-                i0 += 1
-
-            def steps_run():
-                for j in range(n_steps):
-                    t = (i0 + j) % SERVE_STEPS
-                    srv.step(lanes_np[:, t * hop:(t + 1) * hop]).cpu()
-            t0 = time.perf_counter()
-            prof = profiled(steps_run)
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-            ks = device_kernels(None, prof)
-            prof_rows[label] = {
-                "kernels_per_step": len(ks) / n_steps,
-                "device_busy_ms_per_step":
-                    sum(us for _, us in ks) / 1e3 / n_steps,
-                "profiled_wall_ms_per_step": wall_ms,
-                "top_kernels_us_per_step": profile_summary(ks, n_steps)}
-        serve_times[g] = {
-            "refresh_steps": q(st[due]) if due.any() else None,
-            "other_steps": q(st[~due]) if (~due).any() else None,
-            "profile": prof_rows}
+        big_steps["graphed" if graphed else "eager"] = {
+            "refresh_steps": q(st[due]), "other_steps": q(st[~due])}
         del srv
-    sustained = {}
-    for g in (8, 1):
-        for n_s in (SERVE_S, SERVE_BIG):
-            torch.cuda.reset_peak_memory_stats()
-            srv = MultiStreamInference(model, cfg, n_s, refresh_cohorts=g)
-            stats_s = srv.sustained_stats(n_frames=5 * k_ref)
-            stats_s["peak_memory_gb"] = (
-                torch.cuda.max_memory_allocated() / 1e9)
-            sustained[f"S={n_s} G={g}"] = stats_s
-            del srv
     emit({"phase": "multistream_times", "card": card, "sessions": SERVE_S,
-          "step_times": {f"G={g}": v for g, v in serve_times.items()},
-          "sustained_stats": sustained})
+          "step_times": {f"G={g} {'graphed' if gr else 'eager'}": v
+                         for (g, gr), v in serve_times.items()},
+          "sustained_stats": sustained,
+          f"G=1 steps at {SERVE_BIG} sessions": big_steps})
+    g1 = serve_times[(1, True)]
+    check(g1["refresh_steps"]["p99_ms"] < BUDGET_MS,
+          f"graphed G=1 refreshing step p99 {g1['refresh_steps']} over "
+          f"the {BUDGET_MS} ms budget")
+    check(all(v > 0 for v in
+              g1["profile"]["refresh"]["own_kernels_per_step"].values()),
+          "a kernel is missing from the graphed refreshing step's replay: "
+          f"{g1['profile']['refresh']['own_kernels_per_step']}")
+    busy_g = g1["profile"]["other"]["device_busy_ms_per_step"]
+    busy_e = serve_times[(1, False)]["profile"]["other"][
+        "device_busy_ms_per_step"]
+    check(busy_g <= 1.05 * busy_e,
+          f"a graphed non-refreshing step is busier ({busy_g} ms) than "
+          f"the eager one ({busy_e} ms)")
 
     # the serve entry point, replay mode
     serve_wav = work / "serve.wav"
@@ -1116,62 +1423,138 @@ def main() -> int:  # noqa: C901
     check(len(rows) == n_cli and stamps_ok, "infer CLI output")
 
     # ---- 10. times ----
-    engine.reset()
-    evs = []
-    with torch.inference_mode():
-        for i in range(n_frames):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            step_out = engine.step(audio[i * hop:(i + 1) * hop])
-            e1.record()
-            step_out.cpu()
-            evs.append((e0, e1))
-    torch.cuda.synchronize()
-    ft = np.asarray([a.elapsed_time(b) for a, b in evs])
-    is_ref = np.arange(n_frames) % cfg.emotion_update_frames == 0
+    # per-frame times of the graphed stream (the main path's engine) and
+    # of the eager one, between CUDA events
+    def frame_times(eng) -> dict:
+        """ms per frame of ``eng`` over the stream's audio from a fresh
+        state, between CUDA events, refresh frames and others apart."""
+        eng.reset()
+        evs = []
+        with torch.inference_mode():
+            for i in range(n_frames):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                step_out = eng.step(audio[i * hop:(i + 1) * hop])
+                e1.record()
+                step_out.cpu()
+                evs.append((e0, e1))
+        torch.cuda.synchronize()
+        ft = np.asarray([a.elapsed_time(b) for a, b in evs])
+        is_ref = np.arange(n_frames) % cfg.emotion_update_frames == 0
+        return {"refresh": q(ft[is_ref]), "other": q(ft[~is_ref])}
 
-    emit({"phase": "frame_times", "card": card, "refresh": q(ft[is_ref]),
-          "other": q(ft[~is_ref])})
+    stream_prof = {}
+    frame_q = {"graphed": frame_times(engine),
+               "eager": frame_times(eager_engine)}
+    emit({"phase": "frame_times", "card": card, **frame_q["graphed"],
+          "eager": frame_q["eager"]})
 
-    # where a frame's time goes: device kernels per frame, their summed
-    # device time, and the host wall time of the same frames
-    engine.reset()
-    for label, idx in (("refresh", [0]), ("other", list(range(1, 9)))):
-        def frames_run():
-            with torch.inference_mode():
-                for i in idx:
-                    engine.step(audio[i * hop:(i + 1) * hop]).cpu()
-        t0 = time.perf_counter()
-        prof = profiled(frames_run)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
-        ks = device_kernels(frames_run, prof)
-        emit({"phase": "frame_profile", "frames": label, "card": card,
-              "kernels_per_frame": len(ks) / len(idx),
-              "device_busy_ms_per_frame":
-                  sum(us for _, us in ks) / 1e3 / len(idx),
-              "profiled_wall_ms_per_frame": wall_ms,
-              "top_kernels_us_per_frame": profile_summary(ks, len(idx)),
-              "top_ops_us_per_frame": top_ops(prof, len(idx))})
+    # what the eGeMAPS functionals' index copies, which no step makes any
+    # more, cost the eager stream alone: each index built from a host list
+    # at every call again (a pageable copy the host waits for), runs
+    # interleaved as is, copies, copies, as is; and the activities of one
+    # eager refresh frame, with and without the copies, and in a
+    # profiling window that opens on the frame itself (no lead-in)
+    cached_index = eg._index
+
+    def host_index(ids, device):
+        return torch.tensor(ids, dtype=torch.int64, device=device)
+
+    def refresh_frame():
+        eager_engine.reset()
+        eager_engine.step(audio[:hop]).cpu()
+
+    def bare_window_count(fn) -> int:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(str(e.device_type).endswith("CUDA") for e in prof.events())
+
+    copy_runs, copy_acts = [], {}
+    for copies_back in (False, True, True, False):
+        eg._index = host_index if copies_back else cached_index
+        try:
+            copy_runs.append({"index_copies": copies_back,
+                              **frame_times(eager_engine)})
+            ks = device_kernels(refresh_frame)
+            copy_acts[str(copies_back)] = {"activities": len(ks),
+                                           **copies(ks)}
+        finally:
+            eg._index = cached_index
+    emit({"phase": "eager_index_copies", "card": card, "runs": copy_runs,
+          "refresh_frame": copy_acts,
+          "refresh_frame_activities_without_lead_in": [
+              bare_window_count(refresh_frame) for _ in range(3)]})
+
+    # where a frame's time goes: device kernels per frame (a replay's
+    # kernels for the graphed engine), their summed device time, and the
+    # host wall time of the same frames
+    for tag, eng in (("graphed", engine), ("eager", eager_engine)):
+        eng.reset()
+        for label, idx in (("refresh", [0]), ("other", list(range(1, 9)))):
+            def frames_run():
+                with torch.inference_mode():
+                    for i in idx:
+                        eng.step(audio[i * hop:(i + 1) * hop]).cpu()
+            prof = profiled(frames_run)
+            wall_ms = prof.wall_s * 1e3 / len(idx)
+            ks = device_kernels(frames_run, prof)
+            row = {"kernels_per_frame": len(ks) / len(idx),
+                   "device_busy_ms_per_frame":
+                       sum(us for _, us in ks) / 1e3 / len(idx),
+                   "own_kernels_per_frame": own_kernels(ks, len(idx)),
+                   "copies_per_frame": copies(ks, len(idx)),
+                   "profiled_wall_ms_per_frame": wall_ms}
+            stream_prof[(tag, label)] = row
+            emit({"phase": "frame_profile", "engine": tag, "frames": label,
+                  "card": card, **row,
+                  "top_kernels_us_per_frame": profile_summary(ks, len(idx)),
+                  "top_ops_us_per_frame": top_ops(prof, len(idx))})
+    check(frame_q["graphed"]["refresh"]["p99_ms"] < BUDGET_MS,
+          f"graphed refresh frame p99 {frame_q['graphed']['refresh']} over "
+          f"the {BUDGET_MS} ms budget")
+    own = stream_prof[("graphed", "refresh")]["own_kernels_per_frame"]
+    check(all(v > 0 for v in own.values()),
+          f"a kernel is missing from the graphed refresh frame: {own}")
 
     # the decode: device time per call (CUDA events), host wall time per
-    # call (waited for), frames per second
-    dec_ms, wall = [], []
-    for _ in range(5):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e0.record()
-        decoder(audio_dev)
-        e1.record()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-        dec_ms.append(e0.elapsed_time(e1))
-    dec_med = float(np.median(dec_ms))
-    prof = profiled(lambda: decoder(audio_dev))
-    ks = device_kernels(None, prof)
-    busy = sum(us for _, us in ks) / 1e3
+    # call (waited for), frames per second, kernels and device busy per
+    # call; graphed (the main path's decoder) and eager
+    dec_rows = {}
+    for tag, dec in (("graphed", decoder), ("eager", eager_decoder)):
+        dec_ms, wall = [], []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            dec(audio_dev)
+            e1.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            dec_ms.append(e0.elapsed_time(e1))
+        dec_med = float(np.median(dec_ms))
+        prof = profiled(lambda: dec(audio_dev))
+        ks = device_kernels(None, prof)
+        busy = sum(us for _, us in ks) / 1e3
+        dec_rows[tag] = {
+            "device_ms_per_call_median": dec_med,
+            "device_ms_per_call": dec_ms,
+            "wall_ms_per_call_median": float(np.median(wall)),
+            "frames_per_s": DECODE_B * n_out / (dec_med / 1e3),
+            "kernels_per_call": len(ks), "device_busy_ms_per_call": busy,
+            "device_busy_share": busy / dec_med,
+            "own_kernels_per_call": own_kernels(ks),
+            "copies_per_call": copies(ks),
+            "top_kernels_us_per_call": profile_summary(ks, 1, top_n=10)}
+    dec_med = dec_rows["eager"]["device_ms_per_call_median"]
+    own = dec_rows["graphed"]["own_kernels_per_call"]
+    check(all(v > 0 for v in own.values()),
+          f"a kernel is missing from the graphed decode: {own}")
 
     # stage split of one decode: each stage alone, CUDA events, median of 3
     model = decoder.model
@@ -1198,18 +1581,12 @@ def main() -> int:  # noqa: C901
         stage_ms = {k: time_ms(fn, iters=3, warmup=1)
                     for k, fn in stages.items()}
     emit({"phase": "decode_times", "card": card, "batch": DECODE_B,
-          "windows_per_utterance": n_out,
-          "device_ms_per_call_median": dec_med,
-          "device_ms_per_call": dec_ms,
-          "wall_ms_per_call_median": float(np.median(wall)),
-          "frames_per_s": DECODE_B * n_out / (dec_med / 1e3),
-          "kernels_per_call": len(ks), "device_busy_ms_per_call": busy,
-          "device_busy_share": busy / dec_med,
-          "top_kernels_us_per_call": profile_summary(ks, 1, top_n=10),
-          "top_ops_us_per_call": top_ops(prof, 1, n=10),
+          "windows_per_utterance": n_out, **dec_rows["graphed"],
+          "eager": dec_rows["eager"], "graphs": graph_info(
+              decoder.step_graphs),
           "stage_ms": stage_ms,
-          "stage_share_of_call": {k: v / dec_med
-                                  for k, v in stage_ms.items()}})
+          "stage_share_of_eager_call": {k: v / dec_med
+                                        for k, v in stage_ms.items()}})
 
     kernels = []
 

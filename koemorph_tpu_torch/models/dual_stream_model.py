@@ -29,6 +29,7 @@ from koemorph_tpu_torch.features.emotion import (EmotionFrontendConfig,
                                                  emotion_features)
 from koemorph_tpu_torch.models.dual_stream import DualStreamCrossAttention
 from koemorph_tpu_torch.ops import frontend
+from koemorph_tpu_torch.ops.device_cache import device_cache
 
 
 @dataclasses.dataclass
@@ -209,6 +210,24 @@ def _edge_offsets_np(n_fft: int, hop: int, w_hop: int) -> np.ndarray:
     return np.stack(rows).astype(np.int64)
 
 
+@device_cache(8)
+def _edge_offsets(n_fft: int, hop: int, w_hop: int, device: torch.device
+                  ) -> torch.Tensor:
+    return torch.from_numpy(_edge_offsets_np(n_fft, hop, w_hop)).to(device)
+
+
+@device_cache(32)
+def _index_grid(first: int, n: int, step: int, width: int,
+                device: torch.device) -> torch.Tensor:
+    """``(n, width)`` int64 on ``device``, row ``i`` ``(first + i) * step +
+    arange(width)``: built once per key, so a decode copies no index grid
+    from the host (a copy that waits for the device, and that a CUDA graph
+    cannot capture)."""
+    rows = (first + np.arange(n, dtype=np.int64)) * step
+    return torch.from_numpy(rows[:, None] + np.arange(width)[None, :]).to(
+        device)
+
+
 def _reflect_edge_rows(audio: torch.Tensor, p, w_hop: int, n_fft: int,
                        hop: int, *, sample_rate: int = 16000,
                        n_mels: int = 80, f_min: float = 80.0,
@@ -216,8 +235,9 @@ def _reflect_edge_rows(audio: torch.Tensor, p, w_hop: int, n_fft: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Reflect-padded dB mel rows of each window's two edges.
 
-    ``audio`` is ``(B, L)``; ``p`` the window starts in samples, a numpy
-    ``(n,)`` grid shared by the batch or a ``(B, n)`` integer tensor. The
+    ``audio`` is ``(B, L)``; ``p`` the window starts in samples, an
+    ``(n,)`` grid shared by the batch (numpy, or a tensor on the audio's
+    device) or a ``(B, n)`` integer tensor. The
     mirrored ``(n_fft,)`` edge frames are gathered from the audio and sent,
     heads and tails together, through ``frontend.frames_to_logmel`` (one
     launch of the fused frontend on the GPU). Returns ``(head_db,
@@ -225,11 +245,11 @@ def _reflect_edge_rows(audio: torch.Tensor, p, w_hop: int, n_fft: int,
     ``0..n_edge-1`` and ``W-n_edge+1..W``."""
     b = audio.shape[0]
     n_edge = _n_edge_frames(n_fft, hop)
-    offs = torch.from_numpy(_edge_offsets_np(n_fft, hop, w_hop)).to(
-        audio.device)
+    offs = _edge_offsets(n_fft, hop, w_hop, audio.device)
     if isinstance(p, np.ndarray):
-        idx = torch.from_numpy(p.astype(np.int64)).to(audio.device)
-        frames = audio[:, idx[:, None, None] + offs]   # (B, n, 2ne, n_fft)
+        p = torch.from_numpy(p.astype(np.int64)).to(audio.device)
+    if p.dim() == 1:
+        frames = audio[:, p[:, None, None] + offs]     # (B, n, 2ne, n_fft)
     else:
         n = p.shape[1]
         idx = p.to(torch.int64)[:, :, None, None] + offs
@@ -361,9 +381,8 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
         mel_kw = cfg.logmel_kwargs()
         if self.exact_window_stft:
             # every window STFT'd on its own, reflect-padded at its edges
-            g = torch.from_numpy(
-                (np.arange(n_out) * stride)[:, None] * hop
-                + np.arange(w * hop)[None, :]).to(dev)
+            g = (torch.arange(n_out, device=dev)[:, None] * (stride * hop)
+                 + torch.arange(w * hop, device=dev)[None, :])
             win_audio = audio[:, g].reshape(b * n_out, w * hop)
             log_mel = frontend.fused_log_mel_frontend(
                 win_audio, n_fft=cfg.n_fft, hop_length=hop, **mel_kw
@@ -393,15 +412,15 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
                 emotion)["blendshapes"]
             return out.reshape(b, n, -1).transpose(0, 1)
 
-        def decode_windows(start_idx: np.ndarray):
+        def decode_windows(first: int, n: int):
+            """Windows ``first .. first + n - 1`` of the stride grid."""
             if self.exact_window_stft:
-                sel = torch.from_numpy(start_idx // stride).to(dev)
-                return attend(log_mel[:, sel])
-            g = torch.from_numpy(start_idx[:, None]
-                                 + np.arange(w + 1)[None, :]).to(dev)
+                return attend(log_mel[:, first:first + n])
+            g = _index_grid(first, n, stride, w + 1, dev)
             windows = log_mel[:, g]                      # (B, n, W+1, 80)
             if self.window_edge == "reflect":
-                windows = splice(windows, start_idx * hop)
+                windows = splice(
+                    windows, _index_grid(first, n, stride * hop, 1, dev)[:, 0])
             return attend(windows)
 
         if ws is not None:
@@ -414,14 +433,13 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             if self.window_edge == "reflect":
                 windows = splice(windows, ws * hop)
             raw_seq = attend(windows)
+        elif self.decode_mode == "parallel" or n_out <= self.window_chunk:
+            raw_seq = decode_windows(0, n_out)
         else:
-            starts = np.arange(n_out, dtype=np.int64) * stride
-            if self.decode_mode == "parallel" or n_out <= self.window_chunk:
-                raw_seq = decode_windows(starts)
-            else:
-                raw_seq = torch.cat(
-                    [decode_windows(starts[lo:lo + self.window_chunk])
-                     for lo in range(0, n_out, self.window_chunk)], 0)
+            chunk = self.window_chunk
+            raw_seq = torch.cat(
+                [decode_windows(lo, min(chunk, n_out - lo))
+                 for lo in range(0, n_out, chunk)], 0)
 
         smoothed = _ema_smooth(raw_seq, self.alpha())
         results = {"blendshapes": smoothed.transpose(0, 1),

@@ -15,11 +15,19 @@ adds one to ``LAUNCHES[name]`` (and to ``SHAPE_LAUNCHES[(name, shape)]``)
 for every launch and nowhere else. The callers in :mod:`..f0`,
 :mod:`..egemaps` and :mod:`..frontend` route CUDA tensors here and CPU tensors to the plain
 PyTorch form; there is no fallback from one to the other.
+
+Under a CUDA graph the counts are those of the capture: a wrapper runs in
+Python, and counts, when its launch is recorded into a graph (and when a
+warm-up before the capture launches it eagerly), but a replay runs the
+recorded launches without any wrapper and counts nothing.
+:func:`capturing` gives the launches one capture recorded; the kernels
+each replay ran come from the profiler's kernel names.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -34,9 +42,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from koemorph_tpu_torch.ops.device_cache import device_cache
+
 __all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "build", "build_dir",
-           "reset_launch_counts", "FrameLayout", "frame_layout",
-           "cycle_dsum", "dk_roots", "logmel"]
+           "reset_launch_counts", "capturing", "FrameLayout",
+           "frame_layout", "cycle_dsum", "dk_roots", "logmel"]
 
 _HERE = Path(__file__).resolve().parent
 
@@ -64,6 +74,22 @@ def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     SHAPE_LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Yields a ``Counter`` that, when the block ends, holds the launches
+    the wrappers made inside it by ``(name, shape)``: around a CUDA graph's
+    capture, the launches the graph recorded, which each replay runs."""
+    before = collections.Counter(SHAPE_LAUNCHES)
+    made: collections.Counter = collections.Counter()
+    try:
+        yield made
+    finally:
+        made.update(SHAPE_LAUNCHES)
+        made.subtract(before)
+        for key in [k for k, n in made.items() if n <= 0]:
+            del made[key]
 
 
 def build_dir() -> Path:
@@ -266,7 +292,7 @@ def dk_start_np(p: int) -> np.ndarray:
     return (0.9 * np.exp(2j * np.pi * (k + 0.35) / p)).astype(np.complex64)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _dk_start_pairs(p: int, device: torch.device) -> torch.Tensor:
     pairs = dk_start_np(p).view(np.float32).reshape(p, 2).copy()
     return torch.from_numpy(pairs).to(device)

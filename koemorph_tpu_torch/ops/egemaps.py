@@ -25,6 +25,7 @@ import torch
 from koemorph_tpu_torch.device import scalar_like
 from koemorph_tpu_torch.ops import cuda as cuda_kernels
 from koemorph_tpu_torch.ops import f0 as f0_ops
+from koemorph_tpu_torch.ops.device_cache import device_cache
 from koemorph_tpu_torch.ops.mel import hz_to_mel, mel_filterbank, mel_to_hz
 from koemorph_tpu_torch.ops.stft import acf_from_power, power_spectrum_matmul
 from koemorph_tpu_torch.ops.window import frame_signal, hann_window
@@ -186,7 +187,7 @@ def _mfcc_dct(n_mels: int = 26, n_out: int = 4) -> np.ndarray:
     return (basis * np.sqrt(2.0 / n_mels)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _spectral_constants(sr: int, n_fft: int, device: torch.device) -> dict:
     n_bins = n_fft // 2 + 1
     freqs = np.linspace(0, sr / 2, n_bins).astype(np.float32)
@@ -210,6 +211,28 @@ def _spectral_constants(sr: int, n_fft: int, device: torch.device) -> dict:
         "m25": band(2000, 5000),
         "slope_0_500": slope(0, 500), "slope_500_1500": slope(500, 1500),
     }
+
+
+@device_cache(64)
+def _index(ids: tuple, device: torch.device) -> torch.Tensor:
+    """``ids`` as an int64 tensor on ``device``, built once: no call copies
+    an index from the host (a copy that waits for the device, and that a
+    CUDA graph cannot capture)."""
+    return torch.tensor(ids, dtype=torch.int64, device=device)
+
+
+@device_cache(16)
+def offset_masks(rows: int, cuts: tuple, device: torch.device
+                 ) -> torch.Tensor:
+    """``(len(cuts), rows)`` frame masks, row ``i`` true before
+    ``cuts[i]``; built once per (rows, cuts, device)."""
+    return (torch.arange(rows, device=device)[None, :]
+            < torch.tensor(cuts, device=device)[:, None])
+
+
+@device_cache(8)
+def _dk_start(p: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cuda_kernels.dk_start_np(p)).to(device)
 
 
 def _levinson(r: torch.Tensor, order: int) -> torch.Tensor:
@@ -240,8 +263,7 @@ def poly_roots_plain(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
     p = a.shape[-1] - 1
     dev = a.device
     ac = a.to(torch.complex64)
-    z0 = torch.from_numpy(cuda_kernels.dk_start_np(p)).to(dev)
-    z = z0.expand(a.shape[:-1] + (p,))
+    z = _dk_start(p, dev).expand(a.shape[:-1] + (p,))
     eye = torch.eye(p, dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=torch.complex64, device=dev)
     zero = torch.zeros((), dtype=torch.complex64, device=dev)
@@ -721,7 +743,7 @@ def functionals_from_llds(lld: dict[str, torch.Tensor],
     dev = smoothed.device
 
     def take(x, ids):
-        return x.index_select(-2, torch.tensor(ids, device=dev))
+        return x.index_select(-2, _index(tuple(ids), dev))
 
     rows = take(smoothed, [a for a, _ in red])
     rmasks = take(masks, [b for _, b in red])
@@ -776,7 +798,7 @@ def functionals_from_llds(lld: dict[str, torch.Tensor],
     for row in r_allspec:                             # all-frame spectral
         perm += ms(row)
     perm += [o_temp + k for k in range(7)]            # temporal + level
-    out = pool.index_select(-1, torch.tensor(perm, device=dev))
+    out = pool.index_select(-1, _index(tuple(perm), dev))
     assert out.shape[-1] == NUM_FEATURES, out.shape
     return torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
 
@@ -822,7 +844,6 @@ def egemaps_concat_windows(audio: torch.Tensor,
     lld = compute_llds(audio, cfg)
     t = lld["voiced"].shape[-1]
     fp = cfg.hop_length / cfg.sample_rate
-    cuts = torch.tensor([t - int(round(off / fp)) for off in offsets_sec],
-                        device=audio.device)
-    masks = torch.arange(t, device=audio.device)[None, :] < cuts[:, None]
+    masks = offset_masks(t, tuple(t - int(round(off / fp))
+                                  for off in offsets_sec), audio.device)
     return functionals_multi_offset(lld, cfg, masks)

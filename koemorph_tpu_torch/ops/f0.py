@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from koemorph_tpu_torch.device import scalar_like
 from koemorph_tpu_torch.ops import cuda as cuda_kernels
+from koemorph_tpu_torch.ops.device_cache import device_cache
 from koemorph_tpu_torch.ops.stft import acf_from_power, power_spectrum_matmul
 from koemorph_tpu_torch.ops.window import frame_signal
 
@@ -51,7 +52,7 @@ def _tau_range(sample_rate: int, f0_min: float, f0_max: float
     return tau_min, tau_max
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _span_masks(n: int, spans: tuple, device: torch.device) -> torch.Tensor:
     iota = np.arange(n)
     m = np.stack([((iota >= lo) & (iota < hi)).astype(np.float32)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.ops import cuda as cuda_kernels
+from koemorph_tpu_torch.ops.device_cache import device_cache
 from koemorph_tpu_torch.ops.mel import _mel_filterbank_np
 from koemorph_tpu_torch.ops.window import frame_signal
 
@@ -42,7 +43,7 @@ def _folded_bases_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
             (win * -np.sin(ang)).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _constants(n_fft: int, sample_rate: int, n_mels: int, f_min: float,
                f_max: float, device: torch.device):
     wc, ws = _folded_bases_np(n_fft)
@@ -113,7 +114,7 @@ class LogmelKernelConstants:
     spans: torch.Tensor
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _kernel_constants(n_fft: int, sample_rate: int, n_mels: int,
                       f_min: float, f_max: float, device: torch.device
                       ) -> LogmelKernelConstants:

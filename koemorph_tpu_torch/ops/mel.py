@@ -7,6 +7,8 @@ import functools
 import numpy as np
 import torch
 
+from koemorph_tpu_torch.ops.device_cache import device_cache
+
 
 def hz_to_mel(freq, *, htk: bool = False):
     """Hz -> mels, Slaney (librosa default) or HTK."""
@@ -62,7 +64,7 @@ def _mel_filterbank_np(sample_rate: int, n_fft: int, n_mels: int,
     return fb.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _fb_tensor(key: tuple, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_mel_filterbank_np(*key).T.copy()).to(device)
 

@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from koemorph_tpu_torch.ops.device_cache import device_cache
 from koemorph_tpu_torch.ops.window import frame_signal, hann_window
 
 
@@ -42,7 +43,7 @@ def _iacf_matrix_np(n_fft: int, n_lags: int) -> np.ndarray:
     return (m * coef / n_fft).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _dft_tensors(n_fft: int, rows: int, device: torch.device
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     c, s = _dft_matrices_np(n_fft)
@@ -50,7 +51,7 @@ def _dft_tensors(n_fft: int, rows: int, device: torch.device
             torch.from_numpy(s[:rows].copy()).to(device))
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _iacf_tensor(n_fft: int, n_lags: int, device: torch.device
                  ) -> torch.Tensor:
     return torch.from_numpy(_iacf_matrix_np(n_fft, n_lags)).to(device)

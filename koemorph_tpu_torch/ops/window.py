@@ -2,14 +2,15 @@
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from koemorph_tpu_torch.ops.device_cache import device_cache
 
-@functools.lru_cache(maxsize=32)
+
+@device_cache(32)
 def _hann_tensor(win_length: int, device: torch.device) -> torch.Tensor:
     n = np.arange(win_length, dtype=np.float64)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)

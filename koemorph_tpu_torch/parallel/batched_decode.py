@@ -7,11 +7,23 @@ with per-utterance window strides (:meth:`decode_scheduled`) and the
 sequence-parallel decode's window split and EMA replay
 (:meth:`decode_sequence_parallel`), which on one device is the plain decode
 bit for bit. Decoding over several GPUs is not ported.
+
+On the card a call (:meth:`BatchedSequentialDecoder.__call__`) is one CUDA
+graph replay: a graph per input shape and model configuration, captured at
+the first call of that shape, reading a static audio buffer. The decoder
+keeps the graphs of its ``max_graphs`` most recent shapes: a graph pays
+for itself only on a shape that repeats (fixed-length chunks or batches),
+and a first call of a new shape costs a warm-up run and a capture.
+:meth:`~BatchedSequentialDecoder.decode_scheduled` and
+:meth:`~BatchedSequentialDecoder.decode_sequence_parallel` run eagerly.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,6 +31,9 @@ import torch
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.dual_stream_model import (
     SequentialDualStreamModel, _ema_smooth)
+from koemorph_tpu_torch.runtime.graphs import StepGraphs
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["BatchedSequentialDecoder"]
 
@@ -31,13 +46,22 @@ class BatchedSequentialDecoder:
 
     The model moves to ``device`` (``cuda`` unless the caller asks for
     another; raises when CUDA is absent) and runs in eval mode under
-    ``torch.inference_mode``.
+    ``torch.inference_mode``. On the card a call replays a CUDA graph of
+    the decode; ``graphs=False`` runs it eagerly, and the CPU has no
+    graphs (``graphs=True`` there raises ``ValueError``).
     """
 
+    #: graphs kept, one per input shape, the least recently used dropped
+    max_graphs = 4
+
     def __init__(self, model: SequentialDualStreamModel,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.step_graphs = StepGraphs(self.device, graphs)
+        #: the static audio buffer of each graph, by key, least recently
+        #: used first
+        self._static_audio: dict = {}
 
     @property
     def num_devices(self) -> int:
@@ -50,11 +74,34 @@ class BatchedSequentialDecoder:
         return torch.from_numpy(np.array(audio_batch, np.float32)).to(
             self.device)
 
+    def _decode(self, audio: torch.Tensor) -> torch.Tensor:
+        return self.model(audio)["blendshapes"]
+
     @torch.inference_mode()
     def __call__(self, audio_batch) -> torch.Tensor:
         """``(B, L)`` audio -> ``(B, T_out, 52)`` blendshapes (on the
-        device, not waited for)."""
-        return self.model(self._audio(audio_batch))["blendshapes"]
+        device, not waited for; no later call writes them)."""
+        audio = self._audio(audio_batch)
+        if not self.step_graphs.enabled:
+            return self._decode(audio)
+        m = self.model
+        key = (tuple(audio.shape), m.stride_frames, m.decode_mode,
+               m.window_chunk, m.exact_window_stft, m.window_edge)
+        buf = self._static_audio.pop(key, None)
+        if buf is None:
+            if len(self._static_audio) >= self.max_graphs:
+                old = next(iter(self._static_audio))
+                del self._static_audio[old]
+                self.step_graphs.drop(old)
+            logger.info("capturing the decode's CUDA graph for audio %s",
+                        tuple(audio.shape))
+            buf = audio.clone()
+            body = functools.partial(self._decode, buf)
+            self.step_graphs.capture(key, body, body)
+        else:
+            buf.copy_(audio)
+        self._static_audio[key] = buf            # the most recent, last
+        return self.step_graphs.run(key, None)
 
     def _span(self, length: int) -> int:
         span = length // self.model.hop_length - self.model.window_frames

@@ -18,11 +18,21 @@ cohort's results back into the lane-batched state in place. A lane is
 exactly a dedicated :class:`~koemorph_tpu_torch.runtime.streaming.
 StreamingInference` whose clock started at its cohort's phase, up to the
 summation order of batched products.
+
+The state lives in static buffers (:class:`~koemorph_tpu_torch.runtime.
+streaming.StaticStream`): the audio rings and dB rows ping-pong between
+two buffers, every other field is written in place. On the card a step is
+one CUDA graph replay: a graph per due set (no cohort, or cohort ``c``),
+buffer parity and input dtype, 2(G+1) per dtype, captured by
+:meth:`MultiStreamInference.warmup` or at the first step with that dtype,
+in one memory pool. The host keeps the clocks and picks the graph; no
+step reads anything back from the device.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import functools
+import logging
 import time
 from collections import deque
 from typing import Optional, Sequence
@@ -32,29 +42,17 @@ import torch
 
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.dual_stream_model import (
-    StreamingDualStreamModel, TemporalState)
-from koemorph_tpu_torch.ops.egemaps import LldCarry
-from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
+    StreamingDualStreamModel)
+from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.runtime.streaming import (StaticStream,
+                                                  StreamingConfig,
                                                   StreamState,
-                                                  _stream_post, _stream_pre,
-                                                  _stream_refresh,
-                                                  init_stream_state)
+                                                  init_stream_state,
+                                                  stream_step_)
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["MultiStreamInference"]
-
-
-def _map_carry(fn, carry: LldCarry) -> LldCarry:
-    return LldCarry(*(None if f is None else fn(f) for f in carry))
-
-
-def _clone_state(st: StreamState) -> StreamState:
-    return StreamState(
-        audio_ring=st.audio_ring.clone(), mel_db=st.mel_db.clone(),
-        emotion_raw=st.emotion_raw.clone(), frame_count=st.frame_count,
-        temporal=TemporalState(prev=st.temporal.prev.clone(),
-                               initialized=st.temporal.initialized.clone()),
-        lld_ring={k: v.clone() for k, v in st.lld_ring.items()},
-        lld_carry=_map_carry(torch.clone, st.lld_carry))
 
 
 class MultiStreamInference:
@@ -67,12 +65,17 @@ class MultiStreamInference:
         frames = server.step(hops)     # (64, hop) audio -> (64, 52)
 
     Every session shares ``model``. Runs on ``cuda`` unless ``device``
-    says otherwise; raises when CUDA is asked for and absent.
+    says otherwise; raises when CUDA is asked for and absent. On the card
+    each step is a CUDA graph replay; ``graphs=False`` runs it eagerly,
+    and the CPU has no graphs (``graphs=True`` there raises
+    ``ValueError``). Each returned frame is a fresh tensor that no later
+    step writes.
     """
 
     def __init__(self, model: StreamingDualStreamModel,
                  cfg: StreamingConfig, n_sessions: int,
-                 device: DeviceLike = None, refresh_cohorts: int = 1):
+                 device: DeviceLike = None, refresh_cohorts: int = 1,
+                 graphs: Optional[bool] = None):
         if n_sessions < 1:
             raise ValueError("n_sessions must be >= 1")
         k = cfg.emotion_update_frames
@@ -93,12 +96,22 @@ class MultiStreamInference:
         #: each cohort's clock at ``states.frame_count == 0``
         self.phases = tuple((c * k) // refresh_cohorts
                             for c in range(refresh_cohorts))
+        self.step_graphs = StepGraphs(self.device, graphs)
         with torch.inference_mode():
-            self.states = init_stream_state(cfg, self.device, n_sessions)
+            self._static = StaticStream(
+                init_stream_state(cfg, self.device, n_sessions))
+        #: the static input buffer of each input dtype in use
+        self._inputs: dict[torch.dtype, torch.Tensor] = {}
         self.frames_emitted = 0
         # bounded: a long-running server must not grow host memory one
         # float per frame
         self.step_times: deque[float] = deque(maxlen=300)
+
+    @property
+    def states(self) -> StreamState:
+        """The current lane-batched state (static buffers, ``frame_count``
+        on the host)."""
+        return self._static.state
 
     @property
     def clocks(self) -> list[int]:
@@ -110,41 +123,26 @@ class MultiStreamInference:
         k = self.cfg.emotion_update_frames
         return [c for c, clock in enumerate(self.clocks) if clock % k == 0]
 
-    def _advance(self, st: StreamState, hops: torch.Tensor,
-                 due: Sequence[int]) -> tuple[torch.Tensor, StreamState]:
-        """One frame of every lane: ``(S, hop)`` float32 or int16 audio on
-        the device -> ``((S, 52), new state)``; the cohorts in ``due``
-        refresh. The refresh fields of ``st`` (``emotion_raw``,
-        ``lld_ring``, ``lld_carry``) are updated in place and carried
-        into the new state; every other field is a new tensor, so the
-        returned blendshapes (also the new EMA carry) are never written
-        again."""
-        cfg, g = self.cfg, self.refresh_cohorts
-        if hops.dtype == torch.int16:
-            # int16 PCM converts on the device: x * 2^-15 is exact, the
-            # same bits as x / 32768.0 on the host
+    def _input(self, dtype: torch.dtype) -> torch.Tensor:
+        buf = self._inputs.get(dtype)
+        if buf is None:
+            buf = torch.zeros((self.n_sessions, self.cfg.hop_length),
+                              dtype=dtype, device=self.device)
+            self._inputs[dtype] = buf
+        return buf
+
+    def _body(self, state: StreamState, out: tuple, dtype: torch.dtype,
+              due: Sequence[int]) -> torch.Tensor:
+        """One frame of every lane from the static input of ``dtype``
+        (float32, or int16 PCM converted on the device: x * 2^-15 is
+        exact, the same bits as x / 32768.0 on the host); the cohorts in
+        ``due`` refresh on their lanes' views ``[c::G]``."""
+        hops = self._inputs[dtype]
+        if dtype == torch.int16:
             hops = hops.to(torch.float32) * (2.0 ** -15)
-        ring, mel_db, mel, detail = _stream_pre(st, hops, cfg)
-        for c in due:
-            lanes = slice(c, None, g)
-            cohort = dataclasses.replace(
-                st, emotion_raw=st.emotion_raw[lanes],
-                lld_ring={k: v[lanes] for k, v in st.lld_ring.items()},
-                lld_carry=_map_carry(lambda f: f[lanes], st.lld_carry))
-            feats, lld_ring, carry = _stream_refresh(cohort, ring[lanes], cfg,
-                                                     True)
-            st.emotion_raw[lanes] = feats
-            for k, v in lld_ring.items():
-                st.lld_ring[k][lanes] = v
-            for dst, src in zip(st.lld_carry, carry):
-                if dst is not None:
-                    dst[lanes] = src
-        out, temporal = _stream_post(self.model, mel, detail, st.emotion_raw,
-                                     st.temporal)
-        return out, StreamState(
-            audio_ring=ring, mel_db=mel_db, emotion_raw=st.emotion_raw,
-            frame_count=st.frame_count + 1, temporal=temporal,
-            lld_ring=st.lld_ring, lld_carry=st.lld_carry)
+        g = self.refresh_cohorts
+        return stream_step_(self.model, state, out, hops, self.cfg,
+                            [slice(c, None, g) for c in due])
 
     def _put_hops(self, hops) -> torch.Tensor:
         if not isinstance(hops, torch.Tensor):
@@ -158,21 +156,51 @@ class MultiStreamInference:
             raise ValueError(
                 f"expected ({self.n_sessions}, {self.cfg.hop_length}) "
                 f"audio, got {tuple(hops.shape)}")
-        return hops.to(self.device)
+        return self._input(hops.dtype).copy_(hops)
+
+    def _step(self, hops) -> torch.Tensor:
+        dtype = self._put_hops(hops).dtype
+        due = tuple(self.due_cohorts())
+        key = (due, self._static.parity, dtype)
+        graphs = self.step_graphs
+        if graphs.enabled and key not in graphs:
+            if ((), 0, dtype) not in graphs:
+                logger.info("capturing the server's CUDA graphs for %s "
+                            "input at first use", dtype)
+                self.warmup(dtype)
+            if key not in graphs:        # a due set the phases never give
+                logger.info("capturing the server's CUDA graph of %s", key)
+                self._capture(key)
+        out = graphs.run(key, functools.partial(
+            self._body, *self._static.buffers(key[1]), dtype, due))
+        self._static.advance()
+        return out
+
+    def _capture(self, key, warm: bool = True) -> None:
+        due, parity, dtype = key
+        self.step_graphs.capture(
+            key, functools.partial(self._body,
+                                   *self._static.buffers(parity), dtype, due),
+            functools.partial(self._body, *self._static.scratch(), dtype,
+                              due) if warm else None)
 
     # -- serving -----------------------------------------------------------
 
     @torch.inference_mode()
     def warmup(self, dtype=torch.float32) -> None:
-        """Run one step in which every cohort refreshes, on a copy of the
-        states, and discard it, so kernel builds and first-call costs land
-        before the real-time loop. ``dtype`` is the input's (``int16`` for
-        raw PCM)."""
-        hops = torch.zeros((self.n_sessions, self.cfg.hop_length),
-                           dtype=dtype, device=self.device)
-        out, _ = self._advance(_clone_state(self.states), hops,
-                               range(self.refresh_cohorts))
-        out.cpu()
+        """Capture the step's graphs for input ``dtype`` (``int16`` for
+        raw PCM), for every due set and buffer parity (on the card); or
+        run each due set's step once (eagerly). The warm-up runs write a
+        scratch copy of the state, so kernel builds and first-call costs
+        land before the real-time loop and the state stays as it was."""
+        self._input(dtype)
+        g = self.refresh_cohorts
+        for due in [()] + [(c,) for c in range(g)]:
+            if not self.step_graphs.enabled:
+                self._body(*self._static.scratch(), dtype, due)
+                continue
+            for parity in (0, 1):
+                self._capture((due, parity, dtype), warm=parity == 0)
 
     @torch.inference_mode()
     def step(self, hops) -> torch.Tensor:
@@ -181,10 +209,8 @@ class MultiStreamInference:
         Takes float32 in [-1, 1] or raw int16 PCM (converted on the
         device), as a numpy array or a tensor on any device. Returns the
         device tensor without waiting for it."""
-        hops = self._put_hops(hops)
         t0 = time.perf_counter()
-        out, self.states = self._advance(self.states, hops,
-                                         self.due_cohorts())
+        out = self._step(hops)
         self.step_times.append(time.perf_counter() - t0)
         self.frames_emitted += self.n_sessions
         return out
@@ -192,32 +218,16 @@ class MultiStreamInference:
     @torch.inference_mode()
     def reset_sessions(self, indices: Sequence[int]) -> None:
         """Re-admit the given lanes as fresh sessions (silence rings,
-        unsmoothed first frame). The refresh clocks keep running: a new
-        session's first refresh lands on its cohort's next phase
-        boundary."""
+        unsmoothed first frame), written into the state's buffers in
+        place. The refresh clocks keep running: a new session's first
+        refresh lands on its cohort's next phase boundary."""
         idx = sorted(set(int(i) for i in indices))
         if not idx:
             return
         if idx[0] < 0 or idx[-1] >= self.n_sessions:
             raise ValueError(f"session index out of range: {idx}")
-        lanes = torch.tensor(idx, device=self.device)
-        st = self.states
-        fresh = init_stream_state(self.cfg, self.device, 1)
-        for dst, src in ((st.audio_ring, fresh.audio_ring),
-                         (st.mel_db, fresh.mel_db),
-                         (st.emotion_raw, fresh.emotion_raw),
-                         *((st.lld_ring[k], fresh.lld_ring[k])
-                           for k in st.lld_ring),
-                         *((d, s) for d, s in zip(st.lld_carry,
-                                                  fresh.lld_carry)
-                           if d is not None)):
-            dst[lanes] = src
-        # the EMA carry is the last step's output tensor: new tensors, so
-        # an output still being read is not written
-        zero = torch.zeros((), device=self.device)
-        self.states = dataclasses.replace(st, temporal=TemporalState(
-            prev=st.temporal.prev.index_fill(0, lanes, zero),
-            initialized=st.temporal.initialized.index_fill(0, lanes, False)))
+        self._static.write_fresh(init_stream_state(self.cfg, self.device, 1),
+                                 torch.tensor(idx, device=self.device))
 
     # -- measurement ---------------------------------------------------------
 
@@ -237,12 +247,8 @@ class MultiStreamInference:
             raise ValueError(
                 f"audio must be ({self.n_sessions}, k*{hop}), got "
                 f"{tuple(audio.shape)}")
-        frames = []
-        for t in range(total // hop):
-            out, self.states = self._advance(
-                self.states, audio[:, t * hop:(t + 1) * hop],
-                self.due_cohorts())
-            frames.append(out)
+        frames = [self._step(audio[:, t * hop:(t + 1) * hop])
+                  for t in range(total // hop)]
         self.frames_emitted += len(frames) * s
         return torch.stack(frames)
 

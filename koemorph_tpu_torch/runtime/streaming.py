@@ -15,6 +15,13 @@ Each 33 ms frame (:func:`stream_frame`):
 The refresh decision is a host-side branch on a host-side frame counter,
 so no frame reads anything back from the device to decide it.
 
+:func:`stream_frame` is the functional step (new state tensors each
+frame). :class:`StreamingInference` runs the same function in place on
+static buffers (:class:`StaticStream`, :func:`stream_step_`), so that on
+the card each frame is one replay of a CUDA graph
+(:mod:`koemorph_tpu_torch.runtime.graphs`), one graph per branch (refresh
+or not) and buffer parity.
+
 Mel row ``t`` is the STFT frame centered at ``t*hop`` from real samples
 only (no reflect padding), so the stream runs one frame behind the newest
 audio.
@@ -24,9 +31,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import time
 from collections import deque
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,12 +46,16 @@ from koemorph_tpu_torch.models.dual_stream_model import (
 from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig, LldCarry,
                                             compute_lld_block,
                                             functionals_multi_offset,
-                                            init_lld_ring, roll_lld_ring,
-                                            silence_lld_carry)
+                                            init_lld_ring, offset_masks,
+                                            roll_lld_ring, silence_lld_carry)
 from koemorph_tpu_torch.ops import frontend
+from koemorph_tpu_torch.runtime.graphs import StepGraphs
 
-__all__ = ["StreamingConfig", "StreamState", "StreamingInference",
-           "init_stream_state", "stream_frame", "model_for_config"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["StreamingConfig", "StreamState", "StaticStream",
+           "StreamingInference", "init_stream_state", "stream_frame",
+           "stream_step_", "model_for_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,15 +193,23 @@ def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
     return db.reshape(frames.shape[:-1] + (cfg.n_mels,))
 
 
+def _map_carry(fn, carry: LldCarry) -> LldCarry:
+    return LldCarry(*(None if f is None else fn(f) for f in carry))
+
+
 def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
-                cfg: StreamingConfig):
+                cfg: StreamingConfig, out=None):
     """Ring shift, one new mel row, per-window ref=max normalization, each
     over the leading (lane) dims of the state: the max is each window's
-    own. Returns the new ring and dB rows, and ``mel (B, W, n_mels)`` and
+    own. Returns the new ring and dB rows (written into ``out``, a (ring,
+    dB rows) pair of buffers, when given), and ``mel (B, W, n_mels)`` and
     ``detail (B, 3, n_mels)`` (B = 1 for an unbatched state)."""
-    ring = torch.cat([state.audio_ring[..., cfg.hop_length:], hop_audio], -1)
+    ring_out, mel_out = (None, None) if out is None else out
+    ring = torch.cat([state.audio_ring[..., cfg.hop_length:], hop_audio], -1,
+                     out=ring_out)
     row = _new_mel_row(cfg, ring)
-    mel_db = torch.cat([state.mel_db[..., 1:, :], row[..., None, :]], -2)
+    mel_db = torch.cat([state.mel_db[..., 1:, :], row[..., None, :]], -2,
+                       out=mel_out)
     wmax = mel_db.amax(dim=(-2, -1), keepdim=True)
     norm = (torch.clamp_min(mel_db - wmax, -80.0) + 80.0) / 80.0
     norm = norm.reshape((-1,) + norm.shape[-2:])
@@ -203,13 +223,6 @@ def _refresh_tail_len(cfg: StreamingConfig) -> int:
     reads: the LLD block's chunk (its low-pitch left context comes from
     the carry)."""
     return (cfg.lld_block_rows - 1) * cfg.egemaps_config.hop_length + 512
-
-
-@functools.lru_cache(maxsize=8)
-def _offset_masks(rows: int, cuts: tuple, device: torch.device
-                  ) -> torch.Tensor:
-    return (torch.arange(rows, device=device)[None, :]
-            < torch.tensor(cuts, device=device)[:, None])
 
 
 def _stream_refresh(state: StreamState, ring: torch.Tensor,
@@ -231,7 +244,7 @@ def _stream_refresh(state: StreamState, ring: torch.Tensor,
     offsets = (cfg.emotion_config.window_offsets
                if cfg.use_concatenation else (0.0,))
     cuts = tuple(rows - int(round(off / fp)) for off in offsets)
-    masks = _offset_masks(rows, cuts, ring.device)
+    masks = offset_masks(rows, cuts, ring.device)
     return functionals_multi_offset(lld_ring, ecfg, masks), lld_ring, carry
 
 
@@ -277,48 +290,182 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
         lld_ring=lld_ring, lld_carry=lld_carry)
 
 
+def stream_step_(model: StreamingDualStreamModel, state: StreamState,
+                 out: tuple, hop_audio: torch.Tensor, cfg: StreamingConfig,
+                 refresh: Sequence = ()) -> torch.Tensor:
+    """One frame of ``state``'s stream (or lanes) in place: the function
+    of :func:`stream_frame`, in a form a CUDA graph can replay. The new
+    audio ring and dB rows go to ``out``, a (ring, dB rows) pair of
+    buffers (a shift cannot run in place); the lanes indexed by each entry
+    of ``refresh`` (``...`` for all of them) run the emotion refresh, and
+    their results are written back into ``state``'s refresh fields in
+    place, as the new EMA carry is into ``state.temporal``.
+    ``state.frame_count`` is neither read nor advanced. Returns the
+    ``(B, 52)`` blendshapes."""
+    ring, _, mel, detail = _stream_pre(state, hop_audio, cfg, out)
+    for lanes in refresh:
+        cohort = dataclasses.replace(
+            state, emotion_raw=state.emotion_raw[lanes],
+            lld_ring={k: v[lanes] for k, v in state.lld_ring.items()},
+            lld_carry=_map_carry(lambda f: f[lanes], state.lld_carry))
+        feats, lld_ring, carry = _stream_refresh(cohort, ring[lanes], cfg,
+                                                 True)
+        state.emotion_raw[lanes] = feats
+        for k, v in lld_ring.items():
+            state.lld_ring[k][lanes] = v
+        for dst, src in zip(state.lld_carry, carry):
+            if dst is not None:
+                dst[lanes] = src
+    smoothed, temporal = _stream_post(model, mel, detail, state.emotion_raw,
+                                      state.temporal)
+    state.temporal.prev.copy_(temporal.prev)
+    state.temporal.initialized.copy_(temporal.initialized)
+    return smoothed
+
+
+class StaticStream:
+    """A stream's state (or a server's lanes) in static buffers, stepped
+    in place by :func:`stream_step_`.
+
+    ``state`` holds the current buffers; its ``frame_count`` lives on the
+    host. A shift cannot run in place (its source and destination
+    overlap), so the audio ring and the dB rows have two buffers each: a
+    step of parity ``p`` reads buffer ``p`` and writes buffer ``1 - p``,
+    and no step copies a ring (84 MB at 64 sessions) a second time. Every
+    other field has one buffer, written in place."""
+
+    def __init__(self, state: StreamState):
+        self.state = state
+        self.parity = 0
+        rings = (state.audio_ring, state.audio_ring.clone())
+        mels = (state.mel_db, state.mel_db.clone())
+        self._rings, self._mels = rings, mels
+        self._views = tuple(
+            (dataclasses.replace(state, audio_ring=rings[p], mel_db=mels[p]),
+             (rings[1 - p], mels[1 - p])) for p in (0, 1))
+
+    def buffers(self, parity: int) -> tuple[StreamState, tuple]:
+        """``(state, out)`` of a step of ``parity``: the state it reads
+        (and whose other fields it writes) and the (ring, dB rows) pair it
+        writes."""
+        return self._views[parity]
+
+    def scratch(self) -> tuple[StreamState, tuple]:
+        """``(state, out)`` for a warm-up step that leaves this stream as
+        it was: it reads the current ring and dB rows, and every buffer it
+        writes is a copy."""
+        st = self.state
+        return (dataclasses.replace(
+            st, emotion_raw=st.emotion_raw.clone(),
+            temporal=TemporalState(prev=st.temporal.prev.clone(),
+                                   initialized=st.temporal.initialized.clone()),
+            lld_ring={k: v.clone() for k, v in st.lld_ring.items()},
+            lld_carry=_map_carry(torch.clone, st.lld_carry)),
+            (st.audio_ring.clone(), st.mel_db.clone()))
+
+    def advance(self) -> None:
+        """After a step: its output buffers become the current ones."""
+        self.parity ^= 1
+        self.state.audio_ring = self._rings[self.parity]
+        self.state.mel_db = self._mels[self.parity]
+        self.state.frame_count += 1
+
+    def write_fresh(self, fresh: StreamState, lanes=...) -> None:
+        """Write ``fresh``'s fields into the current buffers at ``lanes``
+        (``...``: all; or an index of lanes, ``fresh`` with one lane
+        broadcast over them), in place."""
+        st = self.state
+        pairs = [(st.audio_ring, fresh.audio_ring), (st.mel_db, fresh.mel_db),
+                 (st.emotion_raw, fresh.emotion_raw),
+                 (st.temporal.prev, fresh.temporal.prev),
+                 (st.temporal.initialized, fresh.temporal.initialized),
+                 *((st.lld_ring[k], fresh.lld_ring[k]) for k in st.lld_ring),
+                 *((d, s) for d, s in zip(st.lld_carry, fresh.lld_carry)
+                   if d is not None)]
+        for dst, src in pairs:
+            dst[lanes] = src
+
+
 class StreamingInference:
     """Host-facing real-time engine: hop-sized re-chunking, the device
     step, and frame-time accounting (avg/max frame time, realtime factor).
 
-    Runs on ``cuda`` unless ``device`` says otherwise; raises when CUDA is
-    asked for and absent.
+    The step runs in place on static buffers (:class:`StaticStream`). On
+    the card it is one CUDA graph replay per frame, a graph per branch
+    (refresh or not) and buffer parity, captured by :meth:`warmup` or at
+    the first frame; ``graphs=False`` runs it eagerly, and the CPU has no
+    graphs (``graphs=True`` there raises ``ValueError``). Each returned
+    frame is a fresh tensor that no later step writes. Runs on ``cuda``
+    unless ``device`` says otherwise; raises when CUDA is asked for and
+    absent.
     """
 
     def __init__(self, model: StreamingDualStreamModel,
                  cfg: StreamingConfig = StreamingConfig(),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.state = init_stream_state(cfg, self.device)
+        self.step_graphs = StepGraphs(self.device, graphs)
+        with torch.inference_mode():
+            self._static = StaticStream(init_stream_state(cfg, self.device))
+            self._hop = torch.zeros((cfg.hop_length,), device=self.device)
         self._pending = np.zeros((0,), np.float32)
         self.frame_times: deque[float] = deque(maxlen=300)
         self.frames_emitted = 0
 
+    @property
+    def state(self) -> StreamState:
+        """The current state (static buffers, ``frame_count`` on the
+        host)."""
+        return self._static.state
+
     def reset(self) -> None:
-        self.state = init_stream_state(self.cfg, self.device)
+        with torch.inference_mode():
+            self._static.write_fresh(init_stream_state(self.cfg,
+                                                       self.device))
+        self.state.frame_count = 0
         self._pending = np.zeros((0,), np.float32)
         self.frames_emitted = 0
+
+    def _body(self, state: StreamState, out: tuple, refresh: bool):
+        return stream_step_(self.model, state, out, self._hop, self.cfg,
+                            (...,) if refresh else ())
 
     @torch.inference_mode()
     def step(self, hop_audio: np.ndarray) -> torch.Tensor:
         """Advance one frame on ``hop`` samples; returns the (52,) device
         tensor without waiting for it."""
-        chunk = torch.from_numpy(
-            np.ascontiguousarray(hop_audio, np.float32)).to(self.device)
-        out, self.state = stream_frame(self.model, self.state, chunk,
-                                       self.cfg)
-        return out["blendshapes"]
+        self._hop.copy_(torch.from_numpy(
+            np.ascontiguousarray(hop_audio, np.float32)))
+        k = self.cfg.emotion_update_frames
+        refresh = k > 0 and self.state.frame_count % k == 0
+        key = (refresh, self._static.parity)
+        if self.step_graphs.enabled and key not in self.step_graphs:
+            logger.info("capturing the stream's CUDA graphs at first use")
+            self.warmup()
+        out = self.step_graphs.run(key, functools.partial(
+            self._body, *self._static.buffers(key[1]), refresh))
+        self._static.advance()
+        return out[0]
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Run one refresh frame from a fresh state and discard it, so
-        kernel builds and first-call costs land before the real-time loop."""
-        state = init_stream_state(self.cfg, self.device)
-        chunk = torch.zeros((self.cfg.hop_length,), device=self.device)
-        out, _ = stream_frame(self.model, state, chunk, self.cfg)
-        out["blendshapes"].cpu()
+        """Capture the step's graphs (on the card), or run each branch once
+        (eagerly), warming up on a scratch copy of the state: kernel builds
+        and first-call costs land before the real-time loop, and the state
+        stays as it was."""
+        for refresh in (True, False):
+            warm = functools.partial(self._body, *self._static.scratch(),
+                                     refresh)
+            if not self.step_graphs.enabled:
+                warm()
+                continue
+            for p in (0, 1):
+                self.step_graphs.capture(
+                    (refresh, p), functools.partial(
+                        self._body, *self._static.buffers(p), refresh),
+                    warm if p == 0 else None)
 
     def process_audio(self, samples: np.ndarray) -> list[np.ndarray]:
         """Feed audio of any length; returns one (52,) frame per full hop

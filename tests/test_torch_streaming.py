@@ -211,7 +211,8 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'koemorph_tpu'))\n"
         "assert not bad, bad\n"
-        "for m in ('serve', 'feed_serve', 'runtime.multistream'):\n"
+        "for m in ('serve', 'feed_serve', 'runtime.multistream',\n"
+        "          'runtime.graphs'):\n"
         "    assert 'koemorph_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('koemorph_tpu_torch')]))\n")
