@@ -74,7 +74,26 @@ inside ``plain_forms()``.
    replay mode (``serve_cli``) and in listen mode fed over loopback by
    ``python -m koemorph_tpu_torch.feed_serve`` (``serve_listen``);
 9. infer_cli: ``python -m koemorph_tpu_torch.infer`` on a 10 s WAV;
-10. times: per-frame stream times and profiles (graphed and eager; the
+10. training, at the flagship width of ``configs/dual_stream_config.yaml``
+   (batch 16, span 288 frames = 153,504 samples, 33 windows per sample,
+   dropout 0.1, AdamW) on two 36 s files of the port's synthetic dataset:
+   ``train_step``: ``SequentialTrainer.fit`` over
+   ``create_sequential_dataloader`` for 12 steps with the launch counts
+   set to 0 just before (K1 twice and K2 once per step on 15,312 LLD
+   rows, K3 on the 4,624 global STFT frames and the 1,056 window-edge
+   frames), ms per step between CUDA events, activities and device busy
+   per step, peak memory, audio seconds per second, the step split into
+   emotion features, forward, backward and optimizer; finite losses and
+   every parameter with a gradient moved; ``train_plain``: one step's
+   loss and gradients with the kernels against the plain forms (dropout
+   0), and each kernel against its plain form on the arguments the train
+   step passed it; ``train_resume``: 2 steps, a checkpoint, a fresh
+   trainer's ``resume()`` and 2 more, bitwise equal to 4 steps at once
+   (dropout on); ``train_cli``: ``python -m koemorph_tpu_torch.train``
+   in a subprocess, then ``infer``, ``rt`` and ``serve`` with ``--model``
+   on what it wrote, each equal to the same engine run in-process on the
+   loaded state dict;
+11. times: per-frame stream times and profiles (graphed and eager; the
    eager refresh frame also with the eGeMAPS index copies put back, and
    in a profiling window without a lead-in), the
    decode's time per call, frames per second and profile (graphed and
@@ -454,6 +473,23 @@ def k1_bytes(frames, rows: int, n_out: int) -> float:
     return 4.0 * lay.batches * per_batch + rows * (4.0 * n_out + 12)
 
 
+def hausdorff(za, zb):
+    """Per-row Hausdorff distance between two (rows, 10) root sets."""
+    import torch
+    d = (za[:, :, None] - zb[:, None, :]).abs()
+    return torch.maximum(d.amin(2).amax(1), d.amin(1).amax(1))
+
+
+def companion(a):
+    """(rows, 10, 10) companion matrices of (rows, 11) polynomials."""
+    import torch
+    rows = a.shape[0]
+    comp = torch.zeros((rows, 10, 10), device=a.device, dtype=a.dtype)
+    comp[:, 0, :] = -a[:, 1:] / a[:, :1]
+    comp[:, 1:, :-1] = torch.eye(9, device=a.device, dtype=a.dtype)
+    return comp
+
+
 def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
     """(t, 1024) frames of a near-full-scale tone (0.95, a different
     frequency and phase per frame) plus white noise 90 dB below the
@@ -465,6 +501,454 @@ def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
     tone = 0.95 * np.sin(2 * np.pi * f0[:, None] * n / SR + ph[:, None])
     sigma = 0.95 / np.sqrt(2.0) * 10.0 ** (-90.0 / 20.0)
     return (tone + sigma * rng.standard_normal((t, 1024))).astype(np.float32)
+
+
+#: the flagship training run: the data config's batch, the sequence
+#: trainer's span (window + 32 frames) over two 36 s synthetic files at
+#: stride 8 (100 windows each: 12 full batches)
+TRAIN_FILES, TRAIN_FILE_S = 2, 36.0
+TRAIN_PLAIN_LOSS_RTOL = 1e-4
+#: every leaf's gradient, kernels against plain forms, relative to the
+#: leaf's largest element (the H100 readings were at most 3.5e-5)
+TRAIN_PLAIN_GRAD = 5e-4
+
+
+#: the training rows include noise-like frames whose LPC roots cluster:
+#: after the reference's 20 Durand-Kerner iterations 0.3-0.5% of them are
+#: not within DK_MAX of the float64 roots in the plain form (30
+#: iterations leave 0-2 of 15,312, 40 none); held to at most 1%
+DK_TRAIN_UNCONVERGED = 0.01
+#: draws of the plain form on inputs rounded the other way, to measure how
+#: many of its converged rows rounding alone turns (0-6 of 15,312 per
+#: draw over 12 training batches on an H100; the kernel missed 0-4)
+DK_TRAIN_DRAWS = 8
+
+
+def dk_train_agreement(a) -> dict:
+    """K2 against its plain form on the training rows ``a (..., 11)``.
+
+    The rows held are chosen by the plain form and float64 alone: those
+    where the plain form lies within DK_MAX of the float64 roots. There
+    the kernel must lie within 2 DK_MAX of the plain form, and a row where
+    it does not is a miss. On a few such rows whether 20 iterations land
+    is decided by rounding, so the misses are held to the rate at which
+    the plain form misses its own result when each coefficient is rounded
+    one step up or down (DK_TRAIN_DRAWS draws, mean m): at most
+    m + 4 sqrt(m) + 2."""
+    import torch
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import egemaps as eg
+    a = a.reshape(-1, a.shape[-1])
+    got, want = ck.dk_roots(a), eg.poly_roots_plain(a)
+    exact = torch.linalg.eigvals(companion(a.double()))
+    conv = hausdorff(want.to(torch.complex128), exact) < DK_MAX
+    h = hausdorff(got, want)[conv]
+    gen = torch.Generator(device=a.device).manual_seed(0)
+    plain_misses = []
+    for _ in range(DK_TRAIN_DRAWS):
+        step = torch.randint(-1, 2, a.shape, generator=gen, device=a.device)
+        step[:, 0] = 0                  # the leading coefficient stays 1
+        nudged = a * (1 + step.to(a.dtype) * 2.0 ** -23)
+        hp = hausdorff(eg.poly_roots_plain(nudged), want)[conv]
+        plain_misses.append(int((hp >= 2 * DK_MAX).sum()))
+    m = sum(plain_misses) / len(plain_misses)
+    held = h[h < 2 * DK_MAX]
+    return {"rows": a.shape[0], "rows_not_converged": int((~conv).sum()),
+            "misses": int((h >= 2 * DK_MAX).sum()),
+            "miss_bound": m + 4 * m ** 0.5 + 2,
+            "plain_misses_rounded": plain_misses,
+            "hausdorff_median": float(h.median()),
+            "hausdorff_max_held": float(held.max())}
+
+
+def dk_train_ok(r: dict) -> bool:
+    """The rules of :func:`dk_train_agreement` on its result."""
+    return (r["hausdorff_median"] < DK_MEDIAN_MAX
+            and r["misses"] <= r["miss_bound"]
+            and r["rows_not_converged"] <= DK_TRAIN_UNCONVERGED * r["rows"])
+
+
+def train_phases(card: str, work: Path, env: dict) -> dict:
+    """Phase 10: the sequential trainer at flagship width on the card.
+
+    ``train_step`` drives ``SequentialTrainer.fit`` over
+    ``create_sequential_dataloader`` (the path ``python -m
+    koemorph_tpu_torch.train`` takes) with the launch counts set to 0 just
+    before; ``train_plain`` holds one step's loss and gradients against the
+    plain forms; ``train_resume`` holds a resumed run against an
+    uninterrupted one; ``train_cli`` trains through the CLI in a subprocess
+    and serves what it wrote through ``infer``, ``rt`` and ``serve``.
+    Returns the kernels' recorded arguments and launch counts of the
+    ``train_step`` run, for the kernels table."""
+    import torch
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.data.wav import read_wav, write_wav
+    from koemorph_tpu_torch.models import dual_stream_model as dm
+    from koemorph_tpu_torch.models.losses import sequence_koemorph_loss
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.parallel.batched_decode import (
+        BatchedSequentialDecoder)
+    from koemorph_tpu_torch.runtime import MultiStreamInference
+    from koemorph_tpu_torch.runtime.engine import build_streaming_model
+    from koemorph_tpu_torch.runtime.streaming import StreamingInference
+    from koemorph_tpu_torch.serve import _load_replay_lanes
+    from koemorph_tpu_torch.train.__main__ import (build_model,
+                                                   write_synthetic_dataset)
+    from koemorph_tpu_torch.train.checkpoint import load_opt_state
+    from koemorph_tpu_torch.train.trainer import (SequentialTrainer,
+                                                  dropout_generator,
+                                                  sequence_targets)
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+    from koemorph_tpu_torch.utils.params import (load_model_state,
+                                                 read_state_dict)
+
+    dev = torch.device("cuda")
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on; the trainer runs in full fp32")
+    config_path = ROOT / "configs" / "dual_stream_config.yaml"
+    cfg = load_config(config_path)
+    synth = write_synthetic_dataset(
+        work / "train_synth", TRAIN_FILES, duration_s=TRAIN_FILE_S,
+        sample_rate=int(cfg.data.sample_rate), fps=float(cfg.data.target_fps))
+    cfg.data.train_data_dir = str(synth)
+    batch_size = int(cfg.data.batch_size)
+    tcfg = to_dict(cfg)
+
+    def new_trainer(tag, model_cfg=cfg):
+        model, kind = build_model(model_cfg)
+        check(kind == "sequence", f"the config's model is {kind}")
+        loader_fn, dataset = create_sequential_dataloader(
+            synth, batch_size=batch_size,
+            window_frames=model.window_frames + 32,
+            stride_frames=int(cfg.data.stride_frames),
+            sample_rate=int(cfg.data.sample_rate),
+            target_fps=float(cfg.data.target_fps))
+        steps = dataset.get_num_windows() // batch_size
+        trainer = SequentialTrainer(
+            model, tcfg, work_dir=work / f"train_{tag}",
+            steps_per_epoch=steps, span_frames=model.window_frames + 32)
+        return trainer, loader_fn, steps
+
+    trainer, loader_fn, n_steps = new_trainer("main")
+    model = trainer.model
+    att = model.dual_stream_attention
+    span_samples = (model.window_frames + 32) * model.hop_length
+    n_windows = 32 // model.stride_frames + 1                          # 33
+    t_global = batch_size * (span_samples // model.hop_length + 1)
+    t_edges = batch_size * n_windows * 2
+    lld_rows = batch_size * (1 + (span_samples - 512) // 160)
+    check(n_steps == 12 and att.mel_attention.attn_dropout.rate == 0.1,
+          f"train config: {n_steps} steps, dropout "
+          f"{att.mel_attention.attn_dropout.rate}")
+
+    # ---- train_step: the main path, counted ----
+    events, losses = [], []
+    real_step = trainer.train_step
+
+    def timed_step(batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        metrics = real_step(batch)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = timed_step
+    before = {k: v.detach().clone() for k, v in trainer.params.items()}
+    train_rec: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernels(train_rec, "train"):
+        history = trainer.fit(lambda epoch: loader_fn(), None, max_epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.train_step = real_step
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    losses = [float(v) for v in losses]
+    moved = {k: bool((v.detach() != before[k]).any())
+             for k, v in trainer.params.items()}
+
+    # the same path profiled over two more steps (a lead-in first), and
+    # the step split into its parts between CUDA events
+    batches = [trainer._prepare(b) for b in list(loader_fn())[:4]]
+    prof = profiled(lambda: [trainer.train_step(b) for b in batches[:2]])
+    ks = device_kernels(None, prof)
+    busy_ms = sum(us for _, us in ks) / 1e3 / 2
+    own = {k: v / KERNELS_PER_LAUNCH[k]
+           for k, v in own_kernels(ks, 2).items()}
+    names = list(trainer.params)
+    split = collections.defaultdict(list)
+    zero_grad = dict.fromkeys(names, True)
+    for b in batches[:3]:
+        model.train()
+        gen = dropout_generator(trainer.dropout_seed, trainer.global_step,
+                                dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        emo = model.emotion_raw(b["audio"])
+        ev[1].record()
+        pred = model(b["audio"], emotion_features_raw=emo,
+                     generator=gen)["blendshapes"]
+        loss, _ = sequence_koemorph_loss(
+            pred, sequence_targets(b["blendshapes"], model.window_frames,
+                                   model.stride_frames, pred.shape[1]),
+            config=trainer.loss_config)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, list(trainer.params.values()))
+        ev[3].record()
+        trainer.optimizer.step(dict(zip(names, grads)))
+        ev[4].record()
+        torch.cuda.synchronize()
+        for k, g in zip(names, grads):
+            zero_grad[k] &= bool((g == 0).all())
+        for i, part in enumerate(("emotion features forward (eGeMAPS)",
+                                  "mel + attention + loss forward",
+                                  "backward", "optimizer")):
+            split[part].append(ev[i].elapsed_time(ev[i + 1]))
+    split_ms = {k: float(np.median(v)) for k, v in split.items()}
+    audio_s = batch_size * span_samples / SR
+    emit({"phase": "train_step", "card": card, "batch": batch_size,
+          "span_samples": span_samples, "windows_per_sample": n_windows,
+          "steps": len(step_ms), "first_step_ms": float(step_ms[0]),
+          "step_ms": q(step_ms[1:]), "fit_wall_s": wall,
+          "audio_s_per_wall_s": len(step_ms) * audio_s / wall,
+          "audio_s_per_step_s": audio_s / (np.median(step_ms[1:]) / 1e3),
+          "activities_per_step": len(ks) / 2,
+          "device_busy_ms_per_step": busy_ms,
+          "device_busy_share": busy_ms / float(np.median(step_ms[1:])),
+          "profiled_wall_ms_per_step": prof.wall_s * 1e3 / 2,
+          "peak_gb": peak_gb, "split_ms": split_ms,
+          "launches": launches,
+          "launches_per_step": {k: v / len(step_ms)
+                                for k, v in launches.items()},
+          "launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                for k, v in shapes.items()},
+          "profiled_kernels_per_step": own,
+          "top_kernels_us_per_step": profile_summary(ks, 2, top_n=10),
+          "losses": losses, "train_metrics": history["train"][0],
+          "lld_rows": lld_rows, "logmel_T": [t_global, t_edges],
+          "params_not_moved": [k for k, m in moved.items() if not m],
+          "params_with_zero_gradient": [k for k, z in zero_grad.items()
+                                        if z]})
+    check(len(step_ms) == n_steps, f"fit ran {len(step_ms)} steps")
+    check(all(np.isfinite(losses)), f"non-finite train losses: {losses}")
+    # the expression queries get no gradient: their attention has one key
+    # (the emotion token), so its softmax is 1 whatever the queries
+    check(all(moved[k] for k in names if not zero_grad[k]),
+          f"trained parameters did not move: {moved}")
+    check(launches == {"cycle_dsum": 2 * n_steps, "dk_roots": n_steps,
+                       "logmel": 2 * n_steps},
+          f"train launches {launches} for {n_steps} steps")
+    for key in (("logmel", (t_global,)), ("logmel", (t_edges,)),
+                ("cycle_dsum", (lld_rows, 8, 17, 512)),
+                ("cycle_dsum", (lld_rows, 5, 33, 1024)),
+                ("dk_roots", (lld_rows,))):
+        check(shapes.get(key, 0) == n_steps,
+              f"train: {key} launched {shapes.get(key, 0)} times")
+    check(own == {"cycle_dsum": 2.0, "dk_roots": 1.0, "logmel": 2.0},
+          f"profiled kernels per step: {own}")
+
+    # ---- train_plain: one batch, the same parameters, dropout 0 ----
+    cfg0 = load_config(config_path, overrides=[
+        "model.dual_stream_attention.dropout=0.0"])
+    plain_trainer, _, _ = new_trainer("plain", cfg0)
+    plain_trainer.model.load_state_dict(model.state_dict())
+    b = batches[3]
+
+    def loss_grads():
+        plain_trainer.model.train()
+        loss, _ = plain_trainer.loss_fn(b, dropout_generator(0, 0, dev))
+        grads = torch.autograd.grad(
+            loss, list(plain_trainer.params.values()), allow_unused=True)
+        return float(loss.detach()), {k: (torch.zeros_like(p) if g is None
+                                          else g)
+                             for (k, p), g in zip(
+                                 plain_trainer.params.items(), grads)}
+
+    before_launch = dict(ck.LAUNCHES)
+    loss_k, grads_k = loss_grads()
+    check(dict(ck.LAUNCHES) != before_launch, "the kernel step launched "
+          "no kernel")
+    with plain_forms():
+        before_launch = dict(ck.LAUNCHES)
+        loss_p, grads_p = loss_grads()
+        check(dict(ck.LAUNCHES) == before_launch, "the plain step launched "
+              "a kernel")
+    rel = {}
+    for k, gp in grads_p.items():
+        scale = float(gp.abs().max())
+        rel[k] = float((grads_k[k] - gp).abs().max()) / scale if scale \
+            else float((grads_k[k] - gp).abs().max())
+    bad = {k: r for k, r in rel.items() if r > TRAIN_PLAIN_GRAD}
+    # each kernel against its plain form on the arguments the train step
+    # passed it, by the rules of phases 3-5
+    kernel_err, kernel_ok = {}, {}
+    with torch.inference_mode():
+        for (name, tag, key), (args, kw) in sorted(
+                train_rec.items(), key=lambda kv: str(kv[0])):
+            if name == "cycle_dsum":
+                label = f"cycle_dsum n{key[1]} x{key[0]}"
+                got = ck.cycle_dsum(*args, **kw)
+                want = f0_ops.cycle_dsum_plain(*args, **kw)
+                err = (got - want).abs()
+                kernel_ok[label] = bool(
+                    (err <= K1_ATOL + K1_RTOL * want.abs()).all()
+                    and torch.equal(got.isnan(), want.isnan()))
+                kernel_err[label] = float(err.max())
+            elif name == "dk_roots":
+                label = f"dk_roots x{key}"
+                kernel_err[label] = dk_train_agreement(args[0])
+                kernel_ok[label] = dk_train_ok(kernel_err[label])
+            elif name == "logmel":
+                label = f"logmel T={key}"
+                got = ck.logmel(*args, **kw)
+                want = frontend.frames_to_logmel_plain(*args, **kw)
+                err = (got - want).abs()
+                kernel_ok[label] = bool(
+                    (err <= K3_ATOL + K3_RTOL * want.abs()).all())
+                kernel_err[label] = float(err.max())
+    emit({"phase": "train_plain", "loss_kernels": loss_k,
+          "loss_plain": loss_p,
+          "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+          "grad_max_rel_diff_by_leaf": rel,
+          "bounds": {"loss_rtol": TRAIN_PLAIN_LOSS_RTOL,
+                     "grad": TRAIN_PLAIN_GRAD},
+          "kernel_max_abs_err_train_shapes": kernel_err,
+          "kernel_ok_train_shapes": kernel_ok})
+    check(abs(loss_k - loss_p) <= TRAIN_PLAIN_LOSS_RTOL * abs(loss_p),
+          f"train loss: kernels {loss_k}, plain {loss_p}")
+    check(not bad, f"train gradients: kernels vs plain {bad}")
+    check(len(kernel_ok) == 5 and all(kernel_ok.values()),
+          f"a kernel disagrees with its plain form at the training "
+          f"shapes: {kernel_err}")
+
+    # ---- train_resume: 2 steps, save, resume, 2 more vs 4 at once ----
+    four = list(loader_fn())[:4]
+
+    def by_epoch(epoch):
+        return iter(four[2 * epoch: 2 * epoch + 2])
+
+    whole, _, _ = new_trainer("whole")
+    whole.fit(by_epoch, None, max_epochs=2)
+    first, _, _ = new_trainer("split")
+    first.fit(by_epoch, None, max_epochs=1)
+    resumed, _, _ = new_trainer("split")
+    check(resumed.resume() and resumed.global_step == 2,
+          "the resumed trainer did not find its checkpoint")
+    resumed.fit(by_epoch, None, max_epochs=2)
+    diffs = {k: float((p.detach() - resumed.params[k].detach()).abs().max())
+             for k, p in whole.params.items()}
+    sa, sb = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    moments_equal = all(torch.equal(sa[m][k], sb[m][k])
+                        for m in ("mu", "nu") for k in sa[m])
+    emit({"phase": "train_resume", "steps": 4, "dropout": 0.1,
+          "bitwise_equal": max(diffs.values()) == 0.0 and moments_equal,
+          "max_abs_diff": max(diffs.values()),
+          "count": [sa["count"], sb["count"]]})
+    check(max(diffs.values()) == 0.0 and moments_equal
+          and sa["count"] == sb["count"] == 4,
+          f"resumed run != uninterrupted run: {diffs}")
+    del whole, first, resumed, plain_trainer
+
+    # ---- train_cli: the CLI on the card, then serve what it wrote ----
+    cli_work = work / "train_cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.train", "--config",
+         str(config_path), "--synthetic", "4", "--max-epochs", "1",
+         "--steps-per-epoch", "3", "--work-dir", str(cli_work)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    train_cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train CLI failed:\n{proc.stderr[-3000:]}")
+    final = json.loads(proc.stdout.strip().splitlines()[-1])
+    last = cli_work / "checkpoints" / "last"
+    meta = json.loads((last / "meta.json").read_text())
+    opt_count = load_opt_state(last)["optimizer"]["count"]
+    check(np.isfinite(final["final_train_metrics"]["loss"])
+          and meta["global_step"] == opt_count > 0,
+          f"train CLI result: {final}, {meta}")
+    sd = read_state_dict(last)
+
+    wav = work / "train_cli.wav"
+    write_wav(wav, voiced_audio(10.0, seed=12), SR)
+    audio, _ = read_wav(wav, mono=True)
+    results = {}
+    # infer: the decode of the loaded model, in-process
+    out_jsonl = work / "train_cli_infer.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.infer", "--input",
+         str(wav), "--output", str(out_jsonl), "--model", str(last)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"infer --model failed:\n"
+          f"{proc.stderr[-3000:]}")
+    check("random weights" not in proc.stderr, "infer used random weights")
+    got = np.asarray([json.loads(r)["blendshapes"]
+                      for r in out_jsonl.read_text().splitlines()])
+    dec_model = dm.SequentialDualStreamModel(dropout=0.0)
+    load_model_state(dec_model, sd)
+    usable = (len(audio) // HOP) * HOP
+    want = BatchedSequentialDecoder(dec_model)(audio[None, :usable])[0]
+    want = want.cpu().numpy().round(6).astype(np.float64)
+    results["infer"] = (got.shape, float(np.abs(got - want).max())
+                        if got.shape == want.shape else float("inf"))
+    # rt: the stream of the loaded model, in-process
+    rt_frames = 40
+    out_jsonl = work / "train_cli_rt.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input", str(wav),
+         "--model", str(last), "--output", "file", "--output-file",
+         str(out_jsonl), "--no-realtime", "--max-frames", str(rt_frames)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"rt --model failed:\n{proc.stderr[-3000:]}")
+    got = np.asarray([json.loads(r)["blendshapes"]
+                      for r in out_jsonl.read_text().splitlines()])
+    s_model, s_cfg = build_streaming_model(checkpoint=str(last))
+    eng = StreamingInference(s_model, s_cfg)
+    want = np.stack(eng.process_audio(audio[:rt_frames * HOP])).astype(
+        np.float64)
+    results["rt"] = (got.shape, float(np.abs(got - want).max())
+                     if got.shape == want.shape else float("inf"))
+    # serve: the server of the loaded model over the same lanes, in-process
+    sessions, ticks = 4, 24
+    out_jsonl = work / "train_cli_serve.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
+         str(wav), "--model", str(last), "--sessions", str(sessions),
+         "--output", "file", "--output-file", str(out_jsonl),
+         "--no-realtime", "--max-frames", str(ticks)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"serve --model failed:\n{proc.stderr[-3000:]}")
+    rows = [json.loads(r) for r in out_jsonl.read_text().splitlines()]
+    got = np.asarray([[r["blendshapes"] for r in rows if r["session"] == s]
+                      for s in range(sessions)]).transpose(1, 0, 2)
+    lanes = _load_replay_lanes([str(wav)], sessions, SR, HOP)
+    srv = MultiStreamInference(s_model, s_cfg, sessions)
+    want = np.stack([srv.step(lanes[:, t * HOP:(t + 1) * HOP]).cpu().numpy()
+                     for t in range(ticks)]).astype(np.float64)
+    results["serve"] = (got.shape, float(np.abs(got - want).max())
+                        if got.shape == want.shape else float("inf"))
+    emit({"phase": "train_cli", "card": card, "train_cli_s": train_cli_s,
+          "final_train_metrics": final["final_train_metrics"],
+          "global_step": meta["global_step"],
+          "served": {k: {"shape": list(s), "max_abs_diff_in_process": d}
+                     for k, (s, d) in results.items()}})
+    for k, (shape, d) in results.items():
+        check(d == 0.0, f"{k} --model differs from the in-process run: "
+              f"{shape}, {d}")
+    return {"rec": train_rec, "shapes": shapes, "lld_rows": lld_rows,
+            "t_global": t_global, "t_edges": t_edges}
 
 
 def main() -> int:  # noqa: C901
@@ -645,17 +1129,6 @@ def main() -> int:  # noqa: C901
         r = autocorr_matmul(torch.from_numpy(x).to(dev), 11)
         r = torch.cat([r[:, :1] * 1.0001, r[:, 1:]], -1)
         return eg._levinson(r, 10).contiguous()
-
-    def hausdorff(za, zb):
-        d = (za[:, :, None] - zb[:, None, :]).abs()
-        return torch.maximum(d.amin(2).amax(1), d.amin(1).amax(1))
-
-    def companion(a):
-        rows = a.shape[0]
-        comp = torch.zeros((rows, 10, 10), device=dev, dtype=a.dtype)
-        comp[:, 0, :] = -a[:, 1:] / a[:, :1]
-        comp[:, 1:, :-1] = torch.eye(9, device=dev, dtype=a.dtype)
-        return comp
 
     k2 = {}
     for rows in (30, lld_rows):
@@ -1422,7 +1895,22 @@ def main() -> int:  # noqa: C901
           "log": [ln for ln in proc.stderr.splitlines() if "RTF" in ln]})
     check(len(rows) == n_cli and stamps_ok, "infer CLI output")
 
-    # ---- 10. times ----
+    # ---- 10. training ----
+    train = train_phases(card, work, env)
+    # the trainer allocates from the default pool, never from a graph's:
+    # the decode's and the stream's graphs replay bitwise as before
+    dec_after = decoder(audio_dev).cpu().numpy()
+    engine.reset()
+    stream_after = np.stack(engine.process_audio(audio))
+    emit({"phase": "graphs_after_training",
+          "decode_bitwise_equal": bool(np.array_equal(dec_after, out_np)),
+          "stream_bitwise_equal": bool(np.array_equal(stream_after,
+                                                      stream_again))})
+    check(np.array_equal(dec_after, out_np)
+          and np.array_equal(stream_after, stream_again),
+          "a graph's output changed after training in the same process")
+
+    # ---- 11. times ----
     # per-frame times of the graphed stream (the main path's engine) and
     # of the eager one, between CUDA events
     def frame_times(eng) -> dict:
@@ -1753,6 +2241,56 @@ def main() -> int:  # noqa: C901
                 time_ms(lambda: torch.linalg.eigvals(comp_s), iters=2,
                         warmup=1),
                 "torch.linalg.eigvals of the companion matrices"))
+
+    # the training shapes, on the arguments the train step passed them
+    # (phase 10): K3 on the batch's global STFT frames and window edges,
+    # K1 and K2 on the eGeMAPS LLD rows of the batch's spans
+    rec_t, shapes_t, rows_t = train["rec"], train["shapes"], train["lld_rows"]
+    with torch.inference_mode():
+        for n, n_cyc, L in ((512, 8, 17), (1024, 5, 33)):
+            (frames_a, st, tau, off), kw = rec_t[("cycle_dsum", "train",
+                                                  (rows_t, n))]
+            got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+            want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+            kernels.append(k1_entry(
+                f"train args n{n} x{rows_t}", frames_a, st, tau, off, kw,
+                shapes_t.get(("cycle_dsum", (rows_t, n_cyc, L, n)), 0),
+                float((got - want).abs().max())))
+        (a_t,), _ = rec_t[("dk_roots", "train", rows_t)]
+        a_t = a_t.reshape(rows_t, a_t.shape[-1])
+        r_t = dk_train_agreement(a_t)
+        check(dk_train_ok(r_t), f"dk_roots at the training rows: {r_t}")
+        comp_t = companion(a_t)
+        kernels.append(entry(
+            f"dk_roots[train, {rows_t} rows]",
+            "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+            "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+            shapes_t.get(("dk_roots", (rows_t,)), 0),
+            r_t["hausdorff_max_held"],
+            lambda: ck.dk_roots(a_t), "dk_roots_kernel",
+            lambda: eg.poly_roots_plain(a_t),
+            rows_t * 11 * 4 + rows_t * 10 * 8 + 10 * 8,
+            20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows_t,
+            time_ms(lambda: torch.linalg.eigvals(comp_t), iters=2, warmup=1),
+            "torch.linalg.eigvals of the companion matrices"))
+        for t in (train["t_global"], train["t_edges"]):
+            (x_t,), kw_t = rec_t[("logmel", "train", t)]
+            err_t = float((ck.logmel(x_t, **kw_t)
+                           - frontend.frames_to_logmel_plain(x_t, **kw_t))
+                          .abs().max())
+            x_flat = x_t.reshape(-1, 1024)
+            kernels.append(entry(
+                f"logmel[train T={t}]",
+                "koemorph_tpu_torch/ops/cuda/logmel.cu",
+                "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+                shapes_t.get(("logmel", (t,)), 0), err_t,
+                lambda: ck.logmel(x_t, **kw_t), "logmel_",
+                lambda: frontend.frames_to_logmel_plain(x_t, **kw_t),
+                4.0 * (t * 1024 + 2 * 1024 * live + nnz + t * 80),
+                t * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+                time_ms(lambda: cublas_chain(x_flat), iters=50),
+                "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+                "(3 cuBLAS fp32 products)", tensor_cores=True))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

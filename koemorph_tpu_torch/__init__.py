@@ -1,4 +1,5 @@
-"""KoeMorph in PyTorch: streaming and offline decoding on an NVIDIA GPU.
+"""KoeMorph in PyTorch: streaming, offline decoding and training on an
+NVIDIA GPU.
 
 A port of :mod:`koemorph_tpu` (JAX) that stands on its own: it imports
 ``torch``, ``numpy`` and the standard library only. The per-frame
@@ -18,6 +19,8 @@ Entry points:
 - ``python -m koemorph_tpu_torch.rt --input x.wav ...``
 - :class:`koemorph_tpu_torch.parallel.batched_decode.BatchedSequentialDecoder`
 - ``python -m koemorph_tpu_torch.infer --input x.wav --output y.jsonl``
+- :class:`koemorph_tpu_torch.train.SequentialTrainer`
+- ``python -m koemorph_tpu_torch.train --config <root.yaml> [k=v ...]``
 """
 
 __version__ = "0.1.0"

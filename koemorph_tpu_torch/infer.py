@@ -2,17 +2,20 @@
 
 Usage:
     python -m koemorph_tpu_torch.infer --input speech.wav \\
-        --output frames.jsonl [--fps 30|60] [--stride-frames N] \\
-        [--decode-mode parallel|chunked|scan] [--d-model 256] \\
-        [--num-heads 8] [--seed 0] [--device cuda]
+        --output frames.jsonl [--model CKPT] [--fps 30|60] \\
+        [--stride-frames N] [--decode-mode parallel|chunked|scan] \\
+        [--d-model 256] [--num-heads 8] [--emotion-backend egemaps|basic] \\
+        [--seed 0] [--device cuda]
 
 Full-utterance decoding with
 :class:`~koemorph_tpu_torch.models.dual_stream_model.SequentialDualStreamModel`
 at flagship width (256-frame window, 512 at 60 fps). Line ``i`` of the
 output is window ``i``, stamped at the window's last frame,
-``(window - 1 + i * stride) / fps`` seconds. Weights are random, drawn from
-``--seed``. Runs on the GPU (``--device cuda``, the default) and fails when
-there is none; ``--device cpu`` runs on the CPU.
+``(window - 1 + i * stride) / fps`` seconds. ``--model`` loads a checkpoint
+(a directory the trainer wrote, such as ``<work>/checkpoints/last``, or a
+``.pth`` state dict in the reference's names); without it the weights are
+random, drawn from ``--seed``. Runs on the GPU (``--device cuda``, the
+default) and fails when there is none; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--input", required=True, help="mono WAV file")
     p.add_argument("--output", default="blendshapes.jsonl")
-    p.add_argument("--model", help="checkpoint (not supported yet)")
+    p.add_argument("--model", help="checkpoint directory (with state.pth) "
+                   "or .pth state dict; default: random weights")
     p.add_argument("--fps", type=int, default=30, choices=[30, 60])
     p.add_argument("--stride-frames", type=int, default=1)
     p.add_argument("--decode-mode", default="parallel",
@@ -62,29 +66,39 @@ def main(argv=None) -> int:
                    help="'scan' is an alias for 'chunked'")
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--num-heads", type=int, default=8)
+    p.add_argument("--emotion-backend", default="egemaps",
+                   choices=["egemaps", "basic"])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.model:
-        raise NotImplementedError("checkpoint loading is not ported")
 
     from koemorph_tpu_torch.device import resolve_device
     from koemorph_tpu_torch.models.dual_stream_model import (
         SequentialDualStreamModel)
     from koemorph_tpu_torch.parallel.batched_decode import (
         BatchedSequentialDecoder)
+    from koemorph_tpu_torch.utils.params import (load_model_state,
+                                                 read_state_dict)
 
     device = resolve_device(args.device)
     window = 512 if args.fps == 60 else 256
     model = SequentialDualStreamModel(
         d_model=args.d_model, num_heads=args.num_heads,
         mel_sequence_length=window, target_fps=args.fps,
-        stride_frames=args.stride_frames, decode_mode=args.decode_mode)
-    model.init_random(torch.Generator().manual_seed(args.seed))
-    logger.warning("No checkpoint given; decoding with random weights")
+        emotion_backend=args.emotion_backend,
+        use_concatenation=args.emotion_backend == "egemaps",
+        stride_frames=args.stride_frames, decode_mode=args.decode_mode,
+        dropout=0.0)
+    if args.model:
+        load_model_state(model, read_state_dict(args.model),
+                         f"checkpoint {args.model}")
+        logger.info("Loaded %s", args.model)
+    else:
+        model.init_random(torch.Generator().manual_seed(args.seed))
+        logger.warning("No checkpoint given; decoding with random weights")
     decoder = BatchedSequentialDecoder(model, device)
 
     audio = load_audio(args.input, model.sample_rate, window,

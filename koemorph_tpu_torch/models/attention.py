@@ -3,9 +3,12 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from koemorph_tpu_torch.models.dropout import Dropout
 
 
 class TorchStyleMHA(nn.Module):
@@ -13,10 +16,11 @@ class TorchStyleMHA(nn.Module):
     projection; parameter names match ``nn.MultiheadAttention``.
 
     A query batch of 1 against a larger key batch is projected once and
-    broadcast (learned-query callers pass ``(1, Q, E)``).
+    broadcast (learned-query callers pass ``(1, Q, E)``). ``dropout`` drops
+    attention weights in training when the call passes a ``generator``.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must be divisible by num_heads")
@@ -26,9 +30,11 @@ class TorchStyleMHA(nn.Module):
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.attn_dropout = Dropout(dropout)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor) -> torch.Tensor:
+                value: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         e = self.embed_dim
         h = self.num_heads
         hd = e // h
@@ -48,6 +54,6 @@ class TorchStyleMHA(nn.Module):
         k = k.reshape(b, t, h, hd).transpose(1, 2)
         v = v.reshape(b, t, h, hd).transpose(1, 2)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        attn = torch.softmax(scores, -1)
+        attn = self.attn_dropout(torch.softmax(scores, -1), generator)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, q_len, e)
         return self.out_proj(out)

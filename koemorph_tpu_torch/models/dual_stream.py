@@ -18,12 +18,15 @@ map one to one (``blendshape_decoder.0`` / ``.3`` are the head's layers).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from koemorph_tpu_torch.blendshapes import (EXPRESSION_INDICES,
                                             MOUTH_INDICES, NUM_BLENDSHAPES)
 from koemorph_tpu_torch.models.attention import TorchStyleMHA
+from koemorph_tpu_torch.models.dropout import Dropout
 
 #: Flax's LayerNorm epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
@@ -58,12 +61,12 @@ class DualStreamCrossAttention(nn.Module):
         self.emotion_norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mouth_queries = nn.Parameter(torch.zeros(n_mouth, d_model))
         self.expression_queries = nn.Parameter(torch.zeros(n_expr, d_model))
-        self.mel_attention = TorchStyleMHA(d_model, num_heads)
-        self.emotion_attention = TorchStyleMHA(d_model, num_heads)
+        self.mel_attention = TorchStyleMHA(d_model, num_heads, dropout)
+        self.emotion_attention = TorchStyleMHA(d_model, num_heads, dropout)
         self.mel_output_proj = nn.Linear(d_model, d_model)
         self.emotion_output_proj = nn.Linear(d_model, d_model)
         self.blendshape_decoder = nn.Sequential(
-            nn.Linear(d_model, d_model // 2), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(d_model, d_model // 2), nn.ReLU(), Dropout(dropout),
             nn.Linear(d_model // 2, 1))
         if use_learnable_weights:
             self.mel_weights = nn.Parameter(
@@ -82,18 +85,24 @@ class DualStreamCrossAttention(nn.Module):
         self.register_buffer("_expr_idx", torch.tensor(EXPRESSION_INDICES),
                              persistent=False)
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(self.blendshape_decoder(x)).squeeze(-1)
+    def _head(self, x: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        hidden, relu, dropout, out = self.blendshape_decoder
+        return torch.sigmoid(out(dropout(relu(hidden(x)), generator))
+                             ).squeeze(-1)
 
     def forward(self, mel_features: torch.Tensor,
                 mel_temporal_features: torch.Tensor,
                 emotion_features: torch.Tensor,
-                return_attention: bool = False) -> dict[str, torch.Tensor]:
+                return_attention: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> dict[str, torch.Tensor]:
         """``mel_features (B, T, 80)``, ``mel_temporal_features (B, 3, 80)``,
         ``emotion_features (Be, emotion_dim)`` -> ``{"blendshapes": (B, 52)}``
         in [0, 1]. With ``B = Be * r`` (``r`` windows per utterance,
         utterance-major) the emotion branch runs at ``Be`` rows and its
-        outputs repeat over each utterance's ``r`` rows."""
+        outputs repeat over each utterance's ``r`` rows. In training mode a
+        ``generator`` turns on dropout (attention weights and the head)."""
         if return_attention:
             raise NotImplementedError("return_attention is not ported")
         b = mel_features.shape[0]
@@ -113,11 +122,13 @@ class DualStreamCrossAttention(nn.Module):
             self.emotion_encoder(emotion_features)[:, None, :])
 
         mel_out = self.mel_attention(self.mouth_queries[None], mel_encoded,
-                                     mel_encoded)
+                                     mel_encoded, generator)
         emo_out = self.emotion_attention(self.expression_queries[None],
-                                         emo_encoded, emo_encoded)
-        mouth_bs = self._head(self.mel_output_proj(mel_out))      # (B, 28)
-        expr_bs = self._head(self.emotion_output_proj(emo_out))   # (Be, 24)
+                                         emo_encoded, emo_encoded, generator)
+        mouth_bs = self._head(self.mel_output_proj(mel_out),
+                              generator)                            # (B, 28)
+        expr_bs = self._head(self.emotion_output_proj(emo_out),
+                             generator)                             # (Be, 24)
         if b != be:
             expr_bs = expr_bs.repeat_interleave(b // be, 0)
 

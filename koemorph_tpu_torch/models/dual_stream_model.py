@@ -63,30 +63,35 @@ class StreamingDualStreamModel(nn.Module):
     projection (e.g. 264 -> d_model), the dual-stream attention, and the
     learnable EMA coefficient ``sigmoid(smoothing_alpha)``. Its state dict
     is what :func:`koemorph_tpu_torch.utils.params.state_dict_from_flax`
-    makes of a ``SimplifiedDualStreamModel`` parameter tree."""
+    makes of a ``SimplifiedDualStreamModel`` parameter tree. ``dropout``
+    is 0 for serving; the trainable models pass theirs."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  window_frames: int = 256, n_mels: int = 80,
                  num_blendshapes: int = 52, emotion_raw_dim: int = 264,
                  use_learnable_weights: bool = True,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, dropout: float = 0.0,
+                 smoothing_alpha_init: float = 0.8):
         super().__init__()
+        self.smoothing_alpha_init = smoothing_alpha_init
         self.emotion_projection = nn.Linear(emotion_raw_dim, d_model)
         self.dual_stream_attention = DualStreamCrossAttention(
             d_model=d_model, num_heads=num_heads, num_mel_channels=n_mels,
             mel_sequence_length=window_frames, mel_temporal_frames=3,
-            emotion_dim=d_model, dropout=0.0,
+            emotion_dim=d_model, dropout=dropout,
             num_blendshapes=num_blendshapes,
             use_learnable_weights=use_learnable_weights,
             temperature=temperature)
-        self.smoothing_alpha = nn.Parameter(torch.tensor(0.8))
+        self.smoothing_alpha = nn.Parameter(torch.tensor(smoothing_alpha_init))
 
     def forward(self, mel: torch.Tensor, detail: torch.Tensor,
-                emotion_raw: torch.Tensor) -> torch.Tensor:
+                emotion_raw: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, W, n_mels), (B, 3, n_mels), (B, D_raw) -> (B, 52) unsmoothed
-        blendshapes."""
+        blendshapes; a ``generator`` turns on dropout in training mode."""
         emotion = self.emotion_projection(emotion_raw)
-        return self.dual_stream_attention(mel, detail, emotion)["blendshapes"]
+        return self.dual_stream_attention(
+            mel, detail, emotion, generator=generator)["blendshapes"]
 
     def alpha(self) -> torch.Tensor:
         return torch.sigmoid(self.smoothing_alpha)
@@ -97,7 +102,8 @@ class StreamingDualStreamModel(nn.Module):
         truncated normal for dense kernels, N(0, 0.02) for the learned
         queries, Xavier uniform for the packed in-projections, zero biases,
         unit norms, stream weights 2.0 / 0.5 toward their own stream, and
-        ``smoothing_alpha`` 0.8. Drawn on the CPU from ``generator``."""
+        ``smoothing_alpha`` at ``smoothing_alpha_init``. Drawn on the CPU
+        from ``generator``."""
         def trunc_normal(shape, std):
             # inverse CDF of a normal truncated at +/- 2 std
             lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -125,13 +131,15 @@ class StreamingDualStreamModel(nn.Module):
             w.copy_((2.0 * torch.rand(w.shape, generator=generator) - 1.0)
                     * limit)
             mha.in_proj_bias.zero_()
-        self.smoothing_alpha.fill_(0.8)
+        self.smoothing_alpha.fill_(self.smoothing_alpha_init)
 
 
 class SimplifiedDualStreamModel(StreamingDualStreamModel):
     """Single-window model: ``(B, L)`` audio -> ``(B, 52)`` blendshapes, the
-    mel and eGeMAPS frontends inside the forward. Its state dict is that of
-    :class:`StreamingDualStreamModel`."""
+    mel and emotion frontends inside the forward. Its state dict is that of
+    :class:`StreamingDualStreamModel`. ``dropout`` (attention weights and
+    the decoder head) acts in training mode on calls given a
+    ``generator``."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  num_blendshapes: int = 52, sample_rate: int = 16000,
@@ -139,7 +147,8 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                  emotion_backend: str = "egemaps",
                  use_concatenation: bool = True,
                  use_learnable_weights: bool = True,
-                 fusion_temperature: float = 1.0):
+                 fusion_temperature: float = 1.0, dropout: float = 0.1,
+                 smoothing_alpha_init: float = 0.8):
         emotion_cfg = EmotionFrontendConfig(
             backend=emotion_backend, use_concatenation=use_concatenation,
             sample_rate=sample_rate)
@@ -151,7 +160,8 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                          num_blendshapes=num_blendshapes,
                          emotion_raw_dim=emotion_cfg.feature_dim,
                          use_learnable_weights=use_learnable_weights,
-                         temperature=fusion_temperature)
+                         temperature=fusion_temperature, dropout=dropout,
+                         smoothing_alpha_init=smoothing_alpha_init)
         self.emotion_config = emotion_cfg
         self.mel_frontend = mel_frontend
         self.sample_rate = sample_rate
@@ -169,16 +179,18 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
     def forward(self, audio: torch.Tensor,
                 state: Optional[TemporalState] = None,
                 emotion_features_raw: Optional[torch.Tensor] = None,
-                return_attention: bool = False):
+                return_attention: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``{"blendshapes": (B, 52)}``, and the new EMA state when
-        ``state`` is given (then the blendshapes are smoothed)."""
+        ``state`` is given (then the blendshapes are smoothed). In training
+        mode a ``generator`` draws the dropout masks."""
         if return_attention:
             raise NotImplementedError("return_attention is not ported")
         mel, detail = frontend.mel_with_temporal_detail(audio,
                                                         self.mel_frontend)
         if emotion_features_raw is None:
             emotion_features_raw = self.emotion_raw(audio)
-        out = super().forward(mel, detail, emotion_features_raw)
+        out = super().forward(mel, detail, emotion_features_raw, generator)
         if state is not None:
             smoothed, state = _ema_step(out, state, self.alpha())
             return {"blendshapes": smoothed}, state
@@ -341,12 +353,15 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
     def forward(self, audio: torch.Tensor,
                 emotion_features_raw: Optional[torch.Tensor] = None,
                 return_attention: bool = False,
-                window_starts=None, return_raw: bool = False) -> dict:
+                window_starts=None, return_raw: bool = False,
+                generator: Optional[torch.Generator] = None) -> dict:
         """``window_starts`` (``(n,)`` or per-utterance ``(B, n)`` frame
         indices, each ``<= L // hop - window_frames``, rows in time order)
         overrides the ``stride_frames`` grid; it needs the global STFT.
         ``return_raw`` adds the pre-smoothing window outputs as
-        ``raw_blendshapes``."""
+        ``raw_blendshapes``. In training mode a ``generator`` draws the
+        dropout masks, and each window then gets its own row of the
+        emotion vector, so no two windows share a mask."""
         if return_attention:
             raise NotImplementedError("return_attention is not ported")
         b, audio_len = audio.shape
@@ -393,13 +408,17 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
 
         def splice(windows, starts_samples):
             """Replace each window's first/last n_edge rows (in place, in
-            the freshly gathered windows) by the reflect-padded rows."""
+            the freshly gathered windows) by the reflect-padded rows. The
+            windows are a function of the audio alone and never require
+            grad, so the in-place write is safe in training too."""
             e0, ew = _reflect_edge_rows(audio, starts_samples, w * hop,
                                         cfg.n_fft, hop, **mel_kw)
             ne = e0.shape[2]
             windows[:, :, :ne] = e0
             windows[:, :, w + 1 - ne:] = ew
             return windows
+
+        dropping = generator is not None and self.training
 
         def attend(windows):
             """(B, n, W+1, n_mels) raw dB -> (n, B, 52) raw outputs."""
@@ -409,7 +428,8 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             out = self.dual_stream_attention(
                 norm[:, :, :w].reshape(b * n, w, cfg.n_mels),
                 norm[:, :, -3:].reshape(b * n, 3, cfg.n_mels),
-                emotion)["blendshapes"]
+                emotion.repeat_interleave(n, 0) if dropping else emotion,
+                generator=generator)["blendshapes"]
             return out.reshape(b, n, -1).transpose(0, 1)
 
         def decode_windows(first: int, n: int):

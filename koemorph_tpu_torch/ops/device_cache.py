@@ -11,12 +11,19 @@ one thing: inside :func:`holding` (which
 :class:`koemorph_tpu_torch.runtime.graphs.StepGraphs` wraps around each
 capture) every value it returns, cached or new, is added to the holder,
 and the graph keeps the holder for as long as it lives.
+
+Values are built outside ``torch.inference_mode`` even when the first call
+comes from inside it (a decode or a stream step): an inference tensor
+cannot be saved for backward, and a later train step in the same process
+reads the same cached constants.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+
+import torch
 
 __all__ = ["device_cache", "holding"]
 
@@ -32,7 +39,8 @@ def device_cache(maxsize: int):
 
         @functools.wraps(fn)
         def call(*args):
-            value = cached(*args)
+            with torch.inference_mode(False):
+                value = cached(*args)
             if _HOLDERS:
                 _HOLDERS[-1][id(value)] = value
             return value

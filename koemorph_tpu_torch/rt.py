@@ -5,7 +5,9 @@ Usage:
         --output-file frames.jsonl --no-realtime --max-frames 300
 
 Runs on the GPU (``--device cuda``, the default) and fails when there is
-none; ``--device cpu`` runs the same step on the CPU.
+none; ``--device cpu`` runs the same step on the CPU. ``--model`` loads a
+checkpoint the trainer wrote (``<work>/checkpoints/last``) or a ``.pth``
+state dict; without it the weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--input", required=True, help="WAV file to stream")
-    p.add_argument("--model", help="checkpoint (not supported yet)")
+    p.add_argument("--model", help="checkpoint directory (with state.pth) "
+                   "or .pth state dict; default: random weights")
     p.add_argument("--output", default="file",
                    choices=["udp", "osc", "file", "none"])
     p.add_argument("--host", default="127.0.0.1")

@@ -15,6 +15,8 @@ from koemorph_tpu_torch.runtime.streamers import BlendshapeStreamer
 from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
                                                   StreamingInference,
                                                   model_for_config)
+from koemorph_tpu_torch.utils.params import (load_model_state,
+                                             read_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -34,12 +36,14 @@ def build_streaming_model(
 ):
     """The flagship streaming model and its config: 256-frame window (512
     at 60 fps), 80 mels, 3-window eGeMAPS (264-D), 20 s emotion ring, a
-    refresh every 0.3 s. Weights are random, drawn from ``seed`` with an
-    explicit ``torch.Generator``. Returns ``(model, cfg)`` with the model
-    on ``device`` (``cuda`` by default; raises when CUDA is absent)."""
+    refresh every 0.3 s. ``checkpoint`` is a directory the trainer wrote
+    (``state.pth`` inside) or a ``.pth`` state dict in the reference's
+    names; a missing path raises ``FileNotFoundError``, a missing or
+    wrongly shaped parameter ``ValueError`` naming it. Without one the
+    weights are random, drawn from ``seed`` with an explicit
+    ``torch.Generator``. Returns ``(model, cfg)`` with the model on
+    ``device`` (``cuda`` by default; raises when CUDA is absent)."""
     dev = resolve_device(device)
-    if checkpoint:
-        raise NotImplementedError("checkpoint loading is not ported")
     cfg = StreamingConfig(
         sample_rate=sample_rate, target_fps=fps,
         window_frames=512 if fps == 60 else 256,
@@ -48,8 +52,14 @@ def build_streaming_model(
         use_concatenation=emotion_backend == "egemaps",
         emotion_update_frames=max(1, int(0.3 * fps)))
     model = model_for_config(cfg)
-    model.init_random(torch.Generator().manual_seed(seed))
-    logger.warning("No checkpoint given; using randomly initialized weights")
+    if checkpoint:
+        load_model_state(model, read_state_dict(checkpoint),
+                         f"checkpoint {checkpoint}")
+        logger.info("Loaded checkpoint %s", checkpoint)
+    else:
+        model.init_random(torch.Generator().manual_seed(seed))
+        logger.warning(
+            "No checkpoint given; using randomly initialized weights")
     return model.to(dev), cfg
 
 

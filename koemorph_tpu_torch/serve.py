@@ -30,8 +30,9 @@ Usage:
         --sessions 16 --output udp --port 9200
 
 Runs on the GPU (``--device cuda``, the default) and fails when there is
-none; ``--device cpu`` runs the same step on the CPU. Weights are random,
-drawn from ``--seed``.
+none; ``--device cpu`` runs the same step on the CPU. ``--model`` loads a
+checkpoint the trainer wrote (``<work>/checkpoints/last``) or a ``.pth``
+state dict; without it the weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -437,7 +438,8 @@ def main(argv=None) -> int:
                    help="ingest UDP audio datagrams (see above)")
     p.add_argument("--listen-host", default="127.0.0.1")
     p.add_argument("--listen-port", type=int, default=9100)
-    p.add_argument("--model", help="checkpoint (not supported yet)")
+    p.add_argument("--model", help="checkpoint directory (with state.pth) "
+                   "or .pth state dict; default: random weights")
     p.add_argument("--output", default="file",
                    choices=["udp", "osc", "file", "none"])
     p.add_argument("--host", default="127.0.0.1")

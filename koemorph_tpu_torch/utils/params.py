@@ -13,14 +13,36 @@ whose attention names follow the reference PyTorch module:
 - ``decoder_hidden`` / ``decoder_out`` are ``blendshape_decoder.0`` / ``.3``.
 
 Both directions only transpose, so a round trip is bit-exact.
+
+The optimizer state crosses the same way: :func:`optimizer_state_from_optax`
+reads an optax state tree (``ScaleByAdamState`` or ``TraceState``, the
+schedule's ``ScaleByScheduleState`` count, and ``MultiStepsState``'s
+accumulators) into the state of
+:class:`koemorph_tpu_torch.train.optim.Optimizer`, whose moments are named
+as the state dict; :func:`optax_from_optimizer_state` fills an optax state
+of the same optimizer with the port's. The optax trees are read by their
+field names, so nothing here imports optax.
+
+:func:`read_state_dict` reads the model state dict of a checkpoint
+directory or a bare ``.pth`` file, and :func:`load_model_state` loads it
+into a model after checking every name and shape, naming the first
+parameter that does not fit.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+from typing import Union
+
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "flax_from_state_dict"]
+__all__ = ["state_dict_from_flax", "flax_from_state_dict",
+           "optimizer_state_from_optax", "optax_from_optimizer_state",
+           "read_state_dict", "load_model_state"]
+
+#: the model's file in a checkpoint directory
+STATE_FILE = "state.pth"
 
 _ATT = "dual_stream_attention"
 _DENSE = {"mel_channel_encoder": "mel_channel_encoder",
@@ -92,3 +114,145 @@ def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     return {_ATT: att,
             "emotion_projection": dense("emotion_projection"),
             "smoothing_alpha": _n(sd["smoothing_alpha"]).reshape(())}
+
+
+def _fields(node) -> tuple:
+    return getattr(node, "_fields", ())
+
+
+def _find(tree, fields: tuple) -> list:
+    """Every namedtuple in ``tree`` (nested tuples, lists, namedtuples)
+    whose fields are exactly ``fields``, in order."""
+    if _fields(tree) == fields:
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [n for x in (tree if not _fields(tree)
+                            else [getattr(tree, f) for f in _fields(tree)])
+                for n in _find(x, fields)]
+    return []
+
+
+def _sd_like(tree: dict, params: dict, what: str) -> dict:
+    sd = state_dict_from_flax(tree)
+    if params is not None:
+        want = state_dict_from_flax(params)
+        for k, v in want.items():
+            if k not in sd or tuple(sd[k].shape) != tuple(v.shape):
+                raise ValueError(f"optax {what} does not match the "
+                                 f"parameters at {k}")
+    return sd
+
+
+def optimizer_state_from_optax(opt_state, params: dict = None) -> dict:
+    """An optax state tree of ``koemorph_tpu.train.optim.create_optimizer``
+    (numpy leaves) -> the port's optimizer ``state_dict``. ``params`` (the
+    Flax tree) checks the moments' names and shapes."""
+    multi = _find(opt_state, ("mini_step", "gradient_step",
+                              "inner_opt_state", "acc_grads", "skip_state"))
+    inner = multi[0].inner_opt_state if multi else opt_state
+    counts = [int(np.asarray(s.count)) for s in _find(inner, ("count",))]
+    adam = _find(inner, ("count", "mu", "nu"))
+    if len(counts) != 1:
+        raise ValueError(f"optax state has {len(counts)} schedule counts, "
+                         "expected 1")
+    state: dict = {"count": counts[0], "mini_step": 0, "gradient_step": 0}
+    if adam:
+        (adam,) = adam
+        if int(np.asarray(adam.count)) != counts[0]:
+            raise ValueError("optax Adam and schedule counts differ: "
+                             f"{int(np.asarray(adam.count))} vs "
+                             f"{counts[0]}")
+        state.update(name="adam", mu=_sd_like(adam.mu, params, "mu"),
+                     nu=_sd_like(adam.nu, params, "nu"))
+    else:
+        traces = _find(inner, ("trace",))
+        if len(traces) != 1:
+            raise ValueError(f"optax state has {len(traces)} momentum "
+                             "traces, expected 1")
+        state.update(name="sgd", trace=_sd_like(traces[0].trace, params,
+                                                  "trace"))
+    if multi:
+        m = multi[0]
+        state.update(mini_step=int(np.asarray(m.mini_step)),
+                     gradient_step=int(np.asarray(m.gradient_step)),
+                     acc=_sd_like(m.acc_grads, params, "acc_grads"))
+    return state
+
+
+def optax_from_optimizer_state(state: dict, template):
+    """Inverse of :func:`optimizer_state_from_optax`: ``template`` (an optax
+    state of the same optimizer, e.g. its ``init``) with every field
+    replaced by the port's ``state`` (numpy leaves)."""
+    def count_like(old, value):
+        return np.asarray(value, dtype=np.asarray(old).dtype)
+
+    def fill(node):
+        f = _fields(node)
+        if f == ("mini_step", "gradient_step", "inner_opt_state",
+                 "acc_grads", "skip_state"):
+            return type(node)(
+                mini_step=count_like(node.mini_step, state["mini_step"]),
+                gradient_step=count_like(node.gradient_step,
+                                         state["gradient_step"]),
+                inner_opt_state=fill(node.inner_opt_state),
+                acc_grads=flax_from_state_dict(state["acc"]),
+                skip_state=node.skip_state)
+        if f == ("count", "mu", "nu"):
+            return type(node)(count=count_like(node.count, state["count"]),
+                              mu=flax_from_state_dict(state["mu"]),
+                              nu=flax_from_state_dict(state["nu"]))
+        if f == ("count",):
+            return type(node)(count=count_like(node.count, state["count"]))
+        if f == ("trace",):
+            return type(node)(trace=flax_from_state_dict(state["trace"]))
+        if hasattr(node, "_fields"):     # any other namedtuple (EmptyState)
+            return type(node)(**{k: fill(getattr(node, k)) for k in f})
+        if isinstance(node, (tuple, list)):
+            return type(node)(fill(x) for x in node)
+        return node
+
+    return fill(template)
+
+
+def read_state_dict(path: Union[str, Path]) -> dict:
+    """The model state dict of a checkpoint directory, or of a bare
+    ``.pth`` file (a state dict, or a trainer checkpoint with
+    ``model_state_dict``). Raises ``FileNotFoundError`` when neither
+    exists."""
+    path = Path(path)
+    file = path / STATE_FILE if path.is_dir() else path
+    if not file.is_file():
+        raise FileNotFoundError(f"no checkpoint at {path} (expected a "
+                                f"directory with {STATE_FILE} or a .pth "
+                                "file)")
+    blob = torch.load(file, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and "model_state_dict" in blob:
+        blob = blob["model_state_dict"]
+    if not isinstance(blob, dict):
+        raise ValueError(f"{file} holds no state dict")
+    return blob
+
+
+def load_model_state(model: torch.nn.Module, sd: dict,
+                     source: str = "checkpoint") -> None:
+    """``model.load_state_dict(sd)`` after checking that the names are the
+    model's and every shape matches: raises ``ValueError`` naming the
+    first parameter that is missing, unexpected or of another shape (a
+    wrong ``--d-model``, window or emotion backend)."""
+    want = model.state_dict()
+    missing = [k for k in want if k not in sd]
+    if missing:
+        raise ValueError(f"{source} lacks parameter {missing[0]!r} "
+                         f"({len(missing)} missing)")
+    extra = [k for k in sd if k not in want]
+    if extra:
+        raise ValueError(f"{source} has parameter {extra[0]!r} the model "
+                         f"does not ({len(extra)} unexpected)")
+    for k, v in want.items():
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(
+                f"shape mismatch at {k}: the model expects "
+                f"{tuple(v.shape)}, the {source} has {tuple(sd[k].shape)} "
+                "(check --d-model / --num-heads / --fps against the "
+                "training config)")
+    model.load_state_dict(sd)

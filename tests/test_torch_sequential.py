@@ -47,6 +47,7 @@ from koemorph_tpu_torch.models import dual_stream_model as dm
 from koemorph_tpu_torch.ops import egemaps as eg
 from koemorph_tpu_torch.parallel.batched_decode import (
     BatchedSequentialDecoder)
+from koemorph_tpu_torch.runtime.streaming import StreamingConfig
 from koemorph_tpu_torch.utils.params import state_dict_from_flax
 
 torch.set_num_threads(2)
@@ -168,8 +169,14 @@ def test_concat_windows_and_functionals_compose():
 
 
 def test_basic_backend_raises():
+    """The model frontends take the ``basic`` backend now
+    (``tests/test_torch_losses.py`` holds its features against JAX); the
+    stream's refresh branch for it is not ported and raises."""
+    assert EmotionFrontendConfig(backend="basic").feature_dim == 9
     with pytest.raises(NotImplementedError):
-        EmotionFrontendConfig(backend="basic")
+        StreamingConfig(emotion_backend="basic")
+    with pytest.raises(NotImplementedError):
+        EmotionFrontendConfig(backend="emotion2vec")
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +322,7 @@ def test_model_options_raise():
         dm.SequentialDualStreamModel(**SMALL, exact_window_stft=True)(
             x, window_starts=np.array([0, 1]))
     with pytest.raises(NotImplementedError):
-        dm.SequentialDualStreamModel(**SMALL, emotion_backend="basic")
+        dm.SequentialDualStreamModel(**SMALL, emotion_backend="emotion2vec")
 
 
 def test_state_dict_names_are_the_streaming_models():
@@ -400,7 +407,8 @@ def test_infer_rejects_stereo_and_checkpoints(tmp_path):
     with pytest.raises(ValueError, match="channels"):
         infer.main(["--input", str(wav), "--device", "cpu",
                     "--output", str(tmp_path / "o.jsonl")])
-    with pytest.raises(NotImplementedError):
+    # checkpoints load now; a path that holds none fails before decoding
+    with pytest.raises(FileNotFoundError):
         infer.main(["--input", str(wav), "--model", "ckpt", "--device",
                     "cpu"])
     # a short mono file is padded to one window and resampled like the

@@ -179,7 +179,8 @@ def test_cli_rejects_unported_options(wavs):
     with pytest.raises(NotImplementedError):
         serve.main(["--replay", str(wavs[0]), "--emotion-backend", "basic",
                     *TINY_ARGS])
-    with pytest.raises(NotImplementedError):
+    # a checkpoint loads now; a path that holds none fails before serving
+    with pytest.raises(FileNotFoundError):
         serve.main(["--replay", str(wavs[0]), "--model", "ckpt",
                     *TINY_ARGS])
     with pytest.raises(SystemExit):

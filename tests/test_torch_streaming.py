@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -198,8 +199,21 @@ def test_unported_configurations_raise():
                dict(incremental_lld=False)):
         with pytest.raises(NotImplementedError):
             streaming.StreamingConfig(**KW, **kw)
-    with pytest.raises(NotImplementedError):
+    # checkpoints load: a missing path raises FileNotFoundError, and a
+    # checkpoint with a parameter of another width ValueError naming it
+    with pytest.raises(FileNotFoundError):
         engine.build_streaming_model(device="cpu", checkpoint="ckpt")
+    model, _ = engine.build_streaming_model(device="cpu", d_model=32,
+                                            num_heads=2)
+    sd = dict(model.state_dict())
+    sd["dual_stream_attention.mel_norm.weight"] = torch.ones(64)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"model_state_dict": sd}, Path(tmp) / "wide.pth")
+        with pytest.raises(ValueError,
+                           match="dual_stream_attention.mel_norm.weight"):
+            engine.build_streaming_model(
+                device="cpu", d_model=32, num_heads=2,
+                checkpoint=str(Path(tmp) / "wide.pth"))
 
 
 def test_port_imports_no_jax():
@@ -209,10 +223,11 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'koemorph_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'koemorph_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('serve', 'feed_serve', 'runtime.multistream',\n"
-        "          'runtime.graphs'):\n"
+        "          'runtime.graphs', 'train', 'train.__main__',\n"
+        "          'train.optim', 'train.trainer', 'train.checkpoint'):\n"
         "    assert 'koemorph_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('koemorph_tpu_torch')]))\n")
