@@ -7,6 +7,10 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (no GPU is a failure);
 2. build: the CUDA kernels compiled from ``koemorph_tpu_torch/ops/cuda``;
+   then ``native_emit``: the native batch emitter at 256 sessions against
+   the ``json.dumps`` wire contract (values within 5e-10, float32
+   bit-exact above 2^-6), a NaN / Infinity row, a 1e30 timestamp refused,
+   µs per session both ways;
 3. cycle_dsum: the kernel against its plain PyTorch form on the card, at
    both shapes the streaming refresh uses (30 rows) and both shapes the
    flagship decode uses (13,624 rows), on contiguous frames and on the
@@ -109,6 +113,21 @@ inside ``plain_forms()``.
    frame's samples as the copy the paths no longer make); ``cycle_dsum``
    also on the arguments the stream and the decode passed it.
 
+12. the configurations without the LLD ring and the emotion2vec
+   backend (``slice8_phases``), each through its entry points, graphed
+   and held bitwise against eager and within 1e-4 against the plain
+   forms, launch counts against the capture records: the stream with
+   ``basic`` and full-ring ``egemaps`` (K1 and K2 on the arguments the
+   full-ring refresh passed), the stream with the compact encoder
+   (cuDNN's global TF32 flag on; the vector against float64 on the card
+   within 1e-5 of its largest element) and with the 24-layer config
+   loaded through ``load_hf_checkpoint``, the ``basic`` server (64
+   sessions, G = 1 and 8) and the emotion2vec server (16 sessions, G =
+   8) with lanes against engines and a lane reset, the emotion2vec
+   decode, 6 emotion2vec train steps at batch 16 (split, plain forms,
+   the cost of deterministic cuDNN, a 2 + 2 resume bitwise), and the
+   ``rt`` / ``serve`` CLIs with ``--emotion-backend basic``.
+
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
 refresh frame and the graphed 64-session refreshing step with one clock
@@ -189,7 +208,7 @@ MEASURED = "chip_smoke.measured"
 def profiled(fn):
     """Run ``fn()`` under ``torch.profiler`` (input shapes recorded) in a
     ``MEASURED`` range, after a lead-in: a profiling window loses its
-    first few device activities, so it starts with 64 tiny kernels, a
+    first few device activities, so it starts with 256 tiny kernels, a
     synchronization and 20 ms of sleep, which ``measured_events`` leaves
     out. ``prof.wall_s`` is the host time of ``fn()`` to a
     synchronization."""
@@ -199,7 +218,7 @@ def profiled(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         lead = torch.zeros(1, device="cuda")
-        for _ in range(64):
+        for _ in range(256):
             lead.add_(1.0)
         torch.cuda.synchronize()
         time.sleep(0.02)
@@ -213,12 +232,14 @@ def profiled(fn):
 
 
 def measured_events(prof):
-    """The profile's events that start inside its ``MEASURED`` range (1 ms
-    of slack for clock alignment; the lead-in ended 20 ms before)."""
+    """The profile's events that start inside its ``MEASURED`` range (10
+    ms of slack for aligning the device's clock with the host's: with 1
+    ms, a run left out the first replay of a window; the lead-in ended 20
+    ms before)."""
     events = prof.events()
     start = min(e.time_range.start for e in events if e.name == MEASURED)
     return [e for e in events
-            if e.name != MEASURED and e.time_range.start >= start - 1000]
+            if e.name != MEASURED and e.time_range.start >= start - 10000]
 
 
 def device_kernels(fn, prof=None):
@@ -286,15 +307,30 @@ def refresh_record(t: int, rows: int, refresh: bool) -> dict:
     return rec
 
 
-def replayed_launches(graphs, fn) -> tuple[dict, dict]:
-    """Run ``fn()`` profiled. Returns the launches of each hand-written
-    kernel the profiler saw, from the kernel names, and those the graphs
-    ``fn()`` replayed recorded at capture (each graph's record times its
-    replays in the run)."""
+#: steps or frames per profiling window of a main path's run: a window of
+#: all 105 server steps (~25,000 device activities) lost 1-2 replays'
+#: kernels from the profile in two of three runs
+WINDOW = 21
+
+
+def in_windows(n: int, fn) -> list:
+    """``fn(lo, hi)`` over ``[0, n)`` in runs of ``WINDOW``, as a list of
+    calls for :func:`replayed_launches`."""
+    return [lambda lo=lo: fn(lo, min(lo + WINDOW, n))
+            for lo in range(0, n, WINDOW)]
+
+
+def replayed_launches(graphs, fns) -> tuple[dict, dict]:
+    """Run each of ``fns`` in its own profiling window. Returns the
+    launches of each hand-written kernel the profiler saw, from the kernel
+    names, and those the graphs the calls replayed recorded at capture
+    (each graph's record times its replays in the run)."""
     before = collections.Counter(graphs.replays)
-    ks = device_kernels(None, profiled(fn))
-    seen = {src: n / KERNELS_PER_LAUNCH[src]
-            for src, n in own_kernels(ks).items()}
+    seen = dict.fromkeys(KERNEL_PATTERNS, 0.0)
+    for fn in fns:
+        ks = device_kernels(None, profiled(fn))
+        for src, n in own_kernels(ks).items():
+            seen[src] += n / KERNELS_PER_LAUNCH[src]
     want = dict.fromkeys(KERNEL_PATTERNS, 0)
     for key, n in graphs.replays.items():
         for name, c in recorded(graphs, key).items():
@@ -508,6 +544,8 @@ def hdr_frames(t: int, seed: int = 11) -> np.ndarray:
 #: stride 8 (100 windows each: 12 full batches)
 TRAIN_FILES, TRAIN_FILE_S = 2, 36.0
 TRAIN_PLAIN_LOSS_RTOL = 1e-4
+TRAIN_E2V_STEPS = 6
+EMIT_MAX = 5e-10                       # the native emitter's value bound
 #: every leaf's gradient, kernels against plain forms, relative to the
 #: leaf's largest element (the H100 readings were at most 3.5e-5)
 TRAIN_PLAIN_GRAD = 5e-4
@@ -566,6 +604,750 @@ def dk_train_ok(r: dict) -> bool:
     return (r["hausdorff_median"] < DK_MEDIAN_MAX
             and r["misses"] <= r["miss_bound"]
             and r["rows_not_converged"] <= DK_TRAIN_UNCONVERGED * r["rows"])
+
+
+def native_emit_phase(card: str) -> None:
+    """The native batch emitter against the ``json.dumps`` wire contract
+    at 256 sessions: fields, values within 5e-10 (float32 bit-exact for
+    |v| >= 2^-6), timestamps within 1e-6, every session; a NaN / Infinity
+    row that ``json.loads`` reads; a 1e30 timestamp refused without an
+    overrun; µs per session both ways."""
+    from koemorph_tpu_torch.data import native
+    rng = np.random.default_rng(8)
+    frames = rng.uniform(0, 1, (SERVE_BIG, 52)).astype(np.float32)
+    ts = time.time()
+
+    def python_rows(fr, t):
+        return "".join(json.dumps({
+            "timestamp": t, "session": i,
+            "blendshapes": np.asarray(row, np.float32).tolist()}) + "\n"
+            for i, row in enumerate(fr))
+
+    got = [json.loads(x) for x in native.format_frames_jsonl_native(
+        frames, ts).decode().splitlines()]
+    want = [json.loads(x) for x in python_rows(frames, ts).splitlines()]
+    gv = np.asarray([r["blendshapes"] for r in got])
+    wv = np.asarray([r["blendshapes"] for r in want])
+    big = np.abs(wv) >= 2.0 ** -6
+    contract = {
+        "sessions_equal": [r["session"] for r in got]
+        == [r["session"] for r in want] == list(range(SERVE_BIG)),
+        "fields_equal": all(set(a) == set(b) for a, b in zip(got, want)),
+        "max_abs_value_err": float(np.abs(gv - wv).max()),
+        "float32_bit_exact_above_2^-6": bool(
+            (gv[big].astype(np.float32) == wv[big].astype(np.float32)).all()),
+        "max_timestamp_err": max(abs(a["timestamp"] - b["timestamp"])
+                                 for a, b in zip(got, want))}
+    odd = frames[:2].copy()
+    odd[0, :3] = [np.nan, np.inf, -np.inf]
+    row = json.loads(native.format_frames_jsonl_native(odd, ts)
+                     .decode().splitlines()[0])
+    nan_ok = (np.isnan(row["blendshapes"][0])
+              and row["blendshapes"][1:3] == [float("inf"), -float("inf")])
+    try:
+        native.format_frames_jsonl_native(frames, 1e30)
+        refused = False
+    except ValueError:
+        refused = True
+    intact = len(native.format_frames_jsonl_native(
+        frames, ts).splitlines()) == SERVE_BIG
+
+    def per_session_us(fn, reps=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps / SERVE_BIG * 1e6
+
+    us = {"native": per_session_us(
+              lambda: native.format_frames_jsonl_native(frames, ts)),
+          "python": per_session_us(lambda: python_rows(frames, ts))}
+    emit({"phase": "native_emit", "card": card, "sessions": SERVE_BIG,
+          **contract, "nan_row_parses": bool(nan_ok),
+          "huge_timestamp_refused": refused, "intact_after": intact,
+          "us_per_session": us})
+    check(contract["sessions_equal"] and contract["fields_equal"]
+          and contract["max_abs_value_err"] <= 5e-10
+          and contract["float32_bit_exact_above_2^-6"]
+          and contract["max_timestamp_err"] <= 1e-6,
+          f"native emitter breaks the wire contract: {contract}")
+    check(nan_ok and refused and intact,
+          "native emitter: non-finite row or huge timestamp")
+
+
+def _step_times(step_fn, n, is_refresh):
+    """ms of each of ``n`` calls of ``step_fn(i)`` between CUDA events
+    (each output copied to the host, as a server does), refresh calls
+    and others apart."""
+    import torch
+    evs = []
+    for i in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step_fn(i)
+        e1.record()
+        out.cpu()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    t = np.asarray([a.elapsed_time(b) for a, b in evs])
+    ref = np.asarray([is_refresh(i) for i in range(n)])
+    return {"refresh": q(t[ref]) if ref.any() else None,
+            "other": q(t[~ref]) if (~ref).any() else None}
+
+
+def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
+    """The configurations without the LLD ring and the emotion2vec
+    backend on every path, each driven through its entry points with the
+    launch counts set to 0 just before, graphed and held bit for bit
+    against the same path run eagerly (whose kernels' arguments are
+    recorded), then with the plain forms: ``stream_basic``,
+    ``stream_full_ring``, ``stream_e2v`` (and the encoder against float64
+    on the card), ``stream_e2v_large``, ``multistream_basic``,
+    ``multistream_e2v``, ``decode_e2v``, ``train_e2v``, and the ``rt`` /
+    ``serve`` CLIs with ``--emotion-backend basic``. Returns the recorded
+    kernel arguments and launch counts for the kernels table."""
+    import copy
+    import dataclasses
+    import itertools
+    import torch
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.data.wav import write_wav
+    from koemorph_tpu_torch.features import wav2vec2 as w2v
+    from koemorph_tpu_torch.models import dual_stream_model as dm
+    from koemorph_tpu_torch.models.losses import sequence_koemorph_loss
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.parallel.batched_decode import (
+        BatchedSequentialDecoder)
+    from koemorph_tpu_torch.runtime import MultiStreamInference
+    from koemorph_tpu_torch.runtime.engine import build_streaming_model
+    from koemorph_tpu_torch.runtime.streaming import StreamingInference
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.trainer import (SequentialTrainer,
+                                                  dropout_generator,
+                                                  sequence_targets)
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+
+    out: dict = {"rec": {}, "shapes": {}}
+    audio = voiced_audio(3.5, seed=1)
+    n_frames = len(audio) // HOP                                 # 105
+
+    def drive_stream(tag, model, cfg, plain=True):
+        """The stream of ``model`` over ``audio``: graphed and counted,
+        eager (recording the kernels' arguments), plain; returns the
+        graphed engine and frames."""
+        k = cfg.emotion_update_frames
+        n_ref = -(-n_frames // k)
+        profiled(lambda: None)
+        ck.reset_launch_counts()
+        eng = StreamingInference(model, cfg)
+        eng.warmup()
+        box = []
+        seen, want = replayed_launches(eng.step_graphs, in_windows(
+            n_frames, lambda lo, hi: box.extend(eng.process_audio(
+                audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
+        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        bs = np.stack(box)
+        eager = StreamingInference(model, cfg, graphs=False)
+        eager.warmup()
+        with recording_kernels(out["rec"], tag):
+            eager_bs = np.stack(eager.process_audio(audio))
+        d_plain = None
+        if plain:
+            with plain_forms():
+                before = dict(ck.LAUNCHES)
+                p_bs = np.stack(StreamingInference(
+                    model, cfg, graphs=False).process_audio(audio))
+                check(dict(ck.LAUNCHES) == before,
+                      f"{tag}: the plain stream launched a kernel")
+            d_plain = float(np.abs(p_bs - bs).max())
+        eng.reset()
+        times = _step_times(lambda i: eng.step(audio[i * HOP:(i + 1) * HOP]),
+                            n_frames, lambda i: i % k == 0)
+        ring = cfg.emotion_backend == "egemaps"
+        expect = {"cycle_dsum": 2 * n_ref if ring else 0,
+                  "dk_roots": n_ref if ring else 0, "logmel": n_frames}
+        emit({"phase": tag, "card": card, "frames": n_frames,
+              "refreshes": n_ref, "emotion_backend": cfg.emotion_backend,
+              "incremental_lld": cfg.incremental_lld,
+              "emotion_raw_dim": cfg.emotion_raw_dim,
+              "finite": bool(np.isfinite(bs).all()),
+              "min": float(bs.min()), "max": float(bs.max()),
+              "launches": launches,
+              "launches_by_shape": {f"{a}{list(b)}": v
+                                    for (a, b), v in shapes.items()},
+              "replayed_launches_profiled": seen,
+              "replayed_launches_recorded": want,
+              "graphs": graph_info(eng.step_graphs),
+              "graphed_bitwise_equal_eager": bool(
+                  np.array_equal(bs, eager_bs)),
+              "max_abs_diff_plain": d_plain, "bound_plain": STREAM_PLAIN_MAX,
+              "frame_times": times})
+        check(bs.shape == (n_frames, 52) and bool(np.isfinite(bs).all())
+              and bs.min() >= 0.0 and bs.max() <= 1.0, f"{tag} output")
+        check(np.array_equal(bs, eager_bs), f"{tag}: graphed != eager")
+        check(len(eng.step_graphs) == 4, f"{tag}: not four graphs")
+        check(seen == want == expect,
+              f"{tag}: replays ran {seen}, captures recorded {want}, "
+              f"expected {expect}")
+        check(d_plain is None or d_plain <= STREAM_PLAIN_MAX,
+              f"{tag}: kernel stream != plain stream ({d_plain})")
+        out["shapes"][tag] = shapes
+        return eng, bs
+
+    # ---- stream_basic, stream_full_ring ----
+    model_b, cfg_b = build_streaming_model(emotion_backend="basic", seed=0)
+    drive_stream("stream_basic", model_b, cfg_b)
+    model_f, cfg_f = build_streaming_model(seed=0)
+    cfg_f = dataclasses.replace(cfg_f, incremental_lld=False)
+    drive_stream("stream_full_ring", model_f, cfg_f)
+    rows_f = 1 + (cfg_f.emotion_context_samples - 512) // 160
+    for n in (512, 1024):
+        (frames_a, st, tau, off), kw = out["rec"][
+            ("cycle_dsum", "stream_full_ring", (rows_f, n))]
+        got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+        want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+        err = (got - want).abs()
+        ok = bool((err <= K1_ATOL + K1_RTOL * want.abs()).all()
+                  and torch.equal(got.isnan(), want.isnan()))
+        emit({"phase": "cycle_dsum", "card": card,
+              "shape": f"full-ring args n{n} x{rows_f}",
+              "frames": list(frames_a.shape),
+              "strides": list(frames_a.stride()),
+              "max_abs_err": float(err.max()), "ok": ok})
+        check(ok, f"cycle_dsum disagrees with plain on the full-ring "
+              f"refresh's n{n} arguments")
+    # K2 on the full-ring refresh's rows, held where the plain form
+    # converges (as on the training rows); the rows where it does not are
+    # counted: the context's zero prefill (17 of its 20.6 s after 3.5 s of
+    # audio) gives polynomials with every root at 0, and the audio's
+    # noise-only pauses clustered roots, where 20 iterations converge in
+    # no form
+    (a_f,), _ = out["rec"][("dk_roots", "stream_full_ring", rows_f)]
+    (frames_f, *_), _ = out["rec"][
+        ("cycle_dsum", "stream_full_ring", (rows_f, 512))]
+    r_f = dk_train_agreement(a_f)
+    emit({"phase": "dk_roots", "card": card, "args": "full-ring refresh",
+          "silent_rows": int((frames_f == 0).all(-1).sum()), **r_f})
+    check(r_f["hausdorff_median"] < DK_MEDIAN_MAX
+          and r_f["misses"] <= r_f["miss_bound"],
+          f"dk_roots on the full-ring refresh: {r_f}")
+    out["rows_full_ring"] = rows_f
+    out["dk_full_ring"] = r_f
+    del model_f
+
+    # ---- stream_e2v: cuDNN's TF32 flag at PyTorch's default (on); the
+    # encoder's scoped flags keep its convolutions in fp32 ----
+    torch.backends.cudnn.allow_tf32 = True
+    model_e, cfg_e = build_streaming_model(emotion_backend="emotion2vec",
+                                           seed=0)
+    eng_e, _ = drive_stream("stream_e2v", model_e, cfg_e)
+    ctx = eng_e.state.audio_ring[-cfg_e.emotion_context_samples:][None]
+    enc64 = copy.deepcopy(model_e.emotion2vec).double()
+    with torch.inference_mode():
+        v32 = model_e.encode_emotion(ctx).double()
+        v64 = enc64(ctx.double()).mean(-2)
+    rel = float((v32 - v64).abs().max() / v64.abs().max())
+    emit({"phase": "stream_e2v_float64", "card": card,
+          "context_samples": int(ctx.shape[-1]),
+          "encoder_frames": cfg_e.emotion2vec_config.frames(ctx.shape[-1]),
+          "global_cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "max_abs_diff_over_max": rel, "bound": 1e-5})
+    check(rel <= 1e-5, f"encoder vs float64: {rel} of the largest element")
+    del enc64, eng_e
+
+    # ---- stream_e2v_large: the 24-layer config through the HF loader ----
+    big = w2v.Wav2Vec2Config()
+    gen = torch.Generator().manual_seed(5)
+    hf = {}
+    with torch.device("meta"):
+        meta_sd = w2v.Wav2Vec2Encoder(big).state_dict()
+    for k, v in meta_sd.items():
+        if k == "layer_fusion_weights":
+            continue
+        if k.endswith("bias"):
+            t = torch.zeros(v.shape)
+        elif v.dim() == 1:
+            t = torch.ones(v.shape)
+        else:
+            t = torch.randn(v.shape, generator=gen) / np.sqrt(v[0].numel())
+        hf[f"wav2vec2.{k}"] = t
+    pos = "wav2vec2.encoder.pos_conv_embed.conv"
+    hf[f"{pos}.weight_v"] = hf.pop(f"{pos}.weight")
+    hf[f"{pos}.weight_g"] = torch.rand((1, 1, big.num_conv_pos_embeddings),
+                                       generator=gen) + 0.5
+    ckpt = work / "w2v_large"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    (ckpt / "config.json").write_text(json.dumps(dict(
+        dataclasses.asdict(big), conv_dim=list(big.conv_dim),
+        conv_stride=list(big.conv_stride), conv_kernel=list(big.conv_kernel))))
+    t0 = time.perf_counter()
+    torch.save(hf, ckpt / "pytorch_model.bin")
+    del hf
+    big_cfg, big_sd = w2v.load_hf_checkpoint(ckpt)
+    load_s = time.perf_counter() - t0
+    model_l, cfg_l = build_streaming_model(
+        emotion_backend="emotion2vec", emotion2vec_config=big_cfg, seed=0,
+        device="cpu")
+    model_l.emotion2vec.load_state_dict(big_sd)
+    del big_sd
+    eng_l, _ = drive_stream("stream_e2v_large", model_l, cfg_l,
+                            plain=False)
+    emit({"phase": "stream_e2v_large_load", "card": card,
+          "layers": big_cfg.num_hidden_layers,
+          "encoder_params": sum(p.numel()
+                                for p in model_l.emotion2vec.parameters()),
+          "write_and_load_s": load_s})
+    del eng_l, model_l
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    # ---- multistream_basic (64 sessions, G = 1, 8), multistream_e2v (16
+    # sessions, G = 8) ----
+    def drive_server(tag, model, cfg, sessions, cohorts_list):
+        k = cfg.emotion_update_frames
+        lanes = lane_audio(sessions, SERVE_STEPS)
+
+        def steps(srv, first=0, n=SERVE_STEPS):
+            return torch.stack([srv.step(lanes[:, (first + i) * HOP:
+                                               (first + i + 1) * HOP])
+                                for i in range(n)])
+
+        res = {}
+        for g in cohorts_list:
+            profiled(lambda: None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ck.reset_launch_counts()
+            srv = MultiStreamInference(model, cfg, sessions,
+                                       refresh_cohorts=g)
+            srv.warmup()
+            box = []
+            seen, want = replayed_launches(srv.step_graphs, in_windows(
+                SERVE_STEPS,
+                lambda lo, hi: box.append(steps(srv, lo, hi - lo))))
+            launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+            o = torch.cat(box).cpu().numpy()
+            ref = MultiStreamInference(model, cfg, sessions,
+                                       refresh_cohorts=g, graphs=False)
+            with recording_kernels(out["rec"], f"{tag} G={g}"):
+                eager_o = steps(ref).cpu().numpy()
+            with plain_forms():
+                before = dict(ck.LAUNCHES)
+                plain_o = steps(MultiStreamInference(
+                    model, cfg, sessions, refresh_cohorts=g,
+                    graphs=False)).cpu().numpy()
+                check(dict(ck.LAUNCHES) == before,
+                      f"{tag}: the plain server launched a kernel")
+            d_lanes = {}
+            for lane in sorted({0, 1, g - 1, sessions - 1}):
+                eng = StreamingInference(model, cfg)
+                eng.state.frame_count = srv.phases[lane % g]
+                d_lanes[lane] = float(np.abs(
+                    o[:, lane] - np.stack(eng.process_audio(lanes[lane])))
+                    .max())
+            # a lane reset mid-run against a fresh engine at its clock
+            half, lane_r = SERVE_STEPS * 3 // 7, 1
+            rs = MultiStreamInference(model, cfg, sessions,
+                                      refresh_cohorts=g)
+            first = steps(rs, n=half)
+            rs.reset_sessions([lane_r])
+            second = steps(rs, first=half, n=SERVE_STEPS - half)
+            o_r = torch.cat([first, second]).cpu().numpy()
+            fresh = StreamingInference(model, cfg)
+            fresh.state.frame_count = srv.phases[lane_r % g] + half
+            d_fresh = float(np.abs(o_r[half:, lane_r] - np.stack(
+                fresh.process_audio(lanes[lane_r, half * HOP:]))).max())
+            others = [i for i in range(sessions) if i != lane_r]
+            d_others = float(np.abs(o_r[:, others] - o[:, others]).max())
+            srv_t = MultiStreamInference(model, cfg, sessions,
+                                         refresh_cohorts=g)
+            srv_t.warmup()
+            due = []
+
+            def timed(i):
+                due.append(bool(srv_t.due_cohorts()))
+                return srv_t.step(lanes[:, i * HOP:(i + 1) * HOP])
+
+            times = _step_times(timed, SERVE_STEPS, lambda i: due[i])
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            refreshing = sum(len(range(-p % k, SERVE_STEPS, k))
+                             for p in srv.phases)
+            ring = cfg.emotion_backend == "egemaps"
+            expect = {"cycle_dsum": 2 * refreshing if ring else 0,
+                      "dk_roots": refreshing if ring else 0,
+                      "logmel": SERVE_STEPS}
+            emit({"phase": tag, "card": card, "sessions": sessions,
+                  "refresh_cohorts": g, "phases": list(srv.phases),
+                  "steps": SERVE_STEPS,
+                  "refreshing_cohort_steps": refreshing,
+                  "finite": bool(np.isfinite(o).all()),
+                  "launches": launches,
+                  "launches_by_shape": {f"{a}{list(b)}": v
+                                        for (a, b), v in shapes.items()},
+                  "replayed_launches_profiled": seen,
+                  "replayed_launches_recorded": want,
+                  "graphs": graph_info(srv.step_graphs),
+                  "graphed_bitwise_equal_eager": bool(
+                      np.array_equal(o, eager_o)),
+                  "max_abs_diff_plain": float(np.abs(plain_o - o).max()),
+                  "max_abs_diff_lane_vs_engine": d_lanes,
+                  "reset_lane_vs_fresh_engine": d_fresh,
+                  "reset_other_lanes_moved": d_others,
+                  "step_times": times, "peak_memory_gb": peak})
+            check(o.shape == (SERVE_STEPS, sessions, 52)
+                  and bool(np.isfinite(o).all()) and o.min() >= 0
+                  and o.max() <= 1, f"{tag} G={g}: output")
+            check(np.array_equal(o, eager_o), f"{tag} G={g}: graphed != eager")
+            check(len(srv.step_graphs) == 2 * (g + 1),
+                  f"{tag} G={g}: {len(srv.step_graphs)} graphs")
+            check(seen == want == expect,
+                  f"{tag} G={g}: replays ran {seen}, captures recorded "
+                  f"{want}, expected {expect}")
+            check(float(np.abs(plain_o - o).max()) <= SERVE_PLAIN_MAX,
+                  f"{tag} G={g}: kernel server != plain server")
+            check(max(d_lanes.values()) <= SERVE_LANE_MAX,
+                  f"{tag} G={g}: lanes vs engines {d_lanes}")
+            check(d_fresh <= SERVE_LANE_MAX and d_others <= SERVE_UNTOUCHED_MAX,
+                  f"{tag} G={g}: reset {d_fresh}, others {d_others}")
+            res[g] = shapes
+            del srv, ref, rs, srv_t
+        out["shapes"][tag] = res
+        return res
+
+    drive_server("multistream_basic", model_b, cfg_b, SERVE_S, (1, 8))
+    drive_server("multistream_e2v", model_e, cfg_e, 16, (8,))
+    torch.cuda.empty_cache()
+
+    # ---- decode_e2v: 8 x 17.06 s through the in-model encoder ----
+    audio_b = torch.from_numpy(np.stack([
+        voiced_audio(DECODE_LEN / SR, seed=s)
+        for s in range(1, DECODE_B + 1)])).cuda()
+    dec_model = dm.SequentialDualStreamModel(
+        d_model=256, num_heads=8, emotion_backend="emotion2vec",
+        use_concatenation=False, stride_frames=DECODE_STRIDE)
+    dec_model.init_random(torch.Generator().manual_seed(0))
+    ck.reset_launch_counts()
+    dec = BatchedSequentialDecoder(dec_model)
+    dec(audio_b)
+    box = []
+    seen, want = replayed_launches(dec.step_graphs,
+                                   [lambda: box.append(dec(audio_b))])
+    dec_launches = dict(ck.LAUNCHES)
+    out["shapes"]["decode_e2v"] = dict(ck.SHAPE_LAUNCHES)
+    o = box[0].cpu().numpy()
+    eager_dec = BatchedSequentialDecoder(dec.model, graphs=False)
+    with recording_kernels(out["rec"], "decode_e2v"):
+        eager_o = eager_dec(audio_b).cpu().numpy()
+    with plain_forms(), torch.inference_mode():
+        plain_o = eager_dec(audio_b).cpu().numpy()
+    ms = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dec(audio_b)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    with torch.inference_mode():
+        enc_ms = time_ms(lambda: dec.model.emotion_raw(audio_b), iters=3,
+                         warmup=1)
+    n_out = o.shape[1]
+    emit({"phase": "decode_e2v", "card": card, "shape": list(o.shape),
+          "finite": bool(np.isfinite(o).all()), "launches": dec_launches,
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "graphed_bitwise_equal_eager": bool(np.array_equal(o, eager_o)),
+          "max_abs_diff_plain": float(np.abs(plain_o - o).max()),
+          "device_ms_per_call": ms, "ms_per_call_median": float(np.median(ms)),
+          "frames_per_s": DECODE_B * n_out / (np.median(ms) / 1e3),
+          "encoder_ms": enc_ms})
+    check(o.shape == (DECODE_B, n_out, 52) and bool(np.isfinite(o).all()),
+          "decode_e2v output")
+    check(np.array_equal(o, eager_o), "decode_e2v: graphed != eager")
+    check(seen == want == {"cycle_dsum": 0, "dk_roots": 0, "logmel": 2},
+          f"decode_e2v: replays {seen}, recorded {want}")
+    check(float(np.abs(plain_o - o).max()) <= DECODE_PLAIN_MAX,
+          "decode_e2v: kernels != plain")
+    del dec, eager_dec, dec_model, audio_b, model_e
+    torch.cuda.empty_cache()
+
+    # ---- train_e2v: 6 flagship sequential steps at batch 16 ----
+    config_path = ROOT / "configs" / "dual_stream_config.yaml"
+    over = ["model.emotion_config.backend=emotion2vec"]
+    cfg = load_config(config_path, overrides=over)
+    cfg.data.train_data_dir = str(synth)
+    batch_size = int(cfg.data.batch_size)
+    tcfg = to_dict(cfg)
+
+    def new_trainer(tag, model_cfg=cfg):
+        model, _ = build_model(model_cfg)
+        loader_fn, dataset = create_sequential_dataloader(
+            synth, batch_size=batch_size,
+            window_frames=model.window_frames + 32,
+            stride_frames=int(cfg.data.stride_frames),
+            sample_rate=int(cfg.data.sample_rate),
+            target_fps=float(cfg.data.target_fps))
+        return SequentialTrainer(
+            model, tcfg, work_dir=work / f"train_e2v_{tag}",
+            steps_per_epoch=TRAIN_E2V_STEPS,
+            span_frames=model.window_frames + 32), loader_fn
+
+    trainer, loader_fn = new_trainer("main")
+    model = trainer.model
+    check(hasattr(model, "emotion2vec"), "train_e2v: no encoder")
+    events, losses = [], []
+    real_step = trainer.train_step
+
+    def timed_step(batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        metrics = real_step(batch)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = timed_step
+    before = {k: v.detach().clone() for k, v in trainer.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernels(out["rec"], "train_e2v"):
+        trainer.fit(lambda epoch: itertools.islice(loader_fn(),
+                                                   TRAIN_E2V_STEPS),
+                    None, max_epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    out["shapes"]["train_e2v"] = shapes
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.train_step = real_step
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    losses = [float(v) for v in losses]
+    moved = [k for k, v in trainer.params.items()
+             if bool((v.detach() != before[k]).any())]
+    batches = [trainer._prepare(b) for b in itertools.islice(loader_fn(), 3)]
+    prof = profiled(lambda: [trainer.train_step(b) for b in batches[:2]])
+    ks = device_kernels(None, prof)
+    busy_ms = sum(us for _, us in ks) / 1e3 / 2
+    names = list(trainer.params)
+    split = collections.defaultdict(list)
+    for b in batches[:2]:
+        model.train()
+        gen = dropout_generator(trainer.dropout_seed, trainer.global_step,
+                                torch.device("cuda"))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        emo = model.emotion_raw(b["audio"])
+        ev[1].record()
+        pred = model(b["audio"], emotion_features_raw=emo,
+                     generator=gen)["blendshapes"]
+        loss, _ = sequence_koemorph_loss(
+            pred, sequence_targets(b["blendshapes"], model.window_frames,
+                                   model.stride_frames, pred.shape[1]),
+            config=trainer.loss_config)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, list(trainer.params.values()))
+        ev[3].record()
+        trainer.optimizer.step(dict(zip(names, grads)))
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, part in enumerate(("emotion2vec encoder forward",
+                                  "mel + attention + loss forward",
+                                  "backward (encoder included)",
+                                  "optimizer")):
+            split[part].append(ev[i].elapsed_time(ev[i + 1]))
+    split_ms = {k: float(np.median(v)) for k, v in split.items()}
+    # the encoder's share of the backward: its parameters' gradients alone
+    with torch.enable_grad():
+        emo = model.emotion_raw(batches[0]["audio"])
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.autograd.grad(emo.sum(), list(model.emotion2vec.parameters()))
+        e1.record()
+        torch.cuda.synchronize()
+    split_ms["encoder backward alone"] = e0.elapsed_time(e1)
+    # what cuDNN's deterministic algorithms cost: 3 steps with cuDNN free
+    # to choose (the scoped flags' deterministic=True overridden here),
+    # between CUDA events (the resume below needs them)
+    real_flags = torch.backends.cudnn.flags
+
+    def steps_ms(deterministic):
+        torch.backends.cudnn.flags = lambda **kw: real_flags(
+            **dict(kw, deterministic=deterministic))
+        try:
+            ev = []
+            for b in batches[:3]:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                trainer.train_step(b)
+                e1.record()
+                ev.append((e0, e1))
+            torch.cuda.synchronize()
+            return [a.elapsed_time(c) for a, c in ev]
+        finally:
+            torch.backends.cudnn.flags = real_flags
+
+    det_cost = {"free": steps_ms(False), "deterministic": steps_ms(True)}
+    span_samples = (model.window_frames + 32) * model.hop_length
+    med = float(np.median(step_ms[1:]))
+    emit({"phase": "train_e2v", "card": card, "batch": batch_size,
+          "span_samples": span_samples, "steps": len(step_ms),
+          "first_step_ms": float(step_ms[0]), "step_ms": q(step_ms[1:]),
+          "fit_wall_s": wall, "device_busy_ms_per_step": busy_ms,
+          "device_busy_share": busy_ms / med, "peak_gb": peak_gb,
+          "split_ms": split_ms,
+          "encoder_share_of_step": (split_ms["emotion2vec encoder forward"]
+                                    + split_ms["encoder backward alone"])
+          / med,
+          "audio_s_per_step_s": batch_size * span_samples / SR / (med / 1e3),
+          "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "losses": losses, "params_moved": len(moved),
+          "params": len(names),
+          "step_ms_cudnn_free_vs_deterministic": det_cost})
+    check(len(step_ms) == TRAIN_E2V_STEPS and all(np.isfinite(losses)),
+          f"train_e2v: {len(step_ms)} steps, losses {losses}")
+    check(launches == {"cycle_dsum": 0, "dk_roots": 0,
+                       "logmel": 2 * TRAIN_E2V_STEPS},
+          f"train_e2v launches {launches}")
+    check(all(k in moved for k in names if k.startswith("emotion2vec.")
+              and not k.endswith("k_proj.bias")),
+          "train_e2v: an encoder parameter did not move")
+
+    # loss and every gradient leaf, kernels against plain forms (dropout 0)
+    cfg0 = load_config(config_path, overrides=over + [
+        "model.dual_stream_attention.dropout=0.0"])
+    cfg0.data.train_data_dir = str(synth)
+    plain_trainer, _ = new_trainer("plain", cfg0)
+    plain_trainer.model.load_state_dict(model.state_dict())
+    b = batches[2]
+
+    def loss_grads():
+        plain_trainer.model.train()
+        loss, _ = plain_trainer.loss_fn(b, dropout_generator(
+            0, 0, torch.device("cuda")))
+        grads = torch.autograd.grad(
+            loss, list(plain_trainer.params.values()), allow_unused=True)
+        return float(loss.detach()), {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(plain_trainer.params.items(), grads)}
+
+    loss_k, grads_k = loss_grads()
+    with plain_forms():
+        before_l = dict(ck.LAUNCHES)
+        loss_p, grads_p = loss_grads()
+        check(dict(ck.LAUNCHES) == before_l, "train_e2v plain launched")
+    rel = {}
+    for k, gp in grads_p.items():
+        scale = float(gp.abs().max())
+        d = float((grads_k[k] - gp).abs().max())
+        rel[k] = d / scale if scale else d
+    # a key bias's gradient is 0 (the softmax cancels it): both forms hold
+    # rounding residues there, compared against the largest gradient
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    zero = {k: rel[k] for k in rel if k.endswith("k_proj.bias")}
+    bad = {k: r for k, r in rel.items()
+           if (k not in zero and r > TRAIN_PLAIN_GRAD)
+           or (k in zero and float((grads_k[k] - grads_p[k]).abs().max())
+               > 1e-7 * top)}
+    with torch.inference_mode():
+        k3_err = {}
+        for (name, tag, key), (args, kw) in out["rec"].items():
+            if tag == "train_e2v" and name == "logmel":
+                got = ck.logmel(*args, **kw)
+                want = frontend.frames_to_logmel_plain(*args, **kw)
+                err = (got - want).abs()
+                k3_err[key] = float(err.max())
+                check(bool((err <= K3_ATOL + K3_RTOL * want.abs()).all()),
+                      f"train_e2v: logmel T={key} disagrees with plain")
+    emit({"phase": "train_e2v_plain", "card": card, "loss_kernels": loss_k,
+          "loss_plain": loss_p, "grad_max_rel_diff_by_leaf_top": dict(
+              sorted(rel.items(), key=lambda kv: -kv[1])[:8]),
+          "leaves": len(rel), "zero_gradient_leaves": len(zero),
+          "logmel_max_abs_err_by_T": k3_err,
+          "bounds": {"loss_rtol": TRAIN_PLAIN_LOSS_RTOL,
+                     "grad": TRAIN_PLAIN_GRAD}})
+    check(abs(loss_k - loss_p) <= TRAIN_PLAIN_LOSS_RTOL * abs(loss_p),
+          f"train_e2v loss: kernels {loss_k}, plain {loss_p}")
+    check(not bad, f"train_e2v gradients: kernels vs plain {bad}")
+    check(len(k3_err) == 2, f"train_e2v logmel shapes {sorted(k3_err)}")
+
+    # 2 + 2 resume, bitwise
+    four = list(itertools.islice(loader_fn(), 4))
+
+    def by_epoch(epoch):
+        return iter(four[2 * epoch: 2 * epoch + 2])
+
+    whole, _ = new_trainer("whole")
+    whole.fit(by_epoch, None, max_epochs=2)
+    first, _ = new_trainer("split")
+    first.fit(by_epoch, None, max_epochs=1)
+    resumed, _ = new_trainer("split")
+    check(resumed.resume() and resumed.global_step == 2,
+          "train_e2v: no checkpoint to resume")
+    resumed.fit(by_epoch, None, max_epochs=2)
+    diffs = {k: float((p.detach() - resumed.params[k].detach()).abs().max())
+             for k, p in whole.params.items()}
+    emit({"phase": "train_e2v_resume", "card": card, "steps": 4,
+          "bitwise_equal": max(diffs.values()) == 0.0,
+          "max_abs_diff": max(diffs.values())})
+    check(max(diffs.values()) == 0.0,
+          f"train_e2v resumed != uninterrupted: "
+          f"{max(diffs, key=diffs.get)}")
+    del whole, first, resumed, plain_trainer, trainer, model
+    torch.cuda.empty_cache()
+
+    # ---- rt and serve CLIs with --emotion-backend basic ----
+    wav = work / "basic.wav"
+    write_wav(wav, voiced_audio(3.0, seed=6), SR)
+    rt_out, srv_out = work / "rt_basic.jsonl", work / "serve_basic.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input", str(wav),
+         "--emotion-backend", "basic", "--output", "file", "--output-file",
+         str(rt_out), "--no-realtime", "--max-frames", "40"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"rt basic failed:\n{proc.stderr[-3000:]}")
+    rt_rows = np.asarray([json.loads(r)["blendshapes"]
+                          for r in rt_out.read_text().splitlines()])
+    eng = StreamingInference(model_b, cfg_b)
+    from koemorph_tpu_torch.data.wav import read_wav
+    wav_audio, _ = read_wav(wav, mono=True)
+    want = np.stack(eng.process_audio(wav_audio[:40 * HOP]))
+    proc_s = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
+         str(wav), "--emotion-backend", "basic", "--sessions", "16",
+         "--refresh-cohorts", "8", "--output", "file", "--output-file",
+         str(srv_out), "--no-realtime", "--max-frames", "30"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    check(proc_s.returncode == 0,
+          f"serve basic failed:\n{proc_s.stderr[-3000:]}")
+    srv_rows = [json.loads(r) for r in srv_out.read_text().splitlines()]
+    stats = [json.loads(ln)["performance_stats"] for ln in
+             proc_s.stdout.splitlines() if "performance_stats" in ln]
+    d_rt = (float(np.abs(rt_rows - want).max())
+            if rt_rows.shape == want.shape else float("inf"))
+    emit({"phase": "cli_basic", "card": card, "rt_rows": len(rt_rows),
+          "rt_max_abs_diff_in_process": d_rt, "serve_rows": len(srv_rows),
+          "serve_emit_path": stats[-1]["emit_path"] if stats else None,
+          "serve_stats": stats[-1] if stats else None})
+    check(d_rt == 0.0, f"rt basic differs from the in-process stream: {d_rt}")
+    check(len(srv_rows) == 30 * 16 and bool(stats)
+          and stats[-1]["emit_path"] == "native"
+          and sorted({r["session"] for r in srv_rows}) == list(range(16)),
+          "serve basic rows or emit path")
+    return out
 
 
 def train_phases(card: str, work: Path, env: dict) -> dict:
@@ -944,11 +1726,12 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
           "global_step": meta["global_step"],
           "served": {k: {"shape": list(s), "max_abs_diff_in_process": d}
                      for k, (s, d) in results.items()}})
+    # serve writes through the native emitter: within its bound
     for k, (shape, d) in results.items():
-        check(d == 0.0, f"{k} --model differs from the in-process run: "
-              f"{shape}, {d}")
+        check(d <= (EMIT_MAX if k == "serve" else 0.0),
+              f"{k} --model differs from the in-process run: {shape}, {d}")
     return {"rec": train_rec, "shapes": shapes, "lld_rows": lld_rows,
-            "t_global": t_global, "t_edges": t_edges}
+            "t_global": t_global, "t_edges": t_edges, "synth": synth}
 
 
 def main() -> int:  # noqa: C901
@@ -1004,6 +1787,8 @@ def main() -> int:  # noqa: C901
     check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads"
                                in ln for ln in spills),
           f"cycle_dsum spills registers: {spills}")
+
+    native_emit_phase(card)
 
     # the decode's audio, used by several phases
     audio_b = np.stack([voiced_audio(DECODE_LEN / SR, seed=s)
@@ -1270,12 +2055,13 @@ def main() -> int:  # noqa: C901
     check(engine.step_graphs.enabled and len(engine.step_graphs) == 4,
           "the stream did not capture its four graphs")
     box = []
-    seen, want = replayed_launches(
-        engine.step_graphs, lambda: box.append(engine.process_audio(audio)))
+    n_frames = len(audio) // HOP
+    seen, want = replayed_launches(engine.step_graphs, in_windows(
+        n_frames, lambda lo, hi: box.extend(engine.process_audio(
+            audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
     launches = dict(ck.LAUNCHES)
     stream_shapes = dict(ck.SHAPE_LAUNCHES)
-    bs = np.stack(box[0])
-    n_frames = len(bs)
+    bs = np.stack(box)
     n_refresh = -(-n_frames // cfg.emotion_update_frames)
     emit({"phase": "stream", "frames": n_frames, "refreshes": n_refresh,
           "shape": list(bs.shape), "finite": bool(np.isfinite(bs).all()),
@@ -1336,7 +2122,7 @@ def main() -> int:  # noqa: C901
     decoder(audio_dev)                  # the first call captures its graph
     box = []
     seen, want = replayed_launches(
-        decoder.step_graphs, lambda: box.append(decoder(audio_dev)))
+        decoder.step_graphs, [lambda: box.append(decoder(audio_dev))])
     dec_launches = dict(ck.LAUNCHES)
     dec_shapes = dict(ck.SHAPE_LAUNCHES)
     out_np = box[0].cpu().numpy()
@@ -1527,10 +2313,11 @@ def main() -> int:  # noqa: C901
         srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
         srv.warmup()
         box = []
-        seen, want = replayed_launches(
-            srv.step_graphs, lambda: box.append(serve_steps(srv, lanes_np)))
+        seen, want = replayed_launches(srv.step_graphs, in_windows(
+            SERVE_STEPS, lambda lo, hi: box.append(serve_steps(
+                srv, lanes_np, first=lo, steps=hi - lo))))
         launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
-        out_g = box[0]
+        out_g = torch.cat(box)
         serve_out[g], serve_shapes[g] = out_g.cpu().numpy(), shapes
         phases[g] = srv.phases
         # the eager twin, the reference the graphs are held to bit for
@@ -1812,7 +2599,8 @@ def main() -> int:  # noqa: C901
           and all(len(r["blendshapes"]) == 52 for r in rows),
           "serve CLI rows")
     check(bool(stats) and stats[-1]["ticks"] == 30
-          and stats[-1]["frames_sent"] == 480, "serve CLI stats line")
+          and stats[-1]["frames_sent"] == 480
+          and stats[-1]["emit_path"] == "native", "serve CLI stats line")
 
     # the serve entry point, listen mode: session 1 fed over loopback by
     # the feeder, session 0 underruns and is served silence
@@ -1897,6 +2685,9 @@ def main() -> int:  # noqa: C901
 
     # ---- 10. training ----
     train = train_phases(card, work, env)
+
+    # ---- 12. the configurations without the LLD ring, emotion2vec ----
+    s8 = slice8_phases(card, work, env, train["synth"])
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -2291,6 +3082,52 @@ def main() -> int:  # noqa: C901
                 time_ms(lambda: cublas_chain(x_flat), iters=50),
                 "chain: window, 2 DFT matmuls, power, mel matmul, dB "
                 "(3 cuBLAS fp32 products)", tensor_cores=True))
+
+    # the shapes of phase 12: K1 and K2 on the full-ring refresh's ~2,057
+    # LLD rows (the stream's 20.6 s context), K3 on the 16 lanes of the
+    # emotion2vec server
+    rows_f = s8["rows_full_ring"]
+    sh_f = s8["shapes"]["stream_full_ring"]
+    with torch.inference_mode():
+        for n, n_cyc, L in ((512, 8, 17), (1024, 5, 33)):
+            (frames_a, st, tau, off), kw = s8["rec"][
+                ("cycle_dsum", "stream_full_ring", (rows_f, n))]
+            got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+            want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+            kernels.append(k1_entry(
+                f"full-ring args n{n} x{rows_f}", frames_a, st, tau, off, kw,
+                sh_f.get(("cycle_dsum", (rows_f, n_cyc, L, n)), 0),
+                float((got - want).abs().max())))
+        (a_f,), _ = s8["rec"][("dk_roots", "stream_full_ring", rows_f)]
+        a_f = a_f.reshape(rows_f, a_f.shape[-1])
+        comp_f = companion(a_f)
+        kernels.append(entry(
+            f"dk_roots[full-ring, {rows_f} rows]",
+            "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+            "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+            sh_f.get(("dk_roots", (rows_f,)), 0),
+            s8["dk_full_ring"]["hausdorff_max_held"],
+            lambda: ck.dk_roots(a_f), "dk_roots_kernel",
+            lambda: eg.poly_roots_plain(a_f),
+            rows_f * 11 * 4 + rows_f * 10 * 8 + 10 * 8,
+            20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows_f,
+            time_ms(lambda: torch.linalg.eigvals(comp_f), iters=2, warmup=1),
+            "torch.linalg.eigvals of the companion matrices"))
+        (x_e,), kw_e = s8["rec"][("logmel", "multistream_e2v G=8", 16)]
+        err_e = float((ck.logmel(x_e, **kw_e)
+                       - frontend.frames_to_logmel_plain(x_e, **kw_e))
+                      .abs().max())
+        kernels.append(entry(
+            "logmel[T=16]", "koemorph_tpu_torch/ops/cuda/logmel.cu",
+            "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+            s8["shapes"]["multistream_e2v"][8].get(("logmel", (16,)), 0),
+            err_e, lambda: ck.logmel(x_e, **kw_e), "logmel_",
+            lambda: frontend.frames_to_logmel_plain(x_e, **kw_e),
+            4.0 * (16 * 1024 + 2 * 1024 * live + nnz + 16 * 80),
+            16 * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+            time_ms(lambda: cublas_chain(x_e.reshape(-1, 1024)), iters=50),
+            "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+            "(3 cuBLAS fp32 products)", tensor_cores=True))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

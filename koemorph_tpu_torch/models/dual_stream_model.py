@@ -27,6 +27,9 @@ from torch import nn
 
 from koemorph_tpu_torch.features.emotion import (EmotionFrontendConfig,
                                                  emotion_features)
+from koemorph_tpu_torch.features.wav2vec2 import (Wav2Vec2Config,
+                                                  Wav2Vec2Encoder,
+                                                  lecun_normal)
 from koemorph_tpu_torch.models.dual_stream import DualStreamCrossAttention
 from koemorph_tpu_torch.ops import frontend
 from koemorph_tpu_torch.ops.device_cache import device_cache
@@ -58,22 +61,45 @@ def _ema_step(blendshapes: torch.Tensor, state: TemporalState,
                                        state.initialized))
 
 
+#: the in-model encoder of the ``emotion2vec`` backend: a compact
+#: trainable wav2vec2 with the 1024-D contract (a checkpoint's config
+#: replaces it when pretrained weights are loaded)
+EMOTION2VEC_CONFIG = Wav2Vec2Config(hidden_size=1024, num_hidden_layers=2,
+                                    num_attention_heads=16,
+                                    intermediate_size=2048)
+
+
 class StreamingDualStreamModel(nn.Module):
     """What the streaming step reads of a trained model: the raw-emotion
-    projection (e.g. 264 -> d_model), the dual-stream attention, and the
-    learnable EMA coefficient ``sigmoid(smoothing_alpha)``. Its state dict
-    is what :func:`koemorph_tpu_torch.utils.params.state_dict_from_flax`
-    makes of a ``SimplifiedDualStreamModel`` parameter tree. ``dropout``
-    is 0 for serving; the trainable models pass theirs."""
+    projection (e.g. 264 -> d_model), the dual-stream attention, the
+    learnable EMA coefficient ``sigmoid(smoothing_alpha)``, and for the
+    ``emotion2vec`` backend the wav2vec2 encoder ``emotion2vec`` (its
+    fused features' time mean is the raw emotion vector, ``hidden_size``
+    wide). Its state dict is what
+    :func:`koemorph_tpu_torch.utils.params.state_dict_from_flax` makes of
+    a ``SimplifiedDualStreamModel`` parameter tree. ``dropout`` is 0 for
+    serving; the trainable models pass theirs."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  window_frames: int = 256, n_mels: int = 80,
                  num_blendshapes: int = 52, emotion_raw_dim: int = 264,
                  use_learnable_weights: bool = True,
                  temperature: float = 1.0, dropout: float = 0.0,
-                 smoothing_alpha_init: float = 0.8):
+                 smoothing_alpha_init: float = 0.8,
+                 emotion_backend: str = "egemaps",
+                 emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG):
         super().__init__()
         self.smoothing_alpha_init = smoothing_alpha_init
+        self.emotion_backend = emotion_backend
+        self.emotion2vec_config = emotion2vec_config
+        self.d_model, self.num_heads = d_model, num_heads
+        self.num_blendshapes = num_blendshapes
+        self.use_learnable_weights = use_learnable_weights
+        self.fusion_temperature = temperature
+        if emotion_backend == "emotion2vec":
+            self.emotion2vec = Wav2Vec2Encoder(emotion2vec_config,
+                                               use_layer_fusion=True)
+            emotion_raw_dim = emotion2vec_config.hidden_size
         self.emotion_projection = nn.Linear(emotion_raw_dim, d_model)
         self.dual_stream_attention = DualStreamCrossAttention(
             d_model=d_model, num_heads=num_heads, num_mel_channels=n_mels,
@@ -96,28 +122,26 @@ class StreamingDualStreamModel(nn.Module):
     def alpha(self) -> torch.Tensor:
         return torch.sigmoid(self.smoothing_alpha)
 
+    def encode_emotion(self, audio: torch.Tensor) -> torch.Tensor:
+        """The ``emotion2vec`` backend's raw emotion vector: the time mean
+        of the encoder's fused features, ``(B, L) -> (B, hidden)``."""
+        return self.emotion2vec(audio).mean(-2)
+
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> None:
         """Random weights with the Flax initializers' distributions: LeCun
         truncated normal for dense kernels, N(0, 0.02) for the learned
         queries, Xavier uniform for the packed in-projections, zero biases,
         unit norms, stream weights 2.0 / 0.5 toward their own stream, and
-        ``smoothing_alpha`` at ``smoothing_alpha_init``. Drawn on the CPU
-        from ``generator``."""
-        def trunc_normal(shape, std):
-            # inverse CDF of a normal truncated at +/- 2 std
-            lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-            u = lo + (1.0 - 2.0 * lo) * torch.rand(shape,
-                                                   generator=generator)
-            return torch.special.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0)
-                                                          * std)
-
+        ``smoothing_alpha`` at ``smoothing_alpha_init``; then the
+        ``emotion2vec`` encoder's (:meth:`Wav2Vec2Encoder.init_random`).
+        Drawn on the CPU from ``generator``."""
         for name, mod in self.named_modules():
+            if name.startswith("emotion2vec"):
+                continue
             if isinstance(mod, nn.Linear):
-                fan_in = mod.in_features
-                # Flax's lecun_normal: unit variance after truncation
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                mod.weight.copy_(trunc_normal(mod.weight.shape, std))
+                mod.weight.copy_(lecun_normal(tuple(mod.weight.shape),
+                                              mod.in_features, generator))
                 mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
@@ -132,6 +156,8 @@ class StreamingDualStreamModel(nn.Module):
                     * limit)
             mha.in_proj_bias.zero_()
         self.smoothing_alpha.fill_(self.smoothing_alpha_init)
+        if self.emotion_backend == "emotion2vec":
+            self.emotion2vec.init_random(generator)
 
 
 class SimplifiedDualStreamModel(StreamingDualStreamModel):
@@ -139,7 +165,9 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
     mel and emotion frontends inside the forward. Its state dict is that of
     :class:`StreamingDualStreamModel`. ``dropout`` (attention weights and
     the decoder head) acts in training mode on calls given a
-    ``generator``."""
+    ``generator``. With ``emotion_backend="emotion2vec"`` the raw emotion
+    vector comes from the model's own encoder (``emotion2vec_config``),
+    trained with the rest."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  num_blendshapes: int = 52, sample_rate: int = 16000,
@@ -148,7 +176,8 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                  use_concatenation: bool = True,
                  use_learnable_weights: bool = True,
                  fusion_temperature: float = 1.0, dropout: float = 0.1,
-                 smoothing_alpha_init: float = 0.8):
+                 smoothing_alpha_init: float = 0.8,
+                 emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG):
         emotion_cfg = EmotionFrontendConfig(
             backend=emotion_backend, use_concatenation=use_concatenation,
             sample_rate=sample_rate)
@@ -161,7 +190,9 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                          emotion_raw_dim=emotion_cfg.feature_dim,
                          use_learnable_weights=use_learnable_weights,
                          temperature=fusion_temperature, dropout=dropout,
-                         smoothing_alpha_init=smoothing_alpha_init)
+                         smoothing_alpha_init=smoothing_alpha_init,
+                         emotion_backend=emotion_backend,
+                         emotion2vec_config=emotion2vec_config)
         self.emotion_config = emotion_cfg
         self.mel_frontend = mel_frontend
         self.sample_rate = sample_rate
@@ -174,6 +205,8 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
 
     def emotion_raw(self, audio: torch.Tensor) -> torch.Tensor:
         """Raw emotion features of ``audio (B, L)``: ``(B, D_raw)``."""
+        if self.emotion_backend == "emotion2vec":
+            return self.encode_emotion(audio)
         return emotion_features(audio, self.emotion_config)
 
     def forward(self, audio: torch.Tensor,

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
+from koemorph_tpu_torch.features.wav2vec2 import Wav2Vec2Config
 from koemorph_tpu_torch.runtime.audio import EOS
 from koemorph_tpu_torch.runtime.streamers import BlendshapeStreamer
 from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
@@ -33,10 +34,14 @@ def build_streaming_model(
     checkpoint: Optional[str] = None,
     device: DeviceLike = None,
     seed: int = 0,
+    emotion2vec_config: Optional[Wav2Vec2Config] = None,
 ):
     """The flagship streaming model and its config: 256-frame window (512
-    at 60 fps), 80 mels, 3-window eGeMAPS (264-D), 20 s emotion ring, a
-    refresh every 0.3 s. ``checkpoint`` is a directory the trainer wrote
+    at 60 fps), 80 mels, 3-window eGeMAPS (264-D; ``basic``: 9-D;
+    ``emotion2vec``: the model's wav2vec2 encoder, ``emotion2vec_config``
+    or the compact default, re-run over the context at each refresh), 20 s
+    emotion ring, a refresh every 0.3 s. ``checkpoint`` is a directory the
+    trainer wrote
     (``state.pth`` inside) or a ``.pth`` state dict in the reference's
     names; a missing path raises ``FileNotFoundError``, a missing or
     wrongly shaped parameter ``ValueError`` naming it. Without one the
@@ -50,7 +55,9 @@ def build_streaming_model(
         d_model=d_model, num_heads=num_heads,
         emotion_backend=emotion_backend,
         use_concatenation=emotion_backend == "egemaps",
-        emotion_update_frames=max(1, int(0.3 * fps)))
+        emotion_update_frames=max(1, int(0.3 * fps)),
+        **({} if emotion2vec_config is None
+           else dict(emotion2vec_config=emotion2vec_config)))
     model = model_for_config(cfg)
     if checkpoint:
         load_model_state(model, read_state_dict(checkpoint),

@@ -13,8 +13,10 @@ the lanes split into G cohorts, lane ``l`` in cohort ``l % G``, and cohort
 ``c``'s clock starts at phase ``c*K//G`` of the K-frame refresh cadence,
 so at most one cohort refreshes in a step (G = 1: every lane refreshes
 together every K frames). The refresh runs once per due cohort on its
-lanes' views ``[c::G]`` of the rings (read in place) and writes the
-cohort's results back into the lane-batched state in place. A lane is
+lanes' views ``[c::G]`` of the rings (read in place), batched over the
+cohort's lanes (the ``emotion2vec`` encoder: one pass over all of
+them), and writes the cohort's results back into the lane-batched state
+in place. A lane is
 exactly a dedicated :class:`~koemorph_tpu_torch.runtime.streaming.
 StreamingInference` whose clock started at its cohort's phase, up to the
 summation order of batched products.

@@ -7,9 +7,14 @@ Each 33 ms frame (:func:`stream_frame`):
    STFT -> mel -> dB function at T = 1) and rolls it into the raw-dB ring,
 3. normalizes the window (``power_to_db ref=max``: subtract the window
    max, so keeping raw dB rows makes the incremental update exact),
-4. every ``emotion_update_frames`` frames refreshes the eGeMAPS emotion
-   vector: LLD rows for the newest audio only, rolled into an LLD ring,
-   then functionals over the ring under three offset masks (264-D),
+4. every ``emotion_update_frames`` frames refreshes the emotion vector:
+   for ``egemaps`` (incremental, the default) LLD rows for the newest
+   audio only, rolled into an LLD ring, then functionals over the ring
+   under three offset masks (264-D); otherwise, for ``basic``,
+   ``emotion2vec`` and ``egemaps`` with ``incremental_lld=False``, the
+   vector of the ring's last 20.6 s (context plus the offsets' margin)
+   computed anew: the emotion features, or the time mean of the model's
+   wav2vec2 encoder over it,
 5. runs the dual-stream attention decode and the learnable-alpha EMA.
 
 The refresh decision is a host-side branch on a host-side frame counter,
@@ -40,9 +45,11 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
-from koemorph_tpu_torch.features.emotion import EmotionFrontendConfig
+from koemorph_tpu_torch.features.emotion import (EmotionFrontendConfig,
+                                                 emotion_features)
+from koemorph_tpu_torch.features.wav2vec2 import Wav2Vec2Config
 from koemorph_tpu_torch.models.dual_stream_model import (
-    StreamingDualStreamModel, TemporalState, _ema_step)
+    EMOTION2VEC_CONFIG, StreamingDualStreamModel, TemporalState, _ema_step)
 from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig, LldCarry,
                                             compute_lld_block,
                                             functionals_multi_offset,
@@ -77,19 +84,38 @@ class StreamingConfig:
     emotion_context_s: float = 20.0   # emotion audio ring length
     emotion_update_frames: int = 9    # ~300 ms at 30 fps
     # incremental eGeMAPS: an LLD ring on the device; each refresh computes
-    # only the LLD rows its interval made available
+    # only the LLD rows its interval made available. False recomputes the
+    # whole context's features at every refresh
     incremental_lld: bool = True
     use_learnable_weights: bool = True
     fusion_temperature: float = 1.0
+    # the emotion2vec backend's encoder: it re-runs over the whole context
+    # at every refresh (bidirectional, so no incremental form); must match
+    # the trained model's
+    emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG
 
     def __post_init__(self):
-        if self.emotion_backend != "egemaps":
-            raise NotImplementedError(
-                f"emotion_backend {self.emotion_backend!r} is not ported; "
-                "only 'egemaps' is")
-        if not self.incremental_lld:
-            raise NotImplementedError(
-                "incremental_lld=False is not ported")
+        if self.emotion_backend not in ("egemaps", "basic", "emotion2vec"):
+            raise ValueError(
+                f"streaming supports emotion_backend 'egemaps', 'basic' "
+                f"or 'emotion2vec', got {self.emotion_backend!r}")
+
+    @classmethod
+    def from_model(cls, model, **overrides) -> "StreamingConfig":
+        """The config that streams a ``SimplifiedDualStreamModel``'s
+        settings (its fusion knobs and encoder included)."""
+        kw = dict(
+            sample_rate=model.sample_rate, target_fps=model.target_fps,
+            window_frames=model.mel_sequence_length,
+            d_model=model.d_model, num_heads=model.num_heads,
+            num_blendshapes=model.num_blendshapes,
+            emotion_backend=model.emotion_backend,
+            use_concatenation=model.emotion_config.use_concatenation,
+            use_learnable_weights=model.use_learnable_weights,
+            fusion_temperature=model.fusion_temperature,
+            emotion2vec_config=model.emotion2vec_config)
+        kw.update(overrides)
+        return cls(**kw)
 
     @property
     def hop_length(self) -> int:
@@ -117,7 +143,23 @@ class StreamingConfig:
 
     @property
     def emotion_raw_dim(self) -> int:
+        """Width of the cached raw emotion vector."""
+        if self.emotion_backend == "emotion2vec":
+            return self.emotion2vec_config.hidden_size
         return self.emotion_config.feature_dim
+
+    @property
+    def use_lld_ring(self) -> bool:
+        """Whether the refresh rolls new LLD rows into an LLD ring (the
+        incremental ``egemaps`` refresh) rather than recomputing the
+        context's vector."""
+        return self.incremental_lld and self.emotion_backend == "egemaps"
+
+    @property
+    def emotion_context_samples(self) -> int:
+        """Samples a full-context refresh reads: context plus margin."""
+        return (int(self.emotion_context_s * self.sample_rate)
+                + self.emotion_margin_samples)
 
     @property
     def egemaps_config(self) -> EgemapsConfig:
@@ -143,7 +185,9 @@ def model_for_config(cfg: StreamingConfig) -> StreamingDualStreamModel:
         num_blendshapes=cfg.num_blendshapes,
         emotion_raw_dim=cfg.emotion_raw_dim,
         use_learnable_weights=cfg.use_learnable_weights,
-        temperature=cfg.fusion_temperature)
+        temperature=cfg.fusion_temperature,
+        emotion_backend=cfg.emotion_backend,
+        emotion2vec_config=cfg.emotion2vec_config)
 
 
 @dataclasses.dataclass
@@ -155,16 +199,19 @@ class StreamState:
     emotion_raw: torch.Tensor    # (D_raw,) cached raw emotion features
     frame_count: int
     temporal: TemporalState      # EMA carry (B=1)
-    lld_ring: dict               # {name: (rows, ...)} newest last
-    lld_carry: LldCarry
+    # the incremental eGeMAPS refresh's state (None unless use_lld_ring)
+    lld_ring: Optional[dict]     # {name: (rows, ...)} newest last
+    lld_carry: Optional[LldCarry]
 
 
 def init_stream_state(cfg: StreamingConfig, device=None,
                       lanes: Optional[int] = None) -> StreamState:
     """A fresh stream's state; with ``lanes``, that of ``lanes`` fresh
     streams, every field but ``frame_count`` with a leading lane dim (the
-    EMA carry ``(lanes, 52)``)."""
+    EMA carry ``(lanes, 52)``). Without ``cfg.use_lld_ring`` the LLD
+    ring and carry are ``None``."""
     lead = () if lanes is None else (lanes,)
+    ring = cfg.use_lld_ring
     return StreamState(
         audio_ring=torch.zeros(lead + (cfg.emotion_ring_len,), device=device),
         mel_db=torch.full(lead + (cfg.window_frames + 1, cfg.n_mels), -100.0,
@@ -173,8 +220,10 @@ def init_stream_state(cfg: StreamingConfig, device=None,
         frame_count=0,
         temporal=TemporalState.create(lanes or 1, cfg.num_blendshapes,
                                       device),
-        lld_ring=init_lld_ring(cfg.lld_ring_rows, device, lanes),
-        lld_carry=silence_lld_carry(cfg.egemaps_config, device, lanes))
+        lld_ring=(init_lld_ring(cfg.lld_ring_rows, device, lanes)
+                  if ring else None),
+        lld_carry=(silence_lld_carry(cfg.egemaps_config, device, lanes)
+                   if ring else None))
 
 
 def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
@@ -193,8 +242,14 @@ def _new_mel_row(cfg: StreamingConfig, ring: torch.Tensor) -> torch.Tensor:
     return db.reshape(frames.shape[:-1] + (cfg.n_mels,))
 
 
-def _map_carry(fn, carry: LldCarry) -> LldCarry:
+def _map_carry(fn, carry: Optional[LldCarry]) -> Optional[LldCarry]:
+    if carry is None:
+        return None
     return LldCarry(*(None if f is None else fn(f) for f in carry))
+
+
+def _map_ring(fn, ring: Optional[dict]) -> Optional[dict]:
+    return None if ring is None else {k: fn(v) for k, v in ring.items()}
 
 
 def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
@@ -221,20 +276,33 @@ def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
 def _refresh_tail_len(cfg: StreamingConfig) -> int:
     """Samples at the end of the post-hop audio ring that a refresh
     reads: the LLD block's chunk (its low-pitch left context comes from
-    the carry)."""
-    return (cfg.lld_block_rows - 1) * cfg.egemaps_config.hop_length + 512
+    the carry), or the whole context without the LLD ring."""
+    if cfg.use_lld_ring:
+        return (cfg.lld_block_rows - 1) * cfg.egemaps_config.hop_length \
+            + 512
+    return cfg.emotion_context_samples
 
 
 def _stream_refresh(state: StreamState, ring: torch.Tensor,
-                    cfg: StreamingConfig, do_refresh: bool):
-    """The eGeMAPS refresh on refresh frames; otherwise the cached vector.
+                    cfg: StreamingConfig, do_refresh: bool,
+                    model: Optional[StreamingDualStreamModel] = None):
+    """The emotion refresh on refresh frames; otherwise the cached vector.
     ``ring`` is the post-hop audio ring ``(..., ring_len)``, or any view
     of it whose last ``_refresh_tail_len(cfg)`` samples are its end; only
     ``emotion_raw``, ``lld_ring`` and ``lld_carry`` of ``state`` are read,
-    with the same leading (lane) dims. Returns (emotion_raw, lld_ring,
-    lld_carry)."""
+    with the same leading (lane) dims. The ``emotion2vec`` backend runs
+    ``model``'s encoder once over every lane's context. Returns
+    (emotion_raw, lld_ring, lld_carry)."""
     if not do_refresh:
         return state.emotion_raw, state.lld_ring, state.lld_carry
+    if not cfg.use_lld_ring:
+        ctx = ring[..., -_refresh_tail_len(cfg):]
+        if cfg.emotion_backend == "emotion2vec":
+            feats = model.encode_emotion(ctx.reshape(-1, ctx.shape[-1]))
+            feats = feats.reshape(ctx.shape[:-1] + feats.shape[-1:])
+        else:
+            feats = emotion_features(ctx, cfg.emotion_config)
+        return feats, state.lld_ring, state.lld_carry
     ecfg = cfg.egemaps_config
     rows = cfg.lld_ring_rows
     block, carry = compute_lld_block(ring[..., -_refresh_tail_len(cfg):],
@@ -265,13 +333,14 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
     """One frame: ``({"blendshapes": (52,)}, new state)``.
 
     ``update_every`` overrides the refresh cadence; ``0`` disables the
-    refresh. Each refresh rolls a block sized for
+    refresh. With the LLD ring each refresh rolls a block sized for
     ``cfg.emotion_update_frames``, so any other cadence than 0, 1 or that
-    one would gap or overlap the LLD ring's timeline and is rejected.
+    one would gap or overlap the ring's timeline and is rejected.
     """
     if update_every is None:
         update_every = cfg.emotion_update_frames
-    elif update_every not in (0, 1, cfg.emotion_update_frames):
+    elif cfg.use_lld_ring and update_every not in (
+            0, 1, cfg.emotion_update_frames):
         raise ValueError(
             f"update_every={update_every} would corrupt the incremental "
             f"LLD ring timeline (block geometry is fixed by "
@@ -281,7 +350,7 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
                   and state.frame_count % update_every == 0)
     ring, mel_db, mel, detail = _stream_pre(state, hop_audio, cfg)
     emotion_raw, lld_ring, lld_carry = _stream_refresh(state, ring, cfg,
-                                                       do_refresh)
+                                                       do_refresh, model)
     smoothed, temporal = _stream_post(model, mel, detail, emotion_raw,
                                       state.temporal)
     return {"blendshapes": smoothed[0]}, StreamState(
@@ -306,11 +375,13 @@ def stream_step_(model: StreamingDualStreamModel, state: StreamState,
     for lanes in refresh:
         cohort = dataclasses.replace(
             state, emotion_raw=state.emotion_raw[lanes],
-            lld_ring={k: v[lanes] for k, v in state.lld_ring.items()},
+            lld_ring=_map_ring(lambda v: v[lanes], state.lld_ring),
             lld_carry=_map_carry(lambda f: f[lanes], state.lld_carry))
         feats, lld_ring, carry = _stream_refresh(cohort, ring[lanes], cfg,
-                                                 True)
+                                                 True, model)
         state.emotion_raw[lanes] = feats
+        if lld_ring is None:
+            continue
         for k, v in lld_ring.items():
             state.lld_ring[k][lanes] = v
         for dst, src in zip(state.lld_carry, carry):
@@ -359,7 +430,7 @@ class StaticStream:
             st, emotion_raw=st.emotion_raw.clone(),
             temporal=TemporalState(prev=st.temporal.prev.clone(),
                                    initialized=st.temporal.initialized.clone()),
-            lld_ring={k: v.clone() for k, v in st.lld_ring.items()},
+            lld_ring=_map_ring(torch.clone, st.lld_ring),
             lld_carry=_map_carry(torch.clone, st.lld_carry)),
             (st.audio_ring.clone(), st.mel_db.clone()))
 
@@ -379,8 +450,10 @@ class StaticStream:
                  (st.emotion_raw, fresh.emotion_raw),
                  (st.temporal.prev, fresh.temporal.prev),
                  (st.temporal.initialized, fresh.temporal.initialized),
-                 *((st.lld_ring[k], fresh.lld_ring[k]) for k in st.lld_ring),
-                 *((d, s) for d, s in zip(st.lld_carry, fresh.lld_carry)
+                 *((st.lld_ring[k], fresh.lld_ring[k])
+                   for k in st.lld_ring or ()),
+                 *((d, s) for d, s in zip(st.lld_carry or (),
+                                          fresh.lld_carry or ())
                    if d is not None)]
         for dst, src in pairs:
             dst[lanes] = src

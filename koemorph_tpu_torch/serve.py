@@ -23,6 +23,10 @@ Output fan-out (``--output``):
     file  one JSONL stream with a ``session`` field per row
     none  discard (capacity testing)
 
+``udp`` and ``file`` rows come from the native batch emitter (built with
+``g++`` at start-up); ``--python-emit`` writes them with ``json.dumps``
+instead. The stats line names the path as ``emit_path``.
+
 Usage:
     python -m koemorph_tpu_torch.serve --replay a.wav b.wav --sessions 4 \\
         --output file --output-file frames.jsonl --no-realtime
@@ -121,13 +125,18 @@ class SessionIngest:
 class SessionSender:
     """Per-session output fan-out: UDP JSON with a ``session`` field, a
     per-session OSC address, or one JSONL file with a ``session`` field.
-    Rows go through ``json.dumps``, the wire contract (a non-finite value
-    is written as ``NaN`` / ``Infinity``, which ``json.loads`` reads)."""
 
-    emit_path = "python"
+    ``udp`` and ``file`` rows go through the native batch emitter
+    (:mod:`koemorph_tpu_torch.data.native`, the whole frame batch in one
+    call; it is built here, and a build failure raises) unless
+    ``python_emit``; then, and for ``osc``, each row goes through
+    ``json.dumps``, the wire contract. Both write a non-finite value as
+    ``NaN`` / ``Infinity``, which ``json.loads`` reads. ``emit_path`` says
+    which path the rows take."""
 
     def __init__(self, mode: str, host: str, port: int,
-                 osc_address: str, output_file: str | None):
+                 osc_address: str, output_file: str | None,
+                 python_emit: bool = False):
         self.mode = mode
         self.host = host
         self.port = port
@@ -143,6 +152,13 @@ class SessionSender:
             self._fh = open(output_file, "w")
         elif mode != "none":
             raise ValueError(f"unknown output mode: {mode}")
+        self.emit_path = "python"
+        if mode in ("udp", "file") and not python_emit:
+            from koemorph_tpu_torch.data.native import emit_lib
+            emit_lib()
+            self.emit_path = "native"
+            if mode == "udp":
+                self._ip = socket.gethostbyname(host)
 
     def send(self, frames: np.ndarray, timestamp: float) -> None:
         """``frames`` is (sessions, 52)."""
@@ -158,6 +174,18 @@ class SessionSender:
                                        np.asarray(row).tolist()),
                     (self.host, self.port))
                 self.frames_sent += 1
+            return
+        if self.emit_path == "native":
+            from koemorph_tpu_torch.data import native
+            if self.mode == "udp":
+                self.frames_sent += native.emit_frames_udp_native(
+                    frames, timestamp, self._sock.fileno(), self._ip,
+                    self.port)
+            else:
+                self._fh.write(native.format_frames_jsonl_native(
+                    frames, timestamp).decode("ascii"))
+                self._fh.flush()
+                self.frames_sent += len(frames)
             return
         for i, row in enumerate(frames):
             payload = json.dumps({
@@ -468,6 +496,9 @@ def main(argv=None) -> int:
                         "tick; the default pipelined emit overlaps tick "
                         "t's copy to the host with tick t-1's emit, at one "
                         "frame of output latency")
+    p.add_argument("--python-emit", action="store_true",
+                   help="emit udp / file rows through json.dumps, one per "
+                        "session, instead of the native batch emitter")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
@@ -483,7 +514,7 @@ def main(argv=None) -> int:
     sender = SessionSender(args.output, args.host, args.port,
                            args.osc_address,
                            args.output_file if args.output == "file"
-                           else None)
+                           else None, python_emit=args.python_emit)
     try:
         if args.replay:
             return serve_replay(server, sender, args)

@@ -23,6 +23,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 
 logger = logging.getLogger("koemorph_tpu_torch.train")
 
@@ -181,6 +182,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--scan-epochs is not ported: {SCAN_ITEM}")
     device = resolve_device("cpu" if args.cpu else "cuda")
+    # the port trains in full fp32: cuDNN's convolutions (the emotion2vec
+    # encoder's) too, which PyTorch runs in TF32 by default
+    torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.config, overrides=args.overrides)
     work_dir = Path(args.work_dir or
                     Path(cfg.get("run_dir", "outputs"))

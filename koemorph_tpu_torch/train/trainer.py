@@ -106,8 +106,8 @@ def _stream_weight_metrics(mel_w, emo_w) -> dict:
 
 
 def _check_full_fp32(device: torch.device) -> None:
-    """The port trains with every matmul in full fp32 (TF32 keeps ~3
-    decimal digits)."""
+    """The port trains with every matmul and convolution in full fp32
+    (TF32 keeps ~3 decimal digits)."""
     if device.type == "cuda" and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -115,6 +115,11 @@ def _check_full_fp32(device: torch.device) -> None:
             "TF32 matmuls are enabled; the port trains in full fp32 "
             "(torch.backends.cuda.matmul.allow_tf32 = False, "
             "torch.set_float32_matmul_precision('highest'))")
+    if device.type == "cuda" and torch.backends.cudnn.allow_tf32:
+        raise ValueError(
+            "cuDNN TF32 convolutions are enabled (PyTorch's default); the "
+            "port trains in full fp32 (torch.backends.cudnn.allow_tf32 = "
+            "False)")
 
 
 def _make_trainable(model: torch.nn.Module) -> None:
@@ -190,9 +195,16 @@ class Trainer:
         self.model.train()
         gen = dropout_generator(self.dropout_seed, self.global_step,
                                 self.device)
-        loss, metrics = self.loss_fn(batch, gen)
-        grads = torch.autograd.grad(loss, list(self.params.values()),
-                                    allow_unused=True)
+        # the backward picks its convolution algorithms (the emotion2vec
+        # encoder's) here, outside the encoder's own scoped flags:
+        # deterministic ones, no autotuning, no TF32, so a resumed run is
+        # bit for bit the uninterrupted one
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=False,
+                deterministic=True, allow_tf32=False):
+            loss, metrics = self.loss_fn(batch, gen)
+            grads = torch.autograd.grad(loss, list(self.params.values()),
+                                        allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(self.params.items(), grads)}
         norm = global_norm(grads.values())

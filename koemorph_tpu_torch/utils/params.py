@@ -12,6 +12,17 @@ whose attention names follow the reference PyTorch module:
   weights and ``smoothing_alpha`` carry over unchanged;
 - ``decoder_hidden`` / ``decoder_out`` are ``blendshape_decoder.0`` / ``.3``.
 
+The ``emotion2vec`` subtree (the in-model wav2vec2 encoder of that
+backend) maps onto the encoder's HuggingFace names under ``emotion2vec.``:
+``feature_extractor.conv_{i}`` / ``layer_norm_{i}`` become
+``feature_extractor.conv_layers.{i}.conv`` / ``.layer_norm``,
+``fp_layer_norm`` / ``fp_projection`` ``feature_projection.layer_norm`` /
+``.projection``, ``pos_conv_embed.conv`` ``encoder.pos_conv_embed.conv``,
+``layer_{i}`` ``encoder.layers.{i}`` (its dense layers under
+``attention`` and ``feed_forward``), ``encoder_layer_norm``
+``encoder.layer_norm``; a conv ``kernel`` (k, in/groups, out) becomes a
+``weight`` (out, in/groups, k).
+
 Both directions only transpose, so a round trip is bit-exact.
 
 The optimizer state crosses the same way: :func:`optimizer_state_from_optax`
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "flax_from_state_dict",
+           "encoder_state_dict_from_flax",
            "optimizer_state_from_optax", "optax_from_optimizer_state",
            "read_state_dict", "load_model_state"]
 
@@ -65,6 +77,94 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32, copy=True)
 
 
+_E2V = "emotion2vec"
+_E2V_FF = {"intermediate_dense": "feed_forward.intermediate_dense",
+           "output_dense": "feed_forward.output_dense"}
+
+
+def _e2v_names(tree_or_sd, from_flax: bool) -> tuple[int, int]:
+    """(conv layers, transformer layers) of an emotion2vec subtree (Flax)
+    or of the ``emotion2vec.`` keys of a state dict."""
+    if from_flax:
+        return (sum(k.startswith("conv_")
+                    for k in tree_or_sd["feature_extractor"]),
+                sum(k.startswith("layer_") and k[6:].isdigit()
+                    for k in tree_or_sd))
+    convs = {k.split(".")[3] for k in tree_or_sd
+             if k.startswith(f"{_E2V}.feature_extractor.conv_layers.")}
+    layers = {k.split(".")[3] for k in tree_or_sd
+              if k.startswith(f"{_E2V}.encoder.layers.")}
+    return len(convs), len(layers)
+
+
+def _e2v_pairs(n_conv: int, n_layers: int):
+    """(Flax path, state-dict prefix, kind) of every emotion2vec module:
+    kind ``conv``, ``dense`` or ``norm``."""
+    for i in range(n_conv):
+        yield (("feature_extractor", f"conv_{i}"),
+               f"feature_extractor.conv_layers.{i}.conv", "conv")
+        yield (("feature_extractor", f"layer_norm_{i}"),
+               f"feature_extractor.conv_layers.{i}.layer_norm", "norm")
+    yield ("fp_layer_norm",), "feature_projection.layer_norm", "norm"
+    yield ("fp_projection",), "feature_projection.projection", "dense"
+    yield ("pos_conv_embed", "conv"), "encoder.pos_conv_embed.conv", "conv"
+    for i in range(n_layers):
+        base = f"encoder.layers.{i}"
+        for name in ("layer_norm", "final_layer_norm"):
+            yield (f"layer_{i}", name), f"{base}.{name}", "norm"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            yield ((f"layer_{i}", "attention", name),
+                   f"{base}.attention.{name}", "dense")
+        for name, torch_name in _E2V_FF.items():
+            yield (f"layer_{i}", name), f"{base}.{torch_name}", "dense"
+    yield ("encoder_layer_norm",), "encoder.layer_norm", "norm"
+
+
+def _e2v_from_flax(tree: dict, sd: dict) -> None:
+    for path, prefix, kind in _e2v_pairs(*_e2v_names(tree, True)):
+        node = tree
+        for k in path:
+            node = node[k]
+        key = f"{_E2V}.{prefix}"
+        if kind == "norm":
+            sd[f"{key}.weight"] = _t(node["scale"])
+        elif kind == "conv":
+            sd[f"{key}.weight"] = _t(np.transpose(node["kernel"], (2, 1, 0)))
+        else:
+            sd[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            sd[f"{key}.bias"] = _t(node["bias"])
+    sd[f"{_E2V}.layer_fusion_weights"] = _t(tree["layer_fusion_weights"])
+
+
+def encoder_state_dict_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A Flax ``Wav2Vec2Encoder`` tree (with fusion) -> the state dict of
+    :class:`koemorph_tpu_torch.features.wav2vec2.Wav2Vec2Encoder`."""
+    sd: dict = {}
+    _e2v_from_flax(tree, sd)
+    return {k.removeprefix(f"{_E2V}."): v for k, v in sd.items()}
+
+
+def _e2v_to_flax(sd: dict) -> dict:
+    tree: dict = {}
+    for path, prefix, kind in _e2v_pairs(*_e2v_names(sd, False)):
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        key = f"{_E2V}.{prefix}"
+        w = _n(sd[f"{key}.weight"])
+        if kind == "norm":
+            node["scale"] = w
+        elif kind == "conv":
+            node["kernel"] = np.transpose(w, (2, 1, 0)).copy()
+        else:
+            node["kernel"] = w.T.copy()
+        if f"{key}.bias" in sd:
+            node["bias"] = _n(sd[f"{key}.bias"])
+    tree["layer_fusion_weights"] = _n(sd[f"{_E2V}.layer_fusion_weights"])
+    return tree
+
+
 def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     """Flax tree of numpy arrays -> ``state_dict`` of float32 tensors."""
     sd: dict[str, torch.Tensor] = {}
@@ -88,6 +188,8 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
             sd[f"{_ATT}.{name}"] = _t(att[name])
     dense("emotion_projection", params["emotion_projection"])
     sd["smoothing_alpha"] = _t(np.reshape(params["smoothing_alpha"], ()))
+    if _E2V in params:
+        _e2v_from_flax(params[_E2V], sd)
     return sd
 
 
@@ -111,9 +213,12 @@ def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     for name in _PLAIN:
         if f"{_ATT}.{name}" in sd:
             att[name] = _n(sd[f"{_ATT}.{name}"])
-    return {_ATT: att,
+    tree = {_ATT: att,
             "emotion_projection": dense("emotion_projection"),
             "smoothing_alpha": _n(sd["smoothing_alpha"]).reshape(())}
+    if f"{_E2V}.layer_fusion_weights" in sd:
+        tree[_E2V] = _e2v_to_flax(sd)
+    return tree
 
 
 def _fields(node) -> tuple:

@@ -368,3 +368,58 @@ def test_decoder_keeps_the_graphs_of_its_recent_shapes():
         assert torch.equal(dec(audio), eager(audio)), seed
     assert [k[0][1] for k in graphs.dropped] == [41 * HOP, 40 * HOP]
     assert sorted(k[0][1] for k in graphs.bodies) == [41 * HOP, 42 * HOP]
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("basic", dict(emotion_backend="basic", use_concatenation=False)),
+    ("emotion2vec", dict(emotion_backend="emotion2vec",
+                         use_concatenation=False)),
+    ("full_ring", dict(incremental_lld=False))])
+def test_refresh_bodies_without_ring_are_capture_safe(monkeypatch, backend,
+                                                      kw):
+    """The bodies of the refresh without the LLD ring (``basic``,
+    ``emotion2vec``'s encoder over every lane of a due cohort at once, the
+    full-ring eGeMAPS) and of an ``emotion2vec`` decode run with every host
+    copy and sync patched to raise, after warm-up."""
+    from koemorph_tpu_torch.features.wav2vec2 import Wav2Vec2Config
+    tiny = Wav2Vec2Config(hidden_size=32, num_hidden_layers=1,
+                          num_attention_heads=2, intermediate_size=64,
+                          conv_dim=(16,), conv_stride=(160,),
+                          conv_kernel=(320,), num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4)
+    cfg = streaming.StreamingConfig(**KW, **kw, emotion2vec_config=tiny)
+    m = streaming.model_for_config(cfg)
+    m.init_random(torch.Generator().manual_seed(2))
+    server = MultiStreamInference(m, cfg, 4, device="cpu",
+                                  refresh_cohorts=2)
+    server._put_hops(_pcm(4, 1, seed=3))
+    server.warmup(torch.int16)
+    eng = StreamingInference(m, cfg, device="cpu")
+    eng.warmup()
+    decode = backend == "emotion2vec"
+    if decode:
+        dec_model = SequentialDualStreamModel(
+            d_model=32, num_heads=2, mel_sequence_length=16, stride_frames=3,
+            emotion_backend="emotion2vec", use_concatenation=False,
+            emotion2vec_config=tiny)
+        dec_model.init_random(torch.Generator().manual_seed(1))
+        dec = BatchedSequentialDecoder(dec_model, device="cpu")
+        audio = torch.from_numpy(np.stack([_voice(40 * HOP, seed=s)
+                                           for s in (1, 2)]))
+        want = dec(audio)
+    before = server.states.emotion_raw.clone()
+    with torch.inference_mode(), _no_host_traffic(monkeypatch):
+        for due in [(), (0,), (1,)]:
+            for parity in (0, 1):
+                out = server._body(*server._static.buffers(parity),
+                                   torch.int16, due)
+                assert out.shape == (4, 52)
+        for refresh in (True, False):
+            for parity in (0, 1):
+                assert eng._body(*eng._static.buffers(parity),
+                                 refresh).shape == (1, 52)
+        got = dec._decode(audio) if decode else None
+    assert server.states.lld_ring is None
+    assert not torch.equal(server.states.emotion_raw, before)
+    if decode:
+        assert torch.equal(got, want)

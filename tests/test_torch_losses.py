@@ -241,5 +241,6 @@ def test_basic_backend_through_the_emotion_frontend():
     want = _jax_basic_features()
     got = emotion_features(torch.from_numpy(x), cfg).numpy()
     _basic_close(got, want)
-    with pytest.raises(NotImplementedError):
-        EmotionFrontendConfig(backend="emotion2vec")
+    with pytest.raises(ValueError):
+        emotion_features(torch.from_numpy(x),
+                         EmotionFrontendConfig(backend="emotion2vec"))

@@ -169,14 +169,19 @@ def test_concat_windows_and_functionals_compose():
 
 
 def test_basic_backend_raises():
-    """The model frontends take the ``basic`` backend now
-    (``tests/test_torch_losses.py`` holds its features against JAX); the
-    stream's refresh branch for it is not ported and raises."""
+    """The model frontends take the ``basic`` backend
+    (``tests/test_torch_losses.py`` holds its features against JAX), and
+    so does the stream's refresh (``tests/test_torch_stream_refresh.py``);
+    ``emotion2vec`` has trained parameters, so the parameter-free feature
+    function raises for it as JAX's does, and an unknown backend raises."""
     assert EmotionFrontendConfig(backend="basic").feature_dim == 9
-    with pytest.raises(NotImplementedError):
-        StreamingConfig(emotion_backend="basic")
-    with pytest.raises(NotImplementedError):
-        EmotionFrontendConfig(backend="emotion2vec")
+    assert StreamingConfig(emotion_backend="basic").emotion_raw_dim == 9
+    assert EmotionFrontendConfig(backend="emotion2vec").feature_dim == 1024
+    with pytest.raises(ValueError):
+        emotion_features(torch.zeros(16000),
+                         EmotionFrontendConfig(backend="emotion2vec"))
+    with pytest.raises(ValueError):
+        StreamingConfig(emotion_backend="precomputed")
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +326,8 @@ def test_model_options_raise():
     with pytest.raises(ValueError):
         dm.SequentialDualStreamModel(**SMALL, exact_window_stft=True)(
             x, window_starts=np.array([0, 1]))
-    with pytest.raises(NotImplementedError):
-        dm.SequentialDualStreamModel(**SMALL, emotion_backend="emotion2vec")
+    with pytest.raises(ValueError):
+        dm.SequentialDualStreamModel(**SMALL, emotion_backend="precomputed")
 
 
 def test_state_dict_names_are_the_streaming_models():

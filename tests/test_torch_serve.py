@@ -105,7 +105,8 @@ def test_sender_file_rows_match_reference(jax_serve, tmp_path):
     paths = {}
     for name, sender in (
             ("port", serve.SessionSender("file", "127.0.0.1", 0, "/bs",
-                                         str(tmp_path / "port.jsonl"))),
+                                         str(tmp_path / "port.jsonl"),
+                                         python_emit=True)),
             ("ref", jax_serve.SessionSender("file", "127.0.0.1", 0, "/bs",
                                             str(tmp_path / "ref.jsonl"),
                                             native=False))):
@@ -147,7 +148,7 @@ def test_replay_cli(wavs, tmp_path):
     assert bs.shape == (18, 52) and bs.min() >= 0.0 and bs.max() <= 1.0
     st = _stats(r.stdout)
     assert st["mode"] == "replay" and st["ticks"] == 6
-    assert st["frames_sent"] == 18 and st["emit_path"] == "python"
+    assert st["frames_sent"] == 18 and st["emit_path"] == "native"
     assert st["emit_mode"] == "pipelined"
     assert st["step"]["p99_step_ms"] >= st["step"]["p50_step_ms"] > 0
 
@@ -176,9 +177,11 @@ def test_replay_modes_equal_host_replay(wavs, tmp_path, capsys, extra):
 
 
 def test_cli_rejects_unported_options(wavs):
-    with pytest.raises(NotImplementedError):
-        serve.main(["--replay", str(wavs[0]), "--emotion-backend", "basic",
-                    *TINY_ARGS])
+    # --emotion-backend takes JAX's choices (egemaps, basic; basic serves,
+    # tests/test_torch_native_emit.py); anything else is refused
+    with pytest.raises(SystemExit):
+        serve.main(["--replay", str(wavs[0]), "--emotion-backend",
+                    "emotion2vec", *TINY_ARGS])
     # a checkpoint loads now; a path that holds none fails before serving
     with pytest.raises(FileNotFoundError):
         serve.main(["--replay", str(wavs[0]), "--model", "ckpt",

@@ -194,11 +194,17 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(emotion_backend="basic"),
-               dict(emotion_backend="emotion2vec"),
-               dict(incremental_lld=False)):
-        with pytest.raises(NotImplementedError):
-            streaming.StreamingConfig(**KW, **kw)
+    # the stream's basic, emotion2vec and full-ring refreshes run now
+    # (held against JAX by tests/test_torch_stream_refresh.py); what is
+    # still unported raises: the viterbi F0 smoother and the frame-level
+    # jitter and shimmer proxies
+    from koemorph_tpu_torch.ops import egemaps as eg
+    with pytest.raises(NotImplementedError):
+        f0_ops.yin_core(torch.zeros(2048), smoother="viterbi")
+    with pytest.raises(NotImplementedError):
+        eg.EgemapsConfig(per_period_voice_quality=False)
+    with pytest.raises(ValueError):
+        streaming.StreamingConfig(**KW, emotion_backend="precomputed")
     # checkpoints load: a missing path raises FileNotFoundError, and a
     # checkpoint with a parameter of another width ValueError naming it
     with pytest.raises(FileNotFoundError):

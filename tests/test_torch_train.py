@@ -227,26 +227,28 @@ def _batch(b, frames, seed=0, window_target=False):
                 np.float32)}
 
 
-def _case(kind, backend="basic", cfg=TRAIN_CFG):
-    """(JAX trainer, port trainer with JAX's initial parameters, batch)."""
+def _case(kind, backend="basic", cfg=TRAIN_CFG, jax_kw=None, port_kw=None):
+    """(JAX trainer, port trainer with JAX's initial parameters, batch);
+    ``jax_kw`` / ``port_kw`` go to the JAX / the port's model."""
     kw = dict(d_model=32, num_heads=2, emotion_backend=backend,
               use_concatenation=backend == "egemaps", target_fps=30,
               dropout=0.0)
+    jkw, pkw = dict(kw, **(jax_kw or {})), dict(kw, **(port_kw or {}))
     tmp = tempfile.mkdtemp()
     if kind == "window":
-        jt = JaxDST(JaxSimple(mel_sequence_length=32, **kw),
+        jt = JaxDST(JaxSimple(mel_sequence_length=32, **jkw),
                     {"training": cfg}, work_dir=tmp + "/j",
                     steps_per_epoch=1)
         tt = DualStreamTrainer(dm.SimplifiedDualStreamModel(
-            mel_sequence_length=32, **kw), {"training": cfg},
+            mel_sequence_length=32, **pkw), {"training": cfg},
             work_dir=tmp + "/t", steps_per_epoch=1, device="cpu")
         batch = _batch(8, 32)
     else:
         full = {"training": cfg, "data": {"window_frames": 24}}
-        jt = JaxST(JaxSeq(mel_sequence_length=16, stride_frames=4, **kw),
+        jt = JaxST(JaxSeq(mel_sequence_length=16, stride_frames=4, **jkw),
                    full, work_dir=tmp + "/j", steps_per_epoch=1)
         tt = SequentialTrainer(dm.SequentialDualStreamModel(
-            mel_sequence_length=16, stride_frames=4, **kw), full,
+            mel_sequence_length=16, stride_frames=4, **pkw), full,
             work_dir=tmp + "/t", steps_per_epoch=1, device="cpu")
         batch = _batch(8, 24)
     # One parameter set for both trainers: JAX's initialization with the
