@@ -127,6 +127,20 @@ inside ``plain_forms()``.
    decode, 6 emotion2vec train steps at batch 16 (split, plain forms,
    the cost of deterministic cuDNN, a 2 + 2 resume bitwise), and the
    ``rt`` / ``serve`` CLIs with ``--emotion-backend basic``.
+13. the remaining eGeMAPS, F0, frontend and decoder options
+   (``slice9_phases``): the stream and the server (64 sessions, G = 1
+   and 8, four lanes reset at step 50, graphed bitwise against eager)
+   with frame-level voice quality (``egemaps_per_period=False``: no
+   ``cycle_dsum``), the frame-level decode beside the per-period one,
+   the Viterbi smoother on the decode's 13,624 LLD rows and in 30-row
+   blocks over the stream's audio (eager; picks with kernels equal to
+   the plain forms', K1 and K2 on its arguments), the decode with
+   ``return_attention`` (weights' rows sum to 1, blendshapes bitwise
+   unchanged), graphs of ``decode_scheduled`` (strides 1, 2, 4, 8) and
+   ``decode_sequence_parallel`` against eager and ``__call__``, and the
+   torchaudio-style and rfft frontends against float64 on the card.
+   The eager stream and server runs' wrapper counts are held equal to
+   the expected launches too.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -172,6 +186,7 @@ SERVE_LANE_MAX = 1e-4                  # a lane vs its dedicated engine
 SERVE_UNTOUCHED_MAX = 1e-6             # lanes beside a reset lane
 BUDGET_MS = 1e3 / 30                   # a 30 fps frame
 SR, HOP = 16000, 533
+DEVICE = "cuda"
 DECODE_B, DECODE_LEN, DECODE_STRIDE = 8, 512 * HOP, 4
 SERVE_S, SERVE_BIG, SERVE_STEPS, SERVE_SHIFT = 64, 256, 105, 4000
 
@@ -696,6 +711,232 @@ def _step_times(step_fn, n, is_refresh):
             "other": q(t[~ref]) if (~ref).any() else None}
 
 
+def refresh_launches(cfg) -> tuple[int, int]:
+    """``cycle_dsum`` and ``dk_roots`` launches per refresh of a stream or
+    server with ``cfg``: the eGeMAPS refresh (with the LLD ring or not)
+    launches ``dk_roots`` once and, with per-period voice quality,
+    ``cycle_dsum`` twice; the other backends neither."""
+    if cfg.emotion_backend != "egemaps":
+        return 0, 0
+    return (2 if cfg.egemaps_per_period else 0), 1
+
+
+def drive_stream(out: dict, card: str, tag: str, model, cfg,
+                 plain: bool = True):
+    """The stream of ``model`` over 3.5 s of voiced audio (105 frames):
+    graphed and counted (the launch counts set to 0 just before the engine
+    is built), eager (recording the kernels' arguments in ``out["rec"]``),
+    plain; each check that fails raises. Returns the graphed engine and
+    frames."""
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.runtime.streaming import StreamingInference
+    audio = voiced_audio(3.5, seed=1)
+    n_frames = len(audio) // HOP                                 # 105
+    k = cfg.emotion_update_frames
+    n_ref = -(-n_frames // k)
+    profiled(lambda: None)
+    ck.reset_launch_counts()
+    eng = StreamingInference(model, cfg)
+    eng.warmup()
+    box = []
+    seen, want = replayed_launches(eng.step_graphs, in_windows(
+        n_frames, lambda lo, hi: box.extend(eng.process_audio(
+            audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
+    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    bs = np.stack(box)
+    eager = StreamingInference(model, cfg, graphs=False)
+    eager.warmup()
+    before = dict(ck.LAUNCHES)
+    with recording_kernels(out["rec"], tag):
+        eager_bs = np.stack(eager.process_audio(audio))
+    eager_launches = {name: ck.LAUNCHES.get(name, 0) - before.get(name, 0)
+                      for name in KERNEL_PATTERNS}
+    d_plain = None
+    if plain:
+        with plain_forms():
+            before = dict(ck.LAUNCHES)
+            p_bs = np.stack(StreamingInference(
+                model, cfg, graphs=False).process_audio(audio))
+            check(dict(ck.LAUNCHES) == before,
+                  f"{tag}: the plain stream launched a kernel")
+        d_plain = float(np.abs(p_bs - bs).max())
+    eng.reset()
+    times = _step_times(lambda i: eng.step(audio[i * HOP:(i + 1) * HOP]),
+                        n_frames, lambda i: i % k == 0)
+    k1, k2 = refresh_launches(cfg)
+    expect = {"cycle_dsum": k1 * n_ref, "dk_roots": k2 * n_ref,
+              "logmel": n_frames}
+    emit({"phase": tag, "card": card, "frames": n_frames,
+          "refreshes": n_ref, "emotion_backend": cfg.emotion_backend,
+          "incremental_lld": cfg.incremental_lld,
+          "emotion_raw_dim": cfg.emotion_raw_dim,
+          "finite": bool(np.isfinite(bs).all()),
+          "min": float(bs.min()), "max": float(bs.max()),
+          "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "eager_launches_counted": eager_launches,
+          "graphs": graph_info(eng.step_graphs),
+          "graphed_bitwise_equal_eager": bool(
+              np.array_equal(bs, eager_bs)),
+          "max_abs_diff_plain": d_plain, "bound_plain": STREAM_PLAIN_MAX,
+          "frame_times": times})
+    check(bs.shape == (n_frames, 52) and bool(np.isfinite(bs).all())
+          and bs.min() >= 0.0 and bs.max() <= 1.0, f"{tag} output")
+    check(np.array_equal(bs, eager_bs), f"{tag}: graphed != eager")
+    check(len(eng.step_graphs) == 4, f"{tag}: not four graphs")
+    check(seen == want == expect == eager_launches,
+          f"{tag}: replays ran {seen}, captures recorded {want}, the "
+          f"eager run counted {eager_launches}, expected {expect}")
+    check(d_plain is None or d_plain <= STREAM_PLAIN_MAX,
+          f"{tag}: kernel stream != plain stream ({d_plain})")
+    out["shapes"][tag] = shapes
+    return eng, bs
+
+
+def drive_server(out: dict, card: str, tag: str, model, cfg, sessions: int,
+                 cohorts_list, reset_lanes=(1,), reset_at=None) -> dict:
+    """The server of ``model`` over ``sessions`` lanes of the voiced
+    pattern for 105 steps at each refresh-cohort count of
+    ``cohorts_list``: graphed and counted (the launch counts set to 0 just
+    before the server is built), eager (recording the kernels' arguments),
+    plain, lanes against dedicated engines, ``reset_lanes`` reset at step
+    ``reset_at`` (default 45) against fresh engines and the graphed reset
+    run bitwise against an eager one, step times. Returns the launches by
+    shape per cohort count."""
+    import torch
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.runtime import MultiStreamInference
+    from koemorph_tpu_torch.runtime.streaming import StreamingInference
+    k = cfg.emotion_update_frames
+    lanes = lane_audio(sessions, SERVE_STEPS)
+
+    def steps(srv, first=0, n=SERVE_STEPS):
+        return torch.stack([srv.step(lanes[:, (first + i) * HOP:
+                                           (first + i + 1) * HOP])
+                            for i in range(n)])
+
+    res = {}
+    for g in cohorts_list:
+        profiled(lambda: None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        srv = MultiStreamInference(model, cfg, sessions,
+                                   refresh_cohorts=g)
+        srv.warmup()
+        box = []
+        seen, want = replayed_launches(srv.step_graphs, in_windows(
+            SERVE_STEPS,
+            lambda lo, hi: box.append(steps(srv, lo, hi - lo))))
+        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        o = torch.cat(box).cpu().numpy()
+        ref = MultiStreamInference(model, cfg, sessions,
+                                   refresh_cohorts=g, graphs=False)
+        before = dict(ck.LAUNCHES)
+        with recording_kernels(out["rec"], f"{tag} G={g}"):
+            eager_o = steps(ref).cpu().numpy()
+        eager_launches = {name: ck.LAUNCHES.get(name, 0)
+                          - before.get(name, 0) for name in KERNEL_PATTERNS}
+        with plain_forms():
+            before = dict(ck.LAUNCHES)
+            plain_o = steps(MultiStreamInference(
+                model, cfg, sessions, refresh_cohorts=g,
+                graphs=False)).cpu().numpy()
+            check(dict(ck.LAUNCHES) == before,
+                  f"{tag}: the plain server launched a kernel")
+        d_lanes = {}
+        for lane in sorted({0, 1, g - 1, sessions - 1}):
+            eng = StreamingInference(model, cfg)
+            eng.state.frame_count = srv.phases[lane % g]
+            d_lanes[lane] = float(np.abs(
+                o[:, lane] - np.stack(eng.process_audio(lanes[lane])))
+                .max())
+        # lane resets mid-run against fresh engines at their clocks
+        half = SERVE_STEPS * 3 // 7 if reset_at is None else reset_at
+
+        def reset_run(graphs=None):
+            rs = MultiStreamInference(model, cfg, sessions,
+                                      refresh_cohorts=g, graphs=graphs)
+            first = steps(rs, n=half)
+            rs.reset_sessions(list(reset_lanes))
+            second = steps(rs, first=half, n=SERVE_STEPS - half)
+            return torch.cat([first, second]).cpu().numpy()
+
+        o_r = reset_run()
+        d_fresh = 0.0
+        for lane_r in reset_lanes:
+            fresh = StreamingInference(model, cfg)
+            fresh.state.frame_count = srv.phases[lane_r % g] + half
+            d_fresh = max(d_fresh, float(np.abs(
+                o_r[half:, lane_r] - np.stack(fresh.process_audio(
+                    lanes[lane_r, half * HOP:]))).max()))
+        others = [i for i in range(sessions) if i not in reset_lanes]
+        d_others = float(np.abs(o_r[:, others] - o[:, others]).max())
+        reset_bitwise = bool(np.array_equal(o_r, reset_run(graphs=False)))
+        srv_t = MultiStreamInference(model, cfg, sessions,
+                                     refresh_cohorts=g)
+        srv_t.warmup()
+        due = []
+
+        def timed(i):
+            due.append(bool(srv_t.due_cohorts()))
+            return srv_t.step(lanes[:, i * HOP:(i + 1) * HOP])
+
+        times = _step_times(timed, SERVE_STEPS, lambda i: due[i])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        refreshing = sum(len(range(-p % k, SERVE_STEPS, k))
+                         for p in srv.phases)
+        k1, k2 = refresh_launches(cfg)
+        expect = {"cycle_dsum": k1 * refreshing, "dk_roots": k2 * refreshing,
+                  "logmel": SERVE_STEPS}
+        emit({"phase": tag, "card": card, "sessions": sessions,
+              "refresh_cohorts": g, "phases": list(srv.phases),
+              "steps": SERVE_STEPS,
+              "refreshing_cohort_steps": refreshing,
+              "finite": bool(np.isfinite(o).all()),
+              "launches": launches,
+              "launches_by_shape": {f"{a}{list(b)}": v
+                                    for (a, b), v in shapes.items()},
+              "replayed_launches_profiled": seen,
+              "replayed_launches_recorded": want,
+              "eager_launches_counted": eager_launches,
+              "graphs": graph_info(srv.step_graphs),
+              "graphed_bitwise_equal_eager": bool(
+                  np.array_equal(o, eager_o)),
+              "max_abs_diff_plain": float(np.abs(plain_o - o).max()),
+              "max_abs_diff_lane_vs_engine": d_lanes,
+              "reset_lanes": list(reset_lanes), "reset_at": half,
+              "reset_lane_vs_fresh_engine": d_fresh,
+              "reset_other_lanes_moved": d_others,
+              "reset_graphed_bitwise_equal_eager": reset_bitwise,
+              "step_times": times, "peak_memory_gb": peak})
+        check(o.shape == (SERVE_STEPS, sessions, 52)
+              and bool(np.isfinite(o).all()) and o.min() >= 0
+              and o.max() <= 1, f"{tag} G={g}: output")
+        check(np.array_equal(o, eager_o), f"{tag} G={g}: graphed != eager")
+        check(len(srv.step_graphs) == 2 * (g + 1),
+              f"{tag} G={g}: {len(srv.step_graphs)} graphs")
+        check(seen == want == expect == eager_launches,
+              f"{tag} G={g}: replays ran {seen}, captures recorded "
+              f"{want}, the eager run counted {eager_launches}, expected "
+              f"{expect}")
+        check(float(np.abs(plain_o - o).max()) <= SERVE_PLAIN_MAX,
+              f"{tag} G={g}: kernel server != plain server")
+        check(max(d_lanes.values()) <= SERVE_LANE_MAX,
+              f"{tag} G={g}: lanes vs engines {d_lanes}")
+        check(d_fresh <= SERVE_LANE_MAX and d_others <= SERVE_UNTOUCHED_MAX,
+              f"{tag} G={g}: reset {d_fresh}, others {d_others}")
+        check(reset_bitwise,
+              f"{tag} G={g}: the graphed reset run != the eager one")
+        res[g] = shapes
+        del srv, ref, srv_t
+    out["shapes"][tag] = res
+    return res
+
+
 def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     """The configurations without the LLD ring and the emotion2vec
     backend on every path, each driven through its entry points with the
@@ -723,7 +964,6 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     from koemorph_tpu_torch.ops import frontend
     from koemorph_tpu_torch.parallel.batched_decode import (
         BatchedSequentialDecoder)
-    from koemorph_tpu_torch.runtime import MultiStreamInference
     from koemorph_tpu_torch.runtime.engine import build_streaming_model
     from koemorph_tpu_torch.runtime.streaming import StreamingInference
     from koemorph_tpu_torch.train.__main__ import build_model
@@ -733,78 +973,13 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     from koemorph_tpu_torch.utils.config import load_config, to_dict
 
     out: dict = {"rec": {}, "shapes": {}}
-    audio = voiced_audio(3.5, seed=1)
-    n_frames = len(audio) // HOP                                 # 105
-
-    def drive_stream(tag, model, cfg, plain=True):
-        """The stream of ``model`` over ``audio``: graphed and counted,
-        eager (recording the kernels' arguments), plain; returns the
-        graphed engine and frames."""
-        k = cfg.emotion_update_frames
-        n_ref = -(-n_frames // k)
-        profiled(lambda: None)
-        ck.reset_launch_counts()
-        eng = StreamingInference(model, cfg)
-        eng.warmup()
-        box = []
-        seen, want = replayed_launches(eng.step_graphs, in_windows(
-            n_frames, lambda lo, hi: box.extend(eng.process_audio(
-                audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
-        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
-        bs = np.stack(box)
-        eager = StreamingInference(model, cfg, graphs=False)
-        eager.warmup()
-        with recording_kernels(out["rec"], tag):
-            eager_bs = np.stack(eager.process_audio(audio))
-        d_plain = None
-        if plain:
-            with plain_forms():
-                before = dict(ck.LAUNCHES)
-                p_bs = np.stack(StreamingInference(
-                    model, cfg, graphs=False).process_audio(audio))
-                check(dict(ck.LAUNCHES) == before,
-                      f"{tag}: the plain stream launched a kernel")
-            d_plain = float(np.abs(p_bs - bs).max())
-        eng.reset()
-        times = _step_times(lambda i: eng.step(audio[i * HOP:(i + 1) * HOP]),
-                            n_frames, lambda i: i % k == 0)
-        ring = cfg.emotion_backend == "egemaps"
-        expect = {"cycle_dsum": 2 * n_ref if ring else 0,
-                  "dk_roots": n_ref if ring else 0, "logmel": n_frames}
-        emit({"phase": tag, "card": card, "frames": n_frames,
-              "refreshes": n_ref, "emotion_backend": cfg.emotion_backend,
-              "incremental_lld": cfg.incremental_lld,
-              "emotion_raw_dim": cfg.emotion_raw_dim,
-              "finite": bool(np.isfinite(bs).all()),
-              "min": float(bs.min()), "max": float(bs.max()),
-              "launches": launches,
-              "launches_by_shape": {f"{a}{list(b)}": v
-                                    for (a, b), v in shapes.items()},
-              "replayed_launches_profiled": seen,
-              "replayed_launches_recorded": want,
-              "graphs": graph_info(eng.step_graphs),
-              "graphed_bitwise_equal_eager": bool(
-                  np.array_equal(bs, eager_bs)),
-              "max_abs_diff_plain": d_plain, "bound_plain": STREAM_PLAIN_MAX,
-              "frame_times": times})
-        check(bs.shape == (n_frames, 52) and bool(np.isfinite(bs).all())
-              and bs.min() >= 0.0 and bs.max() <= 1.0, f"{tag} output")
-        check(np.array_equal(bs, eager_bs), f"{tag}: graphed != eager")
-        check(len(eng.step_graphs) == 4, f"{tag}: not four graphs")
-        check(seen == want == expect,
-              f"{tag}: replays ran {seen}, captures recorded {want}, "
-              f"expected {expect}")
-        check(d_plain is None or d_plain <= STREAM_PLAIN_MAX,
-              f"{tag}: kernel stream != plain stream ({d_plain})")
-        out["shapes"][tag] = shapes
-        return eng, bs
 
     # ---- stream_basic, stream_full_ring ----
     model_b, cfg_b = build_streaming_model(emotion_backend="basic", seed=0)
-    drive_stream("stream_basic", model_b, cfg_b)
+    drive_stream(out, card, "stream_basic", model_b, cfg_b)
     model_f, cfg_f = build_streaming_model(seed=0)
     cfg_f = dataclasses.replace(cfg_f, incremental_lld=False)
-    drive_stream("stream_full_ring", model_f, cfg_f)
+    drive_stream(out, card, "stream_full_ring", model_f, cfg_f)
     rows_f = 1 + (cfg_f.emotion_context_samples - 512) // 160
     for n in (512, 1024):
         (frames_a, st, tau, off), kw = out["rec"][
@@ -845,7 +1020,7 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = True
     model_e, cfg_e = build_streaming_model(emotion_backend="emotion2vec",
                                            seed=0)
-    eng_e, _ = drive_stream("stream_e2v", model_e, cfg_e)
+    eng_e, _ = drive_stream(out, card, "stream_e2v", model_e, cfg_e)
     ctx = eng_e.state.audio_ring[-cfg_e.emotion_context_samples:][None]
     enc64 = copy.deepcopy(model_e.emotion2vec).double()
     with torch.inference_mode():
@@ -895,7 +1070,7 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
         device="cpu")
     model_l.emotion2vec.load_state_dict(big_sd)
     del big_sd
-    eng_l, _ = drive_stream("stream_e2v_large", model_l, cfg_l,
+    eng_l, _ = drive_stream(out, card, "stream_e2v_large", model_l, cfg_l,
                             plain=False)
     emit({"phase": "stream_e2v_large_load", "card": card,
           "layers": big_cfg.num_hidden_layers,
@@ -908,119 +1083,9 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
 
     # ---- multistream_basic (64 sessions, G = 1, 8), multistream_e2v (16
     # sessions, G = 8) ----
-    def drive_server(tag, model, cfg, sessions, cohorts_list):
-        k = cfg.emotion_update_frames
-        lanes = lane_audio(sessions, SERVE_STEPS)
-
-        def steps(srv, first=0, n=SERVE_STEPS):
-            return torch.stack([srv.step(lanes[:, (first + i) * HOP:
-                                               (first + i + 1) * HOP])
-                                for i in range(n)])
-
-        res = {}
-        for g in cohorts_list:
-            profiled(lambda: None)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ck.reset_launch_counts()
-            srv = MultiStreamInference(model, cfg, sessions,
-                                       refresh_cohorts=g)
-            srv.warmup()
-            box = []
-            seen, want = replayed_launches(srv.step_graphs, in_windows(
-                SERVE_STEPS,
-                lambda lo, hi: box.append(steps(srv, lo, hi - lo))))
-            launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
-            o = torch.cat(box).cpu().numpy()
-            ref = MultiStreamInference(model, cfg, sessions,
-                                       refresh_cohorts=g, graphs=False)
-            with recording_kernels(out["rec"], f"{tag} G={g}"):
-                eager_o = steps(ref).cpu().numpy()
-            with plain_forms():
-                before = dict(ck.LAUNCHES)
-                plain_o = steps(MultiStreamInference(
-                    model, cfg, sessions, refresh_cohorts=g,
-                    graphs=False)).cpu().numpy()
-                check(dict(ck.LAUNCHES) == before,
-                      f"{tag}: the plain server launched a kernel")
-            d_lanes = {}
-            for lane in sorted({0, 1, g - 1, sessions - 1}):
-                eng = StreamingInference(model, cfg)
-                eng.state.frame_count = srv.phases[lane % g]
-                d_lanes[lane] = float(np.abs(
-                    o[:, lane] - np.stack(eng.process_audio(lanes[lane])))
-                    .max())
-            # a lane reset mid-run against a fresh engine at its clock
-            half, lane_r = SERVE_STEPS * 3 // 7, 1
-            rs = MultiStreamInference(model, cfg, sessions,
-                                      refresh_cohorts=g)
-            first = steps(rs, n=half)
-            rs.reset_sessions([lane_r])
-            second = steps(rs, first=half, n=SERVE_STEPS - half)
-            o_r = torch.cat([first, second]).cpu().numpy()
-            fresh = StreamingInference(model, cfg)
-            fresh.state.frame_count = srv.phases[lane_r % g] + half
-            d_fresh = float(np.abs(o_r[half:, lane_r] - np.stack(
-                fresh.process_audio(lanes[lane_r, half * HOP:]))).max())
-            others = [i for i in range(sessions) if i != lane_r]
-            d_others = float(np.abs(o_r[:, others] - o[:, others]).max())
-            srv_t = MultiStreamInference(model, cfg, sessions,
-                                         refresh_cohorts=g)
-            srv_t.warmup()
-            due = []
-
-            def timed(i):
-                due.append(bool(srv_t.due_cohorts()))
-                return srv_t.step(lanes[:, i * HOP:(i + 1) * HOP])
-
-            times = _step_times(timed, SERVE_STEPS, lambda i: due[i])
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            refreshing = sum(len(range(-p % k, SERVE_STEPS, k))
-                             for p in srv.phases)
-            ring = cfg.emotion_backend == "egemaps"
-            expect = {"cycle_dsum": 2 * refreshing if ring else 0,
-                      "dk_roots": refreshing if ring else 0,
-                      "logmel": SERVE_STEPS}
-            emit({"phase": tag, "card": card, "sessions": sessions,
-                  "refresh_cohorts": g, "phases": list(srv.phases),
-                  "steps": SERVE_STEPS,
-                  "refreshing_cohort_steps": refreshing,
-                  "finite": bool(np.isfinite(o).all()),
-                  "launches": launches,
-                  "launches_by_shape": {f"{a}{list(b)}": v
-                                        for (a, b), v in shapes.items()},
-                  "replayed_launches_profiled": seen,
-                  "replayed_launches_recorded": want,
-                  "graphs": graph_info(srv.step_graphs),
-                  "graphed_bitwise_equal_eager": bool(
-                      np.array_equal(o, eager_o)),
-                  "max_abs_diff_plain": float(np.abs(plain_o - o).max()),
-                  "max_abs_diff_lane_vs_engine": d_lanes,
-                  "reset_lane_vs_fresh_engine": d_fresh,
-                  "reset_other_lanes_moved": d_others,
-                  "step_times": times, "peak_memory_gb": peak})
-            check(o.shape == (SERVE_STEPS, sessions, 52)
-                  and bool(np.isfinite(o).all()) and o.min() >= 0
-                  and o.max() <= 1, f"{tag} G={g}: output")
-            check(np.array_equal(o, eager_o), f"{tag} G={g}: graphed != eager")
-            check(len(srv.step_graphs) == 2 * (g + 1),
-                  f"{tag} G={g}: {len(srv.step_graphs)} graphs")
-            check(seen == want == expect,
-                  f"{tag} G={g}: replays ran {seen}, captures recorded "
-                  f"{want}, expected {expect}")
-            check(float(np.abs(plain_o - o).max()) <= SERVE_PLAIN_MAX,
-                  f"{tag} G={g}: kernel server != plain server")
-            check(max(d_lanes.values()) <= SERVE_LANE_MAX,
-                  f"{tag} G={g}: lanes vs engines {d_lanes}")
-            check(d_fresh <= SERVE_LANE_MAX and d_others <= SERVE_UNTOUCHED_MAX,
-                  f"{tag} G={g}: reset {d_fresh}, others {d_others}")
-            res[g] = shapes
-            del srv, ref, rs, srv_t
-        out["shapes"][tag] = res
-        return res
-
-    drive_server("multistream_basic", model_b, cfg_b, SERVE_S, (1, 8))
-    drive_server("multistream_e2v", model_e, cfg_e, 16, (8,))
+    drive_server(out, card, "multistream_basic", model_b, cfg_b, SERVE_S,
+                 (1, 8))
+    drive_server(out, card, "multistream_e2v", model_e, cfg_e, 16, (8,))
     torch.cuda.empty_cache()
 
     # ---- decode_e2v: 8 x 17.06 s through the in-model encoder ----
@@ -1347,6 +1412,430 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
           and stats[-1]["emit_path"] == "native"
           and sorted({r["session"] for r in srv_rows}) == list(range(16)),
           "serve basic rows or emit path")
+    return out
+
+
+def _event_ms(fn, n: int) -> list:
+    """ms of each of ``n`` calls of ``fn`` between CUDA events, each
+    waited for."""
+    import torch
+    ms = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return ms
+
+
+#: the LLD channels computed from the LPC roots (K2's output)
+ROOT_KEYS = ("formant_freq", "formant_bw", "formant_rel", "h1_a3")
+
+
+def dk_converged(a):
+    """Rows of the polynomials ``a (..., 11)`` on which the plain form's
+    roots lie within DK_MAX of the float64 roots, shaped ``a``'s rows."""
+    import torch
+    from koemorph_tpu_torch.ops import egemaps as eg
+    flat = a.reshape(-1, a.shape[-1])
+    exact = torch.linalg.eigvals(companion(flat.double()))
+    plain = eg.poly_roots_plain(flat).to(torch.complex128)
+    return (hausdorff(plain, exact) < DK_MAX).reshape(a.shape[:-1])
+
+
+def _lld_agreement(got: dict, want: dict, converged=None) -> dict:
+    """How far the LLDs ``got`` lie from ``want``: the booleans'
+    mismatches, and each float channel's largest error beyond ``atol +
+    rtol |want|``: rtol = atol = 1e-4, except the channels computed from
+    the LPC roots (``ROOT_KEYS``), held as the CPU tests hold formants
+    (rtol = atol = 1e-3) on the frames where both keep the same formant
+    slots and, given ``converged``, where the plain form's roots converge
+    (K2's rule; the others are counted)."""
+    import torch
+    held = (got["formant_valid"] == want["formant_valid"]).all(-1)
+    res = {"formant_slot_flips": float((~held).float().mean())}
+    if converged is not None:
+        held = held & converged
+    res["root_frames_not_held"] = int((~held).sum())
+    worst = {}
+    for key, w in want.items():
+        g = got[key]
+        if w.dtype == torch.bool:
+            if key != "formant_valid":
+                res[f"{key}_mismatches"] = int((g != w).sum())
+            continue
+        tol = 1e-4
+        if key in ROOT_KEYS:
+            g, w, tol = g[held], w[held], 1e-3
+        excess = (g - w).abs() - (tol + tol * w.abs())
+        worst[key] = float(excess.max()) if excess.numel() else 0.0
+    res["worst_excess"] = worst
+    res["ok"] = (all(v <= 0 for v in worst.values())
+                 and all(v == 0 for k, v in res.items()
+                         if k.endswith("_mismatches"))
+                 and res["formant_slot_flips"] <= 0.01)
+    return res
+
+
+def slice9_phases(card: str) -> dict:
+    """The remaining eGeMAPS, F0, frontend and decoder options at flagship
+    width, each through its entry points with the launch counts set to 0
+    just before: ``stream_frame_level`` and ``multistream_frame_level``
+    (``egemaps_per_period=False``: no ``cycle_dsum``; four lanes reset at
+    step 50, graphed bitwise against eager), ``decode_frame_level`` beside
+    the per-period decode, ``viterbi`` (``compute_llds`` with the Viterbi
+    smoother on the decode's 13,624 LLD rows and ``compute_lld_block`` in
+    30-row blocks over the stream's 3.5 s, eager, with K1 and K2 on the
+    arguments it passed), ``decode_attention``, ``decode_scheduled_graph``
+    (graphs of ``decode_scheduled`` and ``decode_sequence_parallel``) and
+    ``frontend_variants`` (the torchaudio style and the rfft librosa path
+    against float64 on the card). Returns the recorded kernel arguments
+    and launch counts for the kernels table."""
+    import dataclasses
+    import torch
+    from koemorph_tpu_torch.models import dual_stream_model as dm
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.ops.mel import power_to_db
+    from koemorph_tpu_torch.ops.window import frame_signal
+    from koemorph_tpu_torch.parallel.batched_decode import (
+        BatchedSequentialDecoder)
+    from koemorph_tpu_torch.runtime.engine import build_streaming_model
+
+    out: dict = {"rec": {}, "shapes": {}}
+    dev = torch.device(DEVICE)
+
+    # ---- stream_frame_level, multistream_frame_level ----
+    model_s, cfg_s = build_streaming_model(seed=0)
+    cfg_fl = dataclasses.replace(cfg_s, egemaps_per_period=False)
+    check(cfg_fl.egemaps_config.per_period_voice_quality is False,
+          "the frame-level stream's eGeMAPS config")
+    drive_stream(out, card, "stream_frame_level", model_s, cfg_fl)
+    (a_s,), _ = out["rec"][("dk_roots", "stream_frame_level", 30)]
+    r_s = dk_train_agreement(a_s)
+    emit({"phase": "dk_roots", "card": card,
+          "args": "frame-level stream refresh", **r_s})
+    check(r_s["hausdorff_median"] < DK_MEDIAN_MAX
+          and r_s["misses"] <= r_s["miss_bound"],
+          f"dk_roots on the frame-level refresh: {r_s}")
+    check(not any(k[0] == "cycle_dsum" and k[1] == "stream_frame_level"
+                  for k in out["rec"]),
+          "the frame-level stream called cycle_dsum")
+    drive_server(out, card, "multistream_frame_level", model_s, cfg_fl,
+                 SERVE_S, (1, 8),
+                 reset_lanes=(0, 1, SERVE_S // 4 + 1, SERVE_S - 1),
+                 reset_at=SERVE_STEPS * 10 // 21)
+    del model_s
+    torch.cuda.empty_cache()
+
+    # ---- decode_frame_level: beside the per-period decode ----
+    audio_b = torch.from_numpy(np.stack([
+        voiced_audio(DECODE_LEN / SR, seed=s)
+        for s in range(1, DECODE_B + 1)])).to(dev)
+
+    def seq_model(**kw):
+        m = dm.SequentialDualStreamModel(d_model=256, num_heads=8,
+                                         stride_frames=DECODE_STRIDE, **kw)
+        m.init_random(torch.Generator().manual_seed(0))
+        return m
+
+    m_pp, m_fl = seq_model(), seq_model(egemaps_per_period=False)
+    ck.reset_launch_counts()
+    dec_fl = BatchedSequentialDecoder(m_fl)
+    dec_fl(audio_b)
+    box = []
+    seen, want = replayed_launches(dec_fl.step_graphs,
+                                   [lambda: box.append(dec_fl(audio_b))])
+    out["shapes"]["decode_frame_level"] = dict(ck.SHAPE_LAUNCHES)
+    fl_launches = dict(ck.LAUNCHES)
+    o_fl = box[0].cpu().numpy()
+    eager_fl = BatchedSequentialDecoder(dec_fl.model, graphs=False)
+    with recording_kernels(out["rec"], "decode_frame_level"):
+        eager_o = eager_fl(audio_b).cpu().numpy()
+    with plain_forms(), torch.inference_mode():
+        plain_o = eager_fl(audio_b).cpu().numpy()
+    dec_pp = BatchedSequentialDecoder(m_pp)
+    o_pp = dec_pp(audio_b).cpu().numpy()
+    ms = {"per_period": [], "frame_level": []}
+    for tag in ("per_period", "frame_level", "frame_level", "per_period"):
+        dec = dec_pp if tag == "per_period" else dec_fl
+        ms[tag] += _event_ms(lambda: dec(audio_b), 5)
+    n_out = o_fl.shape[1]
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    emit({"phase": "decode_frame_level", "card": card,
+          "shape": list(o_fl.shape), "launches": fl_launches,
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "graphed_bitwise_equal_eager": bool(np.array_equal(o_fl, eager_o)),
+          "max_abs_diff_plain": float(np.abs(plain_o - o_fl).max()),
+          "max_abs_diff_vs_per_period": float(np.abs(o_fl - o_pp).max()),
+          "ms_per_call": ms, "ms_per_call_median": med,
+          "frames_per_s": {k: DECODE_B * n_out / (v / 1e3)
+                           for k, v in med.items()},
+          "frame_level_over_per_period": med["frame_level"]
+          / med["per_period"]})
+    check(o_fl.shape == (DECODE_B, n_out, 52)
+          and bool(np.isfinite(o_fl).all()), "decode_frame_level output")
+    check(np.array_equal(o_fl, eager_o), "decode_frame_level: graphed != eager")
+    check(seen == want == {"cycle_dsum": 0, "dk_roots": 1, "logmel": 2},
+          f"decode_frame_level: replays {seen}, recorded {want}")
+    check(fl_launches.get("cycle_dsum", 0) == 0,
+          "decode_frame_level: cycle_dsum was launched")
+    check(float(np.abs(plain_o - o_fl).max()) <= DECODE_PLAIN_MAX,
+          "decode_frame_level: kernels != plain")
+    del eager_fl, dec_fl
+
+    # ---- viterbi: compute_llds on the decode's rows, 30-row blocks over
+    # the stream's audio (eager) ----
+    cfg_v, cfg_n = eg.EgemapsConfig(f0_smoother="viterbi"), eg.EgemapsConfig()
+    audio_s = torch.from_numpy(voiced_audio(3.5, seed=1)).to(dev)
+    span = 29 * 160 + 512
+    n_blocks = (audio_s.shape[0] - span) // (30 * 160) + 1
+
+    def blocks(cfg):
+        carry, rows = eg.silence_lld_carry(cfg, dev), []
+        for i in range(n_blocks):
+            lld, carry = eg.compute_lld_block(
+                audio_s[i * 4800: i * 4800 + span], cfg, carry)
+            rows.append(lld)
+        return {k: torch.cat([r[k] for r in rows], 0) for k in rows[0]}
+
+    with torch.inference_mode():
+        ck.reset_launch_counts()
+        with recording_kernels(out["rec"], "viterbi"):
+            lld_v = eg.compute_llds(audio_b, cfg_v)
+        v_launches, v_shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        ck.reset_launch_counts()
+        with recording_kernels(out["rec"], "viterbi_blocks"):
+            blk_v = blocks(cfg_v)
+        b_launches = dict(ck.LAUNCHES)
+        with plain_forms():
+            before = dict(ck.LAUNCHES)
+            lld_p, blk_p = eg.compute_llds(audio_b, cfg_v), blocks(cfg_v)
+            check(dict(ck.LAUNCHES) == before,
+                  "viterbi: the plain forms launched a kernel")
+        core_v = f0_ops.yin_core(audio_b, frame_length=512, hop_length=160,
+                                 f0_min=55.0, f0_max=500.0, center=False,
+                                 smoother="viterbi")
+        core_n = f0_ops.yin_core(audio_b, frame_length=512, hop_length=160,
+                                 f0_min=55.0, f0_max=500.0, center=False)
+        lld_n = eg.compute_llds(audio_b, cfg_n)
+        times = {
+            "compute_llds_viterbi": _event_ms(
+                lambda: eg.compute_llds(audio_b, cfg_v), 3),
+            "compute_llds_none": _event_ms(
+                lambda: eg.compute_llds(audio_b, cfg_n), 3),
+            "yin_viterbi": _event_ms(lambda: f0_ops.yin_core(
+                audio_b, frame_length=512, hop_length=160, f0_min=55.0,
+                f0_max=500.0, center=False, smoother="viterbi"), 3),
+            "yin_none": _event_ms(lambda: f0_ops.yin_core(
+                audio_b, frame_length=512, hop_length=160, f0_min=55.0,
+                f0_max=500.0, center=False), 3),
+            "blocks_viterbi": _event_ms(lambda: blocks(cfg_v), 3),
+            "blocks_none": _event_ms(lambda: blocks(cfg_n), 3)}
+        acts = {k: len(device_kernels(fn)) for k, fn in (
+            ("compute_llds_viterbi", lambda: eg.compute_llds(audio_b, cfg_v)),
+            ("compute_llds_none", lambda: eg.compute_llds(audio_b, cfg_n)),
+            ("blocks_viterbi", lambda: blocks(cfg_v)),
+            ("blocks_none", lambda: blocks(cfg_n)))}
+    rows_v = int(lld_v["voiced"].numel())
+    (a_v,), _ = out["rec"][("dk_roots", "viterbi", rows_v)]
+    with torch.inference_mode():
+        conv_v = dk_converged(a_v).reshape(lld_v["voiced"].shape)
+    agree = _lld_agreement(lld_v, lld_p, conv_v)
+    agree_b = _lld_agreement(blk_v, blk_p)
+    k1_held = {}
+    for n in (512, 1024):
+        (frames_a, st, tau, off), kw = out["rec"][
+            ("cycle_dsum", "viterbi", (rows_v, n))]
+        with torch.inference_mode():
+            got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+            want_k = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+        err = (got - want_k).abs()
+        k1_held[n] = {"max_abs_err": float(err.max()), "ok": bool(
+            (err <= K1_ATOL + K1_RTOL * want_k.abs()).all()
+            and torch.equal(got.isnan(), want_k.isnan()))}
+    r_v = dk_train_agreement(a_v)
+    med_t = {k: float(np.median(v)) for k, v in times.items()}
+    picks_differ = float((core_v.pick != core_n.pick).float().mean())
+    emit({"phase": "viterbi", "card": card, "lld_rows": rows_v,
+          "block_rows": 30, "blocks": n_blocks,
+          "launches": v_launches, "launches_blocks": b_launches,
+          "launches_by_shape": {f"{a}{list(b)}": c
+                                for (a, b), c in v_shapes.items()},
+          "ms": times, "ms_median": med_t,
+          "device_activities": acts,
+          "share_of_frames_viterbi_moves": picks_differ,
+          "voiced_share": {"viterbi": float(lld_v["voiced"].float().mean()),
+                           "none": float(lld_n["voiced"].float().mean())},
+          "kernels_vs_plain": agree, "blocks_kernels_vs_plain": agree_b,
+          "cycle_dsum_on_its_args": k1_held, "dk_roots_on_its_args": r_v})
+    check(v_launches.get("cycle_dsum") == 2
+          and v_launches.get("dk_roots") == 1
+          and not v_launches.get("logmel"),
+          f"viterbi compute_llds launches {v_launches}")
+    check(b_launches.get("cycle_dsum") == 2 * n_blocks
+          and b_launches.get("dk_roots") == n_blocks,
+          f"viterbi blocks launches {b_launches}")
+    check(torch.equal(lld_v["f0_hz"], lld_p["f0_hz"])
+          and torch.equal(lld_v["voiced"], lld_p["voiced"])
+          and torch.equal(blk_v["f0_hz"], blk_p["f0_hz"]),
+          "viterbi: the picks with kernels differ from the plain forms'")
+    check(agree["ok"] and agree_b["ok"],
+          f"viterbi LLDs with kernels vs plain: {agree} {agree_b}")
+    check(all(v["ok"] for v in k1_held.values()),
+          f"cycle_dsum on the viterbi arguments: {k1_held}")
+    check(r_v["hausdorff_median"] < DK_MEDIAN_MAX
+          and r_v["misses"] <= r_v["miss_bound"],
+          f"dk_roots on the viterbi arguments: {r_v}")
+    check(picks_differ > 0, "the viterbi path picked as plain YIN")
+    out["rows_viterbi"] = rows_v
+    out["shapes"]["viterbi"] = v_shapes
+    del lld_v, lld_p, lld_n, core_v, core_n
+
+    # ---- decode_attention ----
+    eager_pp = BatchedSequentialDecoder(dec_pp.model, graphs=False)
+    with torch.inference_mode():
+        plain_bs = eager_pp(audio_b)
+    att = dec_pp(audio_b, return_attention=True)
+    att_ms = _event_ms(lambda: dec_pp(audio_b, return_attention=True), 3)
+    mw, ew = att["mel_attention_weights"], att["emotion_attention_weights"]
+    row_err = max(float((mw.sum(-1) - 1).abs().max()),
+                  float((ew.sum(-1) - 1).abs().max()))
+    emit({"phase": "decode_attention", "card": card,
+          "mel_attention_weights": list(mw.shape),
+          "emotion_attention_weights": list(ew.shape),
+          "row_sum_max_err": row_err,
+          "blendshapes_bitwise_equal": bool(torch.equal(att["blendshapes"],
+                                                        plain_bs)),
+          "graphed_equals_eager": bool(np.array_equal(o_pp,
+                                                      plain_bs.cpu().numpy())),
+          "ms_per_call": att_ms,
+          "ms_per_call_median": float(np.median(att_ms)),
+          "ms_per_call_without_graphed": med["per_period"]})
+    check(list(mw.shape) == [DECODE_B, n_out, 28, 80]
+          and list(ew.shape) == [DECODE_B, n_out, 24, 1],
+          "decode_attention shapes")
+    check(row_err <= 1e-5, f"attention rows sum to 1 within 1e-5: {row_err}")
+    check(torch.equal(att["blendshapes"], plain_bs)
+          and np.array_equal(o_pp, plain_bs.cpu().numpy()),
+          "decode_attention: the blendshapes changed with return_attention")
+    del att, mw, ew
+
+    # ---- decode_scheduled_graph ----
+    strides = [1, 2, 4, 8] * (DECODE_B // 4)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, r
+
+    first_ms, (sched, mask) = wall_ms(
+        lambda: dec_pp.decode_scheduled(audio_b, strides))
+    box = []
+    seen, want = replayed_launches(dec_pp.step_graphs, [
+        lambda: box.append(dec_pp.decode_scheduled(audio_b, strides)[0])])
+    sched_ms = _event_ms(lambda: dec_pp.decode_scheduled(audio_b, strides),
+                         5)
+    eager_sched, eager_mask = eager_pp.decode_scheduled(audio_b, strides)
+    one = audio_b[:1]
+    seq_first_ms, seq = wall_ms(
+        lambda: dec_pp.decode_sequence_parallel(one[0].cpu().numpy()))
+    seq_np = one[0].cpu().numpy()
+    seq_ms = _event_ms(lambda: dec_pp.decode_sequence_parallel(seq_np), 5)
+    eager_seq = eager_pp.decode_sequence_parallel(seq_np)
+    call_one = dec_pp(one)[0]
+    span_w = DECODE_LEN // HOP - 256
+    n_max = span_w + 1
+    emit({"phase": "decode_scheduled_graph", "card": card,
+          "strides": strides, "windows": mask.sum(1).tolist(),
+          "shape": list(sched.shape),
+          "graphed_bitwise_equal_eager": bool(torch.equal(sched,
+                                                          eager_sched)),
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "first_call_ms": first_ms, "steady_ms": sched_ms,
+          "steady_ms_median": float(np.median(sched_ms)),
+          "sequence_parallel": {
+              "shape": list(seq.shape),
+              "graphed_bitwise_equal_eager": bool(torch.equal(seq,
+                                                              eager_seq)),
+              "bitwise_equal_call": bool(torch.equal(seq, call_one)),
+              "max_abs_diff_call": float((seq - call_one).abs().max()),
+              "first_call_ms": seq_first_ms, "steady_ms": seq_ms},
+          "graphs": graph_info(dec_pp.step_graphs)})
+    check(list(sched.shape) == [DECODE_B, n_max, 52]
+          and mask.sum(1).tolist() == [span_w // s + 1 for s in strides]
+          and np.array_equal(mask, eager_mask), "decode_scheduled shape")
+    check(torch.equal(sched, eager_sched) and torch.equal(box[0], sched),
+          "decode_scheduled: graphed != eager")
+    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2},
+          f"decode_scheduled: replays {seen}, recorded {want}")
+    check(torch.equal(seq, eager_seq),
+          "decode_sequence_parallel: graphed != eager")
+    check(torch.equal(seq, call_one),
+          "decode_sequence_parallel != __call__ on one device")
+    check(len(dec_pp.step_graphs) <= dec_pp.max_graphs, "graphs kept")
+    del eager_pp, dec_pp, sched, eager_sched
+
+    # ---- frontend_variants: against float64 on the card ----
+    ta = frontend.LogMelFrontend(style="torchaudio", n_fft=512)
+    rf = frontend.LogMelFrontend(stft_method="rfft")
+    lib = frontend.LogMelFrontend()
+
+    def ref64(cfg):
+        x = audio_b.double()
+        frames = frame_signal(x, cfg.n_fft, cfg.hop_length)
+        n = torch.arange(cfg.n_fft, dtype=torch.float64, device=dev)
+        win = 0.5 - 0.5 * torch.cos(2.0 * np.pi * n / cfg.n_fft)
+        spec = torch.fft.rfft(frames * win, dim=-1)
+        power = spec.real ** 2 + spec.imag ** 2
+        if cfg.style == "torchaudio":
+            power = power / (win * win).sum()
+        mel = power @ cfg.filterbank(dev).double()
+        if cfg.style == "librosa":
+            return power_to_db(mel, ref="max", top_db=80.0,
+                               ref_axes=(-2, -1))
+        log_mel = torch.log(mel + cfg.eps)
+        return log_mel[..., : int(x.shape[-1] / SR * cfg.target_fps), :]
+
+    with torch.inference_mode():
+        got_ta, want_ta = ta(audio_b).double(), ref64(ta)
+        got_rf, want_db = rf(audio_b).double(), ref64(rf)
+        got_lib = lib(audio_b).double()
+        t_ms = {name: time_ms(lambda c=c: c(audio_b), iters=20)
+                for name, c in (("torchaudio", ta), ("rfft", rf),
+                                ("librosa_kernel", lib))}
+    peak = want_ta.amax(dim=(-2, -1), keepdim=True)
+    near = want_ta >= peak - 80.0 * np.log(10.0) / 10.0
+    err_ta = (got_ta - want_ta).abs()
+    want_norm = (want_db + 80.0) / 80.0
+    err_rf = float((got_rf - want_norm).abs().max()) * 80.0
+    err_lib = float((got_lib - want_norm).abs().max()) * 80.0
+    emit({"phase": "frontend_variants", "card": card,
+          "torchaudio": {"shape": list(got_ta.shape), "n_fft": 512,
+                         "max_err_ln_within_80db": float(err_ta[near].max()),
+                         "bins_within_80db": float(near.double().mean()),
+                         "max_err_ln_other_bins": float(err_ta[~near].max())
+                         if (~near).any() else None},
+          "rfft_librosa": {"shape": list(got_rf.shape),
+                           "max_err_db": err_rf},
+          "kernel_librosa_max_err_db": err_lib,
+          "ms_per_call": t_ms})
+    check(got_ta.shape == want_ta.shape
+          and bool(torch.isfinite(got_ta).all()), "torchaudio shape")
+    check(float(err_ta[near].max()) <= 1e-3,
+          f"torchaudio style vs float64: {float(err_ta[near].max())}")
+    check(err_rf <= 1e-3, f"rfft librosa path vs float64: {err_rf} dB")
+    del audio_b
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2240,7 +2729,8 @@ def main() -> int:  # noqa: C901
     emit({"phase": "decode_new_length", "card": card, "batch": DECODE_B,
           **first_calls, "graphs_kept": len(decoder.step_graphs),
           "max_graphs": decoder.max_graphs})
-    check(len(decoder.step_graphs) == 2, "the new length's graph")
+    check(len(decoder.step_graphs) == 3,
+          "the new length's graph (beside the decode's and decode_scheduled's)")
 
     # a graph holds the cached constants it reads: eager decodes of 40
     # other lengths push every shape-keyed entry the decode's and the
@@ -2688,6 +3178,9 @@ def main() -> int:  # noqa: C901
 
     # ---- 12. the configurations without the LLD ring, emotion2vec ----
     s8 = slice8_phases(card, work, env, train["synth"])
+
+    # ---- 13. the remaining eGeMAPS, F0, frontend and decoder options ----
+    s9 = slice9_phases(card)
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -3128,6 +3621,21 @@ def main() -> int:  # noqa: C901
             time_ms(lambda: cublas_chain(x_e.reshape(-1, 1024)), iters=50),
             "chain: window, 2 DFT matmuls, power, mel matmul, dB "
             "(3 cuBLAS fp32 products)", tensor_cores=True))
+
+    # the shapes of phase 13: K1 on the arguments the Viterbi smoother's
+    # picks gave it on the decode's 13,624 LLD rows
+    rows_v = s9["rows_viterbi"]
+    sh_v = s9["shapes"]["viterbi"]
+    with torch.inference_mode():
+        for n, n_cyc, L in ((512, 8, 17), (1024, 5, 33)):
+            (frames_a, st, tau, off), kw = s9["rec"][
+                ("cycle_dsum", "viterbi", (rows_v, n))]
+            got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
+            want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+            kernels.append(k1_entry(
+                f"viterbi args n{n} x{rows_v}", frames_a, st, tau, off, kw,
+                sh_v.get(("cycle_dsum", (rows_v, n_cyc, L, n)), 0),
+                float((got - want).abs().max())))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

@@ -31,6 +31,9 @@ class EmotionFrontendConfig:
     use_concatenation: bool = True   # 3-window concatenation (production)
     sample_rate: int = 16000
     window_offsets: tuple[float, ...] = (0.0, 0.3, 0.6)
+    # egemaps backend: False selects the frame-level jitter and shimmer
+    # (EgemapsConfig.per_period_voice_quality)
+    egemaps_per_period: bool = True
 
     def __post_init__(self):
         if self.backend not in ("egemaps", "basic", "emotion2vec"):
@@ -60,7 +63,9 @@ def emotion_features(audio: torch.Tensor,
         raise ValueError(
             f"Backend {cfg.backend!r} has trained parameters; call it "
             "through the model, not this function")
-    ecfg = egemaps_cfg or EgemapsConfig(sample_rate=cfg.sample_rate)
+    ecfg = egemaps_cfg or EgemapsConfig(
+        sample_rate=cfg.sample_rate,
+        per_period_voice_quality=cfg.egemaps_per_period)
     if cfg.use_concatenation:
         return egemaps_concat_windows(audio, ecfg, cfg.window_offsets)
     return egemaps_functionals(audio, ecfg)

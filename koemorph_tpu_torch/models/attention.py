@@ -18,6 +18,9 @@ class TorchStyleMHA(nn.Module):
     A query batch of 1 against a larger key batch is projected once and
     broadcast (learned-query callers pass ``(1, Q, E)``). ``dropout`` drops
     attention weights in training when the call passes a ``generator``.
+    With ``need_weights`` the call returns ``(out, weights)``, the
+    attention weights averaged over heads ``(B, Q, T)`` (as
+    ``nn.MultiheadAttention`` averages them), taken before dropout.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
@@ -34,7 +37,8 @@ class TorchStyleMHA(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                need_weights: bool = False):
         e = self.embed_dim
         h = self.num_heads
         hd = e // h
@@ -54,6 +58,10 @@ class TorchStyleMHA(nn.Module):
         k = k.reshape(b, t, h, hd).transpose(1, 2)
         v = v.reshape(b, t, h, hd).transpose(1, 2)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        attn = self.attn_dropout(torch.softmax(scores, -1), generator)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, q_len, e)
-        return self.out_proj(out)
+        attn = torch.softmax(scores, -1)
+        dropped = self.attn_dropout(attn, generator)
+        out = torch.matmul(dropped, v).transpose(1, 2).reshape(b, q_len, e)
+        out = self.out_proj(out)
+        if need_weights:
+            return out, attn.mean(1)
+        return out

@@ -102,9 +102,14 @@ class DualStreamCrossAttention(nn.Module):
         in [0, 1]. With ``B = Be * r`` (``r`` windows per utterance,
         utterance-major) the emotion branch runs at ``Be`` rows and its
         outputs repeat over each utterance's ``r`` rows. In training mode a
-        ``generator`` turns on dropout (attention weights and the head)."""
-        if return_attention:
-            raise NotImplementedError("return_attention is not ported")
+        ``generator`` turns on dropout (attention weights and the head).
+
+        ``return_attention`` adds the head-averaged attention weights,
+        taken before dropout: ``mel_attention_weights`` (B, 28, 80) and
+        ``emotion_attention_weights`` (B, 24, 1), and the blendshapes of
+        each stream's own set, zero elsewhere: ``mel_blendshapes`` and
+        ``emotion_blendshapes`` (B, 52). ``blendshapes`` is the same
+        either way."""
         b = mel_features.shape[0]
         be = emotion_features.shape[0]
         if be == 0 or b % be:
@@ -122,15 +127,20 @@ class DualStreamCrossAttention(nn.Module):
             self.emotion_encoder(emotion_features)[:, None, :])
 
         mel_out = self.mel_attention(self.mouth_queries[None], mel_encoded,
-                                     mel_encoded, generator)
+                                     mel_encoded, generator, return_attention)
         emo_out = self.emotion_attention(self.expression_queries[None],
-                                         emo_encoded, emo_encoded, generator)
+                                         emo_encoded, emo_encoded, generator,
+                                         return_attention)
+        if return_attention:
+            (mel_out, mel_attn), (emo_out, emo_attn) = mel_out, emo_out
         mouth_bs = self._head(self.mel_output_proj(mel_out),
                               generator)                            # (B, 28)
         expr_bs = self._head(self.emotion_output_proj(emo_out),
                              generator)                             # (Be, 24)
         if b != be:
             expr_bs = expr_bs.repeat_interleave(b // be, 0)
+            if return_attention:
+                emo_attn = emo_attn.repeat_interleave(b // be, 0)
 
         blendshapes = mouth_bs.new_zeros((b, self.num_blendshapes))
         blendshapes = blendshapes.index_copy(1, self._mouth_idx, mouth_bs)
@@ -141,4 +151,13 @@ class DualStreamCrossAttention(nn.Module):
                                    -1)
         final = (norm_mel_w * blendshapes * 0.5
                  + norm_emo_w * blendshapes * 0.5)
-        return {"blendshapes": torch.clamp(final, 0.0, 1.0)}
+        out = {"blendshapes": torch.clamp(final, 0.0, 1.0)}
+        if return_attention:
+            out["mel_attention_weights"] = mel_attn
+            out["emotion_attention_weights"] = emo_attn
+            zero = torch.zeros_like(blendshapes)
+            out["mel_blendshapes"] = zero.index_copy(
+                1, self._mouth_idx, mouth_bs)
+            out["emotion_blendshapes"] = zero.index_copy(
+                1, self._expr_idx, expr_bs)
+        return out

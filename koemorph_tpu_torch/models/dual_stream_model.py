@@ -78,7 +78,11 @@ class StreamingDualStreamModel(nn.Module):
     wide). Its state dict is what
     :func:`koemorph_tpu_torch.utils.params.state_dict_from_flax` makes of
     a ``SimplifiedDualStreamModel`` parameter tree. ``dropout`` is 0 for
-    serving; the trainable models pass theirs."""
+    serving; the trainable models pass theirs. ``egemaps_per_period``
+    (no parameter) records the eGeMAPS voice-quality tier the model was
+    trained with, which a stream of it must use
+    (:meth:`~koemorph_tpu_torch.runtime.streaming.StreamingConfig.
+    from_model`)."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  window_frames: int = 256, n_mels: int = 80,
@@ -87,9 +91,11 @@ class StreamingDualStreamModel(nn.Module):
                  temperature: float = 1.0, dropout: float = 0.0,
                  smoothing_alpha_init: float = 0.8,
                  emotion_backend: str = "egemaps",
-                 emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG):
+                 emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG,
+                 egemaps_per_period: bool = True):
         super().__init__()
         self.smoothing_alpha_init = smoothing_alpha_init
+        self.egemaps_per_period = egemaps_per_period
         self.emotion_backend = emotion_backend
         self.emotion2vec_config = emotion2vec_config
         self.d_model, self.num_heads = d_model, num_heads
@@ -115,9 +121,18 @@ class StreamingDualStreamModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, W, n_mels), (B, 3, n_mels), (B, D_raw) -> (B, 52) unsmoothed
         blendshapes; a ``generator`` turns on dropout in training mode."""
+        return self.decode(mel, detail, emotion_raw,
+                           generator=generator)["blendshapes"]
+
+    def decode(self, mel: torch.Tensor, detail: torch.Tensor,
+               emotion_raw: torch.Tensor, return_attention: bool = False,
+               generator: Optional[torch.Generator] = None) -> dict:
+        """The attention's output dict (:class:`DualStreamCrossAttention`)
+        for (B, W, n_mels), (B, 3, n_mels) and (Be, D_raw) inputs."""
         emotion = self.emotion_projection(emotion_raw)
         return self.dual_stream_attention(
-            mel, detail, emotion, generator=generator)["blendshapes"]
+            mel, detail, emotion, return_attention=return_attention,
+            generator=generator)
 
     def alpha(self) -> torch.Tensor:
         return torch.sigmoid(self.smoothing_alpha)
@@ -167,23 +182,29 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
     the decoder head) acts in training mode on calls given a
     ``generator``. With ``emotion_backend="emotion2vec"`` the raw emotion
     vector comes from the model's own encoder (``emotion2vec_config``),
-    trained with the rest."""
+    trained with the rest. ``egemaps_per_period=False`` selects the
+    eGeMAPS frame-level jitter and shimmer; ``stft_method`` ``"rfft"`` the
+    ``torch.fft.rfft`` mel frontend (the default ``"matmul"`` runs the
+    fused kernel)."""
 
     def __init__(self, *, d_model: int = 256, num_heads: int = 8,
                  num_blendshapes: int = 52, sample_rate: int = 16000,
                  target_fps: int = 30, mel_sequence_length: int = 256,
                  emotion_backend: str = "egemaps",
                  use_concatenation: bool = True,
+                 egemaps_per_period: bool = True,
+                 stft_method: str = "matmul",
                  use_learnable_weights: bool = True,
                  fusion_temperature: float = 1.0, dropout: float = 0.1,
                  smoothing_alpha_init: float = 0.8,
                  emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG):
         emotion_cfg = EmotionFrontendConfig(
             backend=emotion_backend, use_concatenation=use_concatenation,
-            sample_rate=sample_rate)
+            sample_rate=sample_rate, egemaps_per_period=egemaps_per_period)
         mel_frontend = frontend.LogMelFrontend(
             sample_rate=sample_rate, target_fps=float(target_fps),
-            n_fft=1024, n_mels=80, f_min=80.0, f_max=8000.0)
+            n_fft=1024, n_mels=80, f_min=80.0, f_max=8000.0,
+            stft_method=stft_method)
         super().__init__(d_model=d_model, num_heads=num_heads,
                          window_frames=mel_sequence_length, n_mels=80,
                          num_blendshapes=num_blendshapes,
@@ -192,8 +213,10 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                          temperature=fusion_temperature, dropout=dropout,
                          smoothing_alpha_init=smoothing_alpha_init,
                          emotion_backend=emotion_backend,
-                         emotion2vec_config=emotion2vec_config)
+                         emotion2vec_config=emotion2vec_config,
+                         egemaps_per_period=egemaps_per_period)
         self.emotion_config = emotion_cfg
+        self.stft_method = stft_method
         self.mel_frontend = mel_frontend
         self.sample_rate = sample_rate
         self.target_fps = target_fps
@@ -216,18 +239,21 @@ class SimplifiedDualStreamModel(StreamingDualStreamModel):
                 generator: Optional[torch.Generator] = None):
         """``{"blendshapes": (B, 52)}``, and the new EMA state when
         ``state`` is given (then the blendshapes are smoothed). In training
-        mode a ``generator`` draws the dropout masks."""
-        if return_attention:
-            raise NotImplementedError("return_attention is not ported")
+        mode a ``generator`` draws the dropout masks. ``return_attention``
+        adds the attention's head-averaged weights and per-stream
+        blendshapes (:class:`DualStreamCrossAttention`)."""
         mel, detail = frontend.mel_with_temporal_detail(audio,
                                                         self.mel_frontend)
         if emotion_features_raw is None:
             emotion_features_raw = self.emotion_raw(audio)
-        out = super().forward(mel, detail, emotion_features_raw, generator)
+        out = self.decode(mel, detail, emotion_features_raw,
+                          return_attention=return_attention,
+                          generator=generator)
         if state is not None:
-            smoothed, state = _ema_step(out, state, self.alpha())
-            return {"blendshapes": smoothed}, state
-        return {"blendshapes": out}
+            out["blendshapes"], state = _ema_step(out["blendshapes"], state,
+                                                  self.alpha())
+            return out, state
+        return out
 
 
 def _n_edge_frames(n_fft: int, hop: int) -> int:
@@ -392,11 +418,14 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
         indices, each ``<= L // hop - window_frames``, rows in time order)
         overrides the ``stride_frames`` grid; it needs the global STFT.
         ``return_raw`` adds the pre-smoothing window outputs as
-        ``raw_blendshapes``. In training mode a ``generator`` draws the
-        dropout masks, and each window then gets its own row of the
-        emotion vector, so no two windows share a mask."""
-        if return_attention:
-            raise NotImplementedError("return_attention is not ported")
+        ``raw_blendshapes``; ``return_attention`` each window's
+        head-averaged attention weights, ``mel_attention_weights`` (B,
+        T_out, 28, n_mels) and ``emotion_attention_weights`` (B, T_out,
+        24, 1), taken before dropout. In training mode a ``generator``
+        draws the dropout masks, and each window then gets its own row of
+        the emotion vector, so no two windows share a mask. The mel
+        frontend here is the fused kernel whatever ``stft_method`` says
+        (as in the reference, whose decode ignores it)."""
         b, audio_len = audio.shape
         hop = self.hop_length
         num_frames = audio_len // hop
@@ -408,8 +437,12 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
                              "(exact_window_stft=False)")
         ws = None
         if window_starts is not None:
-            ws = torch.as_tensor(window_starts, dtype=torch.int64,
-                                 device=dev)
+            # a tensor on the device is used in place (no host copy: a
+            # captured decode reads its starts from a static buffer)
+            ws = (window_starts.to(dev, torch.int64)
+                  if isinstance(window_starts, torch.Tensor)
+                  else torch.as_tensor(window_starts, dtype=torch.int64,
+                                       device=dev))
             if ws.dim() == 1:
                 ws = ws[None].expand(b, -1)
             n_out = ws.shape[-1]
@@ -452,9 +485,11 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             return windows
 
         dropping = generator is not None and self.training
+        weight_keys = ("mel_attention_weights", "emotion_attention_weights")
 
         def attend(windows):
-            """(B, n, W+1, n_mels) raw dB -> (n, B, 52) raw outputs."""
+            """(B, n, W+1, n_mels) raw dB -> (n, B, 52) raw outputs, and
+            with ``return_attention`` the weights, (B, n, queries, keys)."""
             n = windows.shape[1]
             wmax = windows.amax(dim=(-2, -1), keepdim=True)
             norm = (torch.clamp_min(windows - wmax, -80.0) + 80.0) / 80.0
@@ -462,8 +497,10 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
                 norm[:, :, :w].reshape(b * n, w, cfg.n_mels),
                 norm[:, :, -3:].reshape(b * n, 3, cfg.n_mels),
                 emotion.repeat_interleave(n, 0) if dropping else emotion,
-                generator=generator)["blendshapes"]
-            return out.reshape(b, n, -1).transpose(0, 1)
+                return_attention=return_attention, generator=generator)
+            raw = out["blendshapes"].reshape(b, n, -1).transpose(0, 1)
+            return raw, {k: out[k].reshape((b, n) + out[k].shape[1:])
+                         for k in weight_keys if k in out}
 
         def decode_windows(first: int, n: int):
             """Windows ``first .. first + n - 1`` of the stride grid."""
@@ -485,18 +522,21 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             ).reshape(b, n, w + 1, cfg.n_mels)
             if self.window_edge == "reflect":
                 windows = splice(windows, ws * hop)
-            raw_seq = attend(windows)
+            raw_seq, extras = attend(windows)
         elif self.decode_mode == "parallel" or n_out <= self.window_chunk:
-            raw_seq = decode_windows(0, n_out)
+            raw_seq, extras = decode_windows(0, n_out)
         else:
             chunk = self.window_chunk
-            raw_seq = torch.cat(
-                [decode_windows(lo, min(chunk, n_out - lo))
-                 for lo in range(0, n_out, chunk)], 0)
+            parts = [decode_windows(lo, min(chunk, n_out - lo))
+                     for lo in range(0, n_out, chunk)]
+            raw_seq = torch.cat([r for r, _ in parts], 0)
+            extras = {k: torch.cat([ex[k] for _, ex in parts], 1)
+                      for k in parts[0][1]}
 
         smoothed = _ema_smooth(raw_seq, self.alpha())
         results = {"blendshapes": smoothed.transpose(0, 1),
                    "num_frames": n_out, "fps": self.target_fps}
         if return_raw:
             results["raw_blendshapes"] = raw_seq.transpose(0, 1)
+        results.update(extras)
         return results

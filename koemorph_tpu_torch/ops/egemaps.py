@@ -32,6 +32,53 @@ from koemorph_tpu_torch.ops.window import frame_signal, hann_window
 
 NUM_FEATURES = 88
 
+_F0_FUNCTIONALS = (
+    "amean", "stddevNorm", "percentile20.0", "percentile50.0",
+    "percentile80.0", "pctlrange0-2", "meanRisingSlope", "stddevRisingSlope",
+    "meanFallingSlope", "stddevFallingSlope",
+)
+
+
+def feature_names() -> tuple[str, ...]:
+    """The 88 eGeMAPSv02 functional names in the order of the functionals
+    vector."""
+    names: list[str] = []
+    names += [f"F0semitoneFrom27.5Hz_sma3nz_{f}" for f in _F0_FUNCTIONALS]
+    names += ["jitterLocal_sma3nz_amean", "jitterLocal_sma3nz_stddevNorm"]
+    names += [f"loudness_sma3_{f}" for f in _F0_FUNCTIONALS]
+    names += ["shimmerLocaldB_sma3nz_amean",
+              "shimmerLocaldB_sma3nz_stddevNorm"]
+    names += ["HNRdBACF_sma3nz_amean", "HNRdBACF_sma3nz_stddevNorm"]
+    names += ["logRelF0-H1-H2_sma3nz_amean",
+              "logRelF0-H1-H2_sma3nz_stddevNorm"]
+    names += ["logRelF0-H1-A3_sma3nz_amean",
+              "logRelF0-H1-A3_sma3nz_stddevNorm"]
+    for i in (1, 2, 3):
+        names += [f"F{i}frequency_sma3nz_amean",
+                  f"F{i}frequency_sma3nz_stddevNorm"]
+        names += [f"F{i}bandwidth_sma3nz_amean",
+                  f"F{i}bandwidth_sma3nz_stddevNorm"]
+        names += [f"F{i}amplitudeLogRelF0_sma3nz_amean",
+                  f"F{i}amplitudeLogRelF0_sma3nz_stddevNorm"]
+    for band in ("alphaRatioV", "hammarbergIndexV", "slopeV0-500",
+                 "slopeV500-1500", "spectralFluxV", "mfcc1V", "mfcc2V",
+                 "mfcc3V", "mfcc4V"):
+        names += [f"{band}_sma3nz_amean", f"{band}_sma3nz_stddevNorm"]
+    for band in ("alphaRatioUV", "hammarbergIndexUV", "slopeUV0-500",
+                 "slopeUV500-1500", "spectralFluxUV"):
+        names += [f"{band}_sma3nz_amean"]
+    for band in ("spectralFlux", "mfcc1", "mfcc2", "mfcc3", "mfcc4"):
+        names += [f"{band}_sma3_amean", f"{band}_sma3_stddevNorm"]
+    names += ["loudnessPeaksPerSec", "VoicedSegmentsPerSec",
+              "MeanVoicedSegmentLengthSec", "StddevVoicedSegmentLengthSec",
+              "MeanUnvoicedSegmentLength", "StddevUnvoicedSegmentLength",
+              "equivalentSoundLevel_dBp"]
+    assert len(names) == NUM_FEATURES, len(names)
+    return tuple(names)
+
+
+FEATURE_NAMES = feature_names()
+
 
 @dataclasses.dataclass(frozen=True)
 class EgemapsConfig:
@@ -43,22 +90,21 @@ class EgemapsConfig:
     f0_max: float = 500.0
     lpc_order: int = 10
     # jitter and shimmer from per-glottal-cycle periods and peaks (the
-    # eGeMAPS definitions); the frame-level proxies are not ported
+    # eGeMAPS definitions); False selects the frame-level proxies
+    # (frame-to-frame period and RMS changes), which skip the cycle
+    # segmentation and so launch no ``cycle_dsum``
     per_period_voice_quality: bool = True
     # cycle slots for consecutive-period jitter in the 512-sample frame
     jitter_cycles: int = 8
     # 1024-sample frames (512 samples of carried left context) give exact
     # cycle pairs to pitches too low for the 512-sample frame
     jitter_long_frames: bool = True
+    # "viterbi": YIN's lag picked by a DP path over the best CMNDF dips
+    # (ops/f0.py _viterbi_pick). The path couples frames, so a chunked
+    # call (the streaming refresh) smooths each block on its own: chunked
+    # and monolithic rows may differ near block boundaries, and the
+    # chunked == monolithic guarantee holds only for "none"
     f0_smoother: str = "none"
-
-    def __post_init__(self):
-        if not self.per_period_voice_quality:
-            raise NotImplementedError(
-                "per_period_voice_quality=False is not ported")
-        if self.f0_smoother != "none":
-            raise NotImplementedError(
-                f"f0_smoother={self.f0_smoother!r} is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -329,19 +375,27 @@ def _cycle_peak_shimmer(yin_frames: torch.Tensor, f0: torch.Tensor,
 
 class LldCarry(NamedTuple):
     """Cross-chunk continuity state: the previous frame's magnitude
-    spectrum (spectral flux), and for the low-pitch jitter path the 512
-    samples before the next chunk plus how many of them are real stream
-    samples (cycles overlapping the zero prefill are masked invalid)."""
+    spectrum (spectral flux); with ``per_period_voice_quality=False`` the
+    previous frame's period, voicing and RMS (the frame-pairwise jitter
+    and shimmer); and for the low-pitch jitter path the 512 samples before
+    the next chunk plus how many of them are real stream samples (cycles
+    overlapping the zero prefill are masked invalid). Fields a
+    configuration does not use are ``None``."""
 
     prev_mag: torch.Tensor                      # (..., n_bins)
+    prev_period: Optional[torch.Tensor] = None  # (...,) seconds
+    prev_voiced: Optional[torch.Tensor] = None  # (...,) bool
+    prev_amp: Optional[torch.Tensor] = None     # (...,) frame RMS
     audio_tail: Optional[torch.Tensor] = None   # (..., 512)
     ctx_filled: Optional[torch.Tensor] = None   # (...,) int32 in [0, 512]
 
 
 def _long_jitter_active(cfg: EgemapsConfig) -> bool:
     """The 1024-sample low-pitch jitter path runs when some in-range period
-    has no consecutive cycle pair in the 512-sample frame."""
-    if not (cfg.jitter_cycles and cfg.jitter_long_frames):
+    has no consecutive cycle pair in the 512-sample frame (per-period
+    voice quality only)."""
+    if not (cfg.per_period_voice_quality and cfg.jitter_cycles
+            and cfg.jitter_long_frames):
         return False
     tau_max = int(np.ceil(cfg.sample_rate / cfg.f0_min))
     return 3 * tau_max + 7 > 511
@@ -359,9 +413,14 @@ def silence_lld_carry(cfg: EgemapsConfig = EgemapsConfig(),
             audio_tail=torch.zeros(lead + (512,), dtype=torch.float32,
                                    device=device),
             ctx_filled=torch.zeros(lead, dtype=torch.int32, device=device))
-    return LldCarry(prev_mag=torch.full(lead + (n_bins,), 1e-10,
-                                        device=device),
-                    **long_fields)
+    prev_mag = torch.full(lead + (n_bins,), 1e-10, device=device)
+    if cfg.per_period_voice_quality:
+        return LldCarry(prev_mag=prev_mag, **long_fields)
+    return LldCarry(
+        prev_mag=prev_mag,
+        prev_period=torch.zeros(lead, dtype=torch.float32, device=device),
+        prev_voiced=torch.zeros(lead, dtype=torch.bool, device=device),
+        prev_amp=torch.zeros(lead, dtype=torch.float32, device=device))
 
 
 #: LLD channels the streaming ring carries: (name, trailing shape, dtype)
@@ -434,11 +493,13 @@ def compute_lld_block(chunk: torch.Tensor,
     hop = cfg.hop_length
     # one ACF serves YIN and HNR: lags up to the deepest voiced period
     n_acf = int(np.ceil(cfg.sample_rate / (cfg.f0_min * 0.9))) + 2
+    per_period = cfg.per_period_voice_quality
     core = f0_ops.yin_core(
         chunk, sample_rate=cfg.sample_rate, frame_length=512,
         hop_length=hop, f0_min=cfg.f0_min, f0_max=cfg.f0_max, center=False,
-        n_acf_lags=n_acf, subwindow_periods=True,
-        cycle_periods=cfg.jitter_cycles, smoother=cfg.f0_smoother)
+        n_acf_lags=n_acf, subwindow_periods=per_period,
+        cycle_periods=cfg.jitter_cycles if per_period else 0,
+        smoother=cfg.f0_smoother)
     f0 = core.result.f0_hz
     voiced = core.result.voiced_flag
 
@@ -481,11 +542,12 @@ def compute_lld_block(chunk: torch.Tensor,
     frames = core.frames[..., off:off + cfg.frame_length]
     wframes = frames * hann_window(cfg.frame_length, device=chunk.device)
     cycle_periods = ((core.cycle_period, core.cycle_valid)
-                     if cfg.jitter_cycles else None)
+                     if per_period and cfg.jitter_cycles else None)
     lld, new_carry = _lld_math(
         frames, wframes, f0, voiced, cfg, carry, yin_acf=core.acf,
-        yin_frames=core.frames,
-        subwindow_periods=(core.period_first, core.period_second),
+        yin_frames=core.frames if per_period else None,
+        subwindow_periods=((core.period_first, core.period_second)
+                           if per_period else None),
         cycle_periods=cycle_periods, cycle_periods_long=cycles_long)
     if new_tail is not None:
         new_carry = new_carry._replace(audio_tail=new_tail,
@@ -511,7 +573,9 @@ def _lld_math(frames, wframes, f0, voiced, cfg: EgemapsConfig,
               subwindow_periods, cycle_periods=None,
               cycle_periods_long=None):
     """LLDs of (..., T) frames. ``carry=None`` makes frame 0 its own
-    spectral-flux predecessor (zero flux)."""
+    predecessor (zero spectral flux; with ``subwindow_periods`` and
+    ``yin_frames`` None, frame 0's own period and RMS for the
+    frame-pairwise jitter and shimmer)."""
     sr = cfg.sample_rate
     dev = frames.device
     const = _spectral_constants(sr, cfg.n_fft, dev)
@@ -544,33 +608,65 @@ def _lld_math(frames, wframes, f0, voiced, cfg: EgemapsConfig,
     prev_mag = mag[..., 0, :] if carry is None else carry.prev_mag
     mag_prev = torch.cat([prev_mag[..., None, :], mag[..., :-1, :]], -2)
 
-    # jitter: consecutive cycle periods within the frame; low-pitch frames
-    # from the 1024-sample frames; else the two half-window periods
-    p1, p2 = subwindow_periods
-    ok = voiced & (p1 > 0) & (p2 > 0)
-    jitter = torch.where(
-        ok, torch.abs(p2 - p1) / torch.clamp_min(0.5 * (p1 + p2), 1e-6), 0.0)
-    jitter_valid = ok
-    has_cycles = None
-    if cycle_periods is not None:
-        jitter_cyc, n_pair = _pair_jitter(*cycle_periods)
-        has_cycles = voiced & (n_pair >= 1.0)
-        jitter = torch.where(has_cycles, jitter_cyc, jitter)
-        jitter_valid = jitter_valid | has_cycles
-    if cycle_periods_long is not None:
-        jitter_long, n_pair_l = _pair_jitter(*cycle_periods_long)
-        has_long = voiced & (n_pair_l >= 1.0)
-        if has_cycles is not None:
-            has_long = has_long & ~has_cycles
-        jitter = torch.where(has_long, jitter_long, jitter)
-        jitter_valid = jitter_valid | has_long
+    if subwindow_periods is not None:
+        # jitter: consecutive cycle periods within the frame; low-pitch
+        # frames from the 1024-sample frames; else the two half-window
+        # periods
+        p1, p2 = subwindow_periods
+        ok = voiced & (p1 > 0) & (p2 > 0)
+        jitter = torch.where(
+            ok, torch.abs(p2 - p1) / torch.clamp_min(0.5 * (p1 + p2), 1e-6),
+            0.0)
+        jitter_valid = ok
+        has_cycles = None
+        if cycle_periods is not None:
+            jitter_cyc, n_pair = _pair_jitter(*cycle_periods)
+            has_cycles = voiced & (n_pair >= 1.0)
+            jitter = torch.where(has_cycles, jitter_cyc, jitter)
+            jitter_valid = jitter_valid | has_cycles
+        if cycle_periods_long is not None:
+            jitter_long, n_pair_l = _pair_jitter(*cycle_periods_long)
+            has_long = voiced & (n_pair_l >= 1.0)
+            if has_cycles is not None:
+                has_long = has_long & ~has_cycles
+            jitter = torch.where(has_long, jitter_long, jitter)
+            jitter_valid = jitter_valid | has_long
+    else:
+        # frame-level jitter: the relative change of the period from the
+        # previous frame (the carry's last frame, or frame 0 itself)
+        period = _frame_period(f0)
+        if carry is not None and carry.prev_period is not None:
+            first_p, first_v = carry.prev_period, carry.prev_voiced
+        else:
+            first_p, first_v = period[..., 0], voiced[..., 0]
+        period_prev = torch.cat([first_p[..., None], period[..., :-1]], -1)
+        voiced_prev = torch.cat([first_v[..., None], voiced[..., :-1]], -1)
+        jitter_valid = voiced & voiced_prev
+        jitter = torch.where(jitter_valid,
+                             torch.abs(period - period_prev)
+                             / torch.clamp_min(period, 1e-6), 0.0)
 
-    shimmer, shimmer_valid = _cycle_peak_shimmer(yin_frames, f0, voiced, sr)
+    if yin_frames is not None:
+        shimmer, shimmer_valid = _cycle_peak_shimmer(yin_frames, f0, voiced,
+                                                     sr)
+    else:
+        # frame-level shimmer: the dB change of the frame RMS
+        if carry is not None and carry.prev_amp is not None:
+            first_a, first_av = carry.prev_amp, carry.prev_voiced
+        else:
+            first_a, first_av = amp[..., 0], voiced[..., 0]
+        amp_prev = torch.cat([first_a[..., None], amp[..., :-1]], -1)
+        voiced_prev = torch.cat([first_av[..., None], voiced[..., :-1]], -1)
+        shimmer_valid = voiced & voiced_prev
+        shimmer = torch.where(
+            shimmer_valid,
+            torch.abs(20.0 * (torch.log10(amp + 1e-9)
+                              - torch.log10(amp_prev + 1e-9))), 0.0)
 
     # HNR from the YIN frame's ACF at the F0 lag, unbiased for the
     # (N - lag) products the raw ACF sums
     acf = yin_acf
-    n_frame = yin_frames.shape[-1]
+    n_frame = yin_frames.shape[-1] if yin_frames is not None else 512
     r0 = acf[..., 0] + 1e-12
     lag = torch.clamp(torch.div(scalar_like(float(sr), f0),
                                 torch.clamp_min(f0, 1.0)).to(torch.int32),
@@ -656,7 +752,17 @@ def _lld_math(frames, wframes, f0, voiced, cfg: EgemapsConfig,
         "jitter_valid": jitter_valid, "shimmer_valid": shimmer_valid,
         "frame_power": amp * amp,
     }
-    return lld, LldCarry(prev_mag=mag[..., -1, :])
+    if cfg.per_period_voice_quality:
+        return lld, LldCarry(prev_mag=mag[..., -1, :])
+    return lld, LldCarry(prev_mag=mag[..., -1, :],
+                         prev_period=_frame_period(f0[..., -1:])[..., 0],
+                         prev_voiced=voiced[..., -1], prev_amp=amp[..., -1])
+
+
+def _frame_period(f0: torch.Tensor) -> torch.Tensor:
+    """Period in seconds of each frame's F0, 0 where unvoiced."""
+    return torch.where(f0 > 0, torch.div(scalar_like(1.0, f0),
+                                         torch.clamp_min(f0, 1e-3)), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -847,3 +953,55 @@ def egemaps_concat_windows(audio: torch.Tensor,
     masks = offset_masks(t, tuple(t - int(round(off / fp))
                                   for off in offsets_sec), audio.device)
     return functionals_multi_offset(lld, cfg, masks)
+
+
+_CALIBRATION_CACHE: dict = {}
+
+
+def load_calibration(path=None) -> Optional[np.ndarray]:
+    """Per-feature affine calibration onto the OpenSMILE scale: an
+    ``(88, 2)`` float32 ``[scale, offset]`` array read from a JSON table
+    ``{feature name: [scale, offset]}`` (``egemaps_calibration.json``
+    beside this module by default), identity rows for the names it lacks;
+    ``None`` when no such file exists. Cached by (path, mtime), so a table
+    rewritten while the process runs is read again."""
+    import json
+    from pathlib import Path
+
+    p = Path(path) if path else (Path(__file__).parent
+                                 / "egemaps_calibration.json")
+    if not p.exists():
+        return None
+    key = (str(p), p.stat().st_mtime_ns)
+    if key in _CALIBRATION_CACHE:
+        return _CALIBRATION_CACHE[key]
+    table = json.loads(p.read_text())
+    out = np.tile(np.asarray([1.0, 0.0], np.float32), (NUM_FEATURES, 1))
+    for i, name in enumerate(FEATURE_NAMES):
+        if name in table:
+            out[i] = np.asarray(table[name], np.float32)
+    _CALIBRATION_CACHE.clear()
+    _CALIBRATION_CACHE[key] = out
+    return out
+
+
+def apply_calibration(feats: torch.Tensor,
+                      calibration: Optional[np.ndarray] = None
+                      ) -> torch.Tensor:
+    """``scale * x + offset`` per feature of ``feats (..., 88 * k)`` (the
+    table tiled over the ``k`` concatenated windows); ``feats`` unchanged
+    when no calibration is given or recorded. The models' own features
+    stay uncalibrated."""
+    calib = calibration if calibration is not None else load_calibration()
+    if calib is None:
+        return feats
+    d = feats.shape[-1]
+    if d % NUM_FEATURES != 0:
+        raise ValueError(
+            f"apply_calibration expects a trailing dim that is a multiple "
+            f"of {NUM_FEATURES} (88-D functionals or their "
+            f"concatenations), got {d}")
+    c = torch.as_tensor(np.asarray(calib, np.float32), device=feats.device)
+    if d != NUM_FEATURES:
+        c = c.repeat(d // NUM_FEATURES, 1)
+    return feats * c[:, 0] + c[:, 1]

@@ -6,6 +6,8 @@ an FFT or a direct correlation: a change of rounding flips YIN's pick on
 borderline frames) and its energy terms from a running sum over the short
 lag axis. The per-cycle difference sums behind exact jitter
 (:func:`cycle_dsum`) are a hand-written CUDA kernel on the GPU.
+``smoother="viterbi"`` replaces YIN's per-frame pick with a dynamic
+programming path over the best CMNDF dips (:func:`_viterbi_pick`).
 """
 
 from __future__ import annotations
@@ -83,6 +85,14 @@ def _yin_acfs(frames: torch.Tensor, tau_max: int, n_lags: int,
     return acfs[..., 0, :, :], acfs[..., 1, :, : tau_max + 1], c_first
 
 
+def yin_frame_difference(frames: torch.Tensor, tau_max: int
+                         ) -> torch.Tensor:
+    """YIN difference function ``d(tau)``, ``tau in [0, tau_max]``, of
+    ``(..., T, N)`` frames over the correlation window ``W = N - tau_max``:
+    ``(..., T, tau_max + 1)``."""
+    return _yin_difference_and_acf(frames, tau_max, tau_max + 1)[0]
+
+
 def _lag_energy(sq: torch.Tensor, lo: int, count: int, tau_max: int):
     """r0 = sum of the ``count`` squares from ``lo``, and r_tau, the same
     window shifted by tau, as r0 plus a running sum over the lag axis."""
@@ -125,6 +135,27 @@ def _parabola_offset(y0, y1, y2):
     return torch.clamp(off, -1.0, 1.0)
 
 
+def yin_f0(
+    audio: torch.Tensor,
+    *,
+    sample_rate: int = 16000,
+    frame_length: int = 1024,
+    hop_length: int = 160,
+    f0_min: float = 50.0,
+    f0_max: float = 400.0,
+    threshold: float = 0.15,
+    center: bool = True,
+    smoother: str = "none",
+) -> F0Result:
+    """Per-frame F0 of ``audio (..., L)`` -> ``(..., T)`` Hz, 0 where a
+    frame's CMNDF minimum is above ~3x ``threshold`` (unvoiced).
+    ``smoother="viterbi"`` tracks the contour with :func:`_viterbi_pick`."""
+    return yin_core(
+        audio, sample_rate=sample_rate, frame_length=frame_length,
+        hop_length=hop_length, f0_min=f0_min, f0_max=f0_max,
+        threshold=threshold, center=center, smoother=smoother).result
+
+
 def yin_core(
     audio: torch.Tensor,
     *,
@@ -142,10 +173,13 @@ def yin_core(
 ) -> YinCore:
     """Per-frame YIN F0 of ``audio (..., L)`` plus the frames, the
     full-frame autocorrelation (``n_acf_lags`` lags), and optionally the
-    half-window and per-cycle period estimates (see :class:`YinCore`)."""
-    if smoother != "none":
-        raise NotImplementedError(
-            f"smoother={smoother!r} is not ported; only 'none' is")
+    half-window and per-cycle period estimates (see :class:`YinCore`).
+    ``smoother="viterbi"`` picks each frame's lag by :func:`_viterbi_pick`
+    instead of the first dip below ``threshold``; the path couples frames,
+    so a chunked call smooths each chunk on its own."""
+    if smoother not in ("none", "viterbi"):
+        raise ValueError(f"smoother must be 'none' or 'viterbi', "
+                         f"got {smoother!r}")
     tau_min, tau_max = _tau_range(sample_rate, f0_min, f0_max)
     if frame_length <= tau_max + 8:
         raise ValueError(
@@ -167,6 +201,14 @@ def yin_core(
     idx = torch.argmax(candidate.to(torch.uint8), -1)
     pick = torch.where(candidate.any(-1), idx,
                        torch.argmin(region, -1)) + tau_min
+    if smoother == "viterbi":
+        # periodicity hint from the global CMNDF minimum: frames with no
+        # deep dip anywhere (or no energy) are free resets of the path
+        rms_hint = torch.sqrt(torch.mean(frames * frames, -1))
+        hint = ((torch.amin(region, -1) < 3.0 * threshold)
+                & (rms_hint > 1e-4))
+        pick = _viterbi_pick(dprime, tau_min=tau_min,
+                             voiced_hint=hint).to(torch.int64)
 
     last = dprime.shape[-1] - 1
     ys = torch.gather(dprime, -1, torch.stack(
@@ -201,6 +243,94 @@ def yin_core(
                    period_first=p1, period_second=p2,
                    cycle_period=cp, cycle_valid=cv,
                    pick=pick.to(torch.int32), tau=tau_refined)
+
+
+@device_cache(8)
+def _log2_table(n: int, device: torch.device) -> torch.Tensor:
+    """``log2(k)`` for ``k in [0, n)`` in float32, as the reference's
+    float32 ``log2`` gives it on the CPU: ``log(k)`` rounded to float32,
+    times the float32 ``1 / ln 2`` (its ``log(k) / log(2)`` with the
+    division by a constant folded into that product). Read by index, so
+    the CPU and the GPU use the same values."""
+    k = np.arange(n, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        log_k = np.log(k).astype(np.float32)
+    return torch.from_numpy(log_k * np.float32(1.0 / np.log(2.0))).to(device)
+
+
+def _viterbi_pick(dprime: torch.Tensor, *, tau_min: int,
+                  voiced_hint: torch.Tensor, n_candidates: int = 5,
+                  transition_cost: float = 4.0,
+                  octave_cost: float = 0.1) -> torch.Tensor:
+    """Octave-robust pitch pick: a Viterbi path over CMNDF dip candidates.
+
+    - candidates: the ``n_candidates`` lowest CMNDF values per frame by
+      masked argmin, each winner excluding lags within 25% of its period;
+    - emission cost: the candidate's CMNDF value plus ``octave_cost *
+      log2(lag / tau_min)`` (a mild preference for the higher F0); an
+      exhausted slot (all excluded) costs 1e9;
+    - transition cost: ``transition_cost * |log2(lag_t / lag_{t-1})|``
+      between consecutive frames that are both periodic
+      (``voiced_hint``); a gap resets the path for free;
+    - a forward pass over frames keeping each candidate's best cost
+      (renormalized to a minimum of 0 each frame) and back pointers, then
+      a backtrack from the cheapest last candidate.
+
+    The pass is sequential in frames: one loop iteration (a few small
+    kernels) per frame forward and one gather per frame back.
+
+    Args:
+        dprime: ``(..., T, n_lags)`` CMNDF.
+        voiced_hint: ``(..., T)`` bool, the frame shows periodicity.
+
+    Returns:
+        ``(..., T)`` int32 chosen lags.
+    """
+    lead = dprime.shape[:-2]
+    t_frames, m = dprime.shape[-2], dprime.shape[-1] - tau_min
+    dev = dprime.device
+    region = dprime[..., tau_min:].reshape(-1, t_frames, m)
+    hint = voiced_hint.reshape(-1, t_frames)
+    r = region.shape[0]
+
+    iota = torch.arange(m, dtype=torch.float32, device=dev)
+    masked = region
+    picks, vals = [], []
+    for _ in range(n_candidates):
+        best, cidx = torch.min(masked, -1)
+        picks.append(cidx)
+        vals.append(best)
+        excl = 0.25 * (cidx.to(torch.float32) + tau_min)
+        near = torch.abs(iota - cidx[..., None].to(torch.float32)) \
+            < excl[..., None]
+        masked = torch.where(near, float("inf"), masked)
+    cand = torch.stack(picks, -1) + tau_min                    # (R, T, N)
+    ltau = _log2_table(dprime.shape[-1], dev)[cand]
+    log2_min = float(np.float32(np.log2(tau_min)))
+    emit = torch.stack(vals, -1) + octave_cost * (ltau - log2_min)
+    emit = torch.where(torch.isfinite(emit), emit, 1e9)
+
+    # transitions between frames t-1 and t, (R, T-1, N_prev, N)
+    link = (hint[:, 1:] & hint[:, :-1]).to(torch.float32)
+    trans = (transition_cost
+             * torch.abs(ltau[:, 1:, None, :] - ltau[:, :-1, :, None])
+             * link[:, :, None, None])
+    cost = emit[:, 0]
+    bps = []
+    for t in range(1, t_frames):
+        best, bp = torch.min(cost[:, :, None] + trans[:, t - 1], 1)
+        cost = emit[:, t] + best
+        cost = cost - torch.amin(cost, -1, keepdim=True)
+        bps.append(bp)
+
+    node = torch.argmin(cost, -1, keepdim=True)                # (R, 1)
+    path = [node]
+    for bp in reversed(bps):
+        node = torch.gather(bp, 1, node)
+        path.append(node)
+    path = torch.cat(path[::-1], 1)                            # (R, T)
+    chosen = torch.gather(cand, -1, path[..., None])[..., 0]
+    return chosen.to(torch.int32).reshape(lead + (t_frames,))
 
 
 def _refine_period_local(d_sub: torch.Tensor, pick: torch.Tensor,

@@ -8,7 +8,12 @@ form :func:`frames_to_logmel_plain` for CPU tensors. Framing stays outside
 the kernel. The librosa-style frontend (:class:`LogMelFrontend`,
 :func:`log_mel_spectrogram`, :func:`mel_with_temporal_detail`) is that
 function followed by the per-utterance ``ref=max``, the 80 dB clip and
-``(db + 80) / 80``.
+``(db + 80) / 80``; with ``stft_method="rfft"`` its power spectrum comes
+from ``torch.fft.rfft`` instead, then the same mel, dB and normalization in
+plain PyTorch. The torchaudio style (``style="torchaudio"``) is plain
+PyTorch too: the window-normalized power spectrum, the HTK filterbank
+without norm, ``log(mel + eps)``, padded with its last frame or cut to
+``int(L / sr * fps)`` frames.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import torch
 
 from koemorph_tpu_torch.ops import cuda as cuda_kernels
 from koemorph_tpu_torch.ops.device_cache import device_cache
-from koemorph_tpu_torch.ops.mel import _mel_filterbank_np
+from koemorph_tpu_torch.ops.mel import (_mel_filterbank_np, mel_filterbank,
+                                        normalize_log_mel, power_to_db)
+from koemorph_tpu_torch.ops.stft import stft_power
 from koemorph_tpu_torch.ops.window import frame_signal
 
 __all__ = ["LogMelFrontend", "LogmelKernelConstants", "frames_to_logmel",
@@ -195,9 +202,14 @@ def fused_log_mel_frontend(audio: torch.Tensor, *, sample_rate: int = 16000,
 
 @dataclasses.dataclass(frozen=True)
 class LogMelFrontend:
-    """librosa-style log-mel configuration (n_fft 1024, hop ``int(sr /
-    fps)``, Slaney mel, per-utterance ``ref=max``, ``top_db`` 80,
-    ``(db + 80) / 80``). The torchaudio style is not ported."""
+    """Log-mel configuration. ``style="librosa"`` (the models' frontend):
+    n_fft 1024, hop ``int(sr / fps)``, Slaney mel, per-utterance
+    ``ref=max``, ``top_db`` 80, ``(db + 80) / 80``. ``style="torchaudio"``
+    (the reference's legacy frontend, usually at n_fft 512): the
+    window-normalized power spectrum, HTK mel without norm, ``log(mel +
+    eps)``, ``int(L / sr * fps)`` frames. ``stft_method`` ``"matmul"``
+    (the librosa style's fused kernel; DFT products for the torchaudio
+    style) or ``"rfft"`` (``torch.fft.rfft``)."""
 
     sample_rate: int = 16000
     target_fps: float = 30.0
@@ -206,11 +218,16 @@ class LogMelFrontend:
     f_min: float = 80.0
     f_max: float | None = 8000.0
     style: str = "librosa"
+    stft_method: str = "matmul"
+    eps: float = 1e-8
 
     def __post_init__(self):
-        if self.style != "librosa":
-            raise NotImplementedError(
-                f"style={self.style!r} is not ported; only 'librosa' is")
+        if self.style not in ("librosa", "torchaudio"):
+            raise ValueError(f"style must be 'librosa' or 'torchaudio', "
+                             f"got {self.style!r}")
+        if self.stft_method not in ("matmul", "rfft"):
+            raise ValueError(f"stft_method must be 'matmul' or 'rfft', "
+                             f"got {self.stft_method!r}")
 
     @property
     def hop_length(self) -> int:
@@ -219,6 +236,14 @@ class LogMelFrontend:
     @property
     def effective_f_max(self) -> float:
         return self.f_max if self.f_max is not None else self.sample_rate / 2.0
+
+    def filterbank(self, device=None) -> torch.Tensor:
+        """Bins-major ``(n_fft // 2 + 1, n_mels)``: Slaney for the librosa
+        style, HTK without norm for the torchaudio style."""
+        htk = self.style == "torchaudio"
+        return mel_filterbank(self.sample_rate, self.n_fft, self.n_mels,
+                              self.f_min, self.effective_f_max, htk=htk,
+                              norm=None if htk else "slaney", device=device)
 
     def logmel_kwargs(self) -> dict:
         return dict(sample_rate=self.sample_rate, n_mels=self.n_mels,
@@ -230,13 +255,35 @@ class LogMelFrontend:
 
 def log_mel_spectrogram(audio: torch.Tensor, cfg: LogMelFrontend
                         ) -> torch.Tensor:
-    """Normalized log-mel ``(..., T, n_mels)`` of ``audio (..., L)``: dB
-    relative to the utterance's max, clipped at -80 dB, mapped to [0, 1]."""
-    db = fused_log_mel_frontend(audio, n_fft=cfg.n_fft,
-                                hop_length=cfg.hop_length,
-                                **cfg.logmel_kwargs())
-    ref = db.amax(dim=(-2, -1), keepdim=True)
-    return (torch.clamp_min(db - ref, -80.0) + 80.0) / 80.0
+    """Log-mel ``(..., T, n_mels)`` of ``audio (..., L)``. librosa style:
+    dB relative to the utterance's max, clipped at -80 dB, mapped to [0,
+    1] (through the fused kernel for ``stft_method="matmul"``). torchaudio
+    style: natural-log mel, padded with its last frame or cut to
+    ``int(L / sr * fps)`` frames."""
+    if cfg.style == "librosa" and cfg.stft_method == "matmul":
+        db = fused_log_mel_frontend(audio, n_fft=cfg.n_fft,
+                                    hop_length=cfg.hop_length,
+                                    **cfg.logmel_kwargs())
+        ref = db.amax(dim=(-2, -1), keepdim=True)
+        return (torch.clamp_min(db - ref, -80.0) + 80.0) / 80.0
+    spec = stft_power(audio, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                      center=True, power=2.0,
+                      normalized=cfg.style == "torchaudio",
+                      method=cfg.stft_method)
+    mel = torch.matmul(spec, cfg.filterbank(audio.device))
+    if cfg.style == "librosa":
+        return normalize_log_mel(power_to_db(mel, ref="max", top_db=80.0,
+                                             ref_axes=(-2, -1)))
+    log_mel = torch.log(mel + cfg.eps)
+    expected = int(audio.shape[-1] / cfg.sample_rate * cfg.target_fps)
+    t = log_mel.shape[-2]
+    if t > expected:
+        return log_mel[..., :expected, :]
+    if t < expected:
+        last = log_mel[..., -1:, :]
+        return torch.cat([log_mel, last.expand(
+            last.shape[:-2] + (expected - t, last.shape[-1]))], -2)
+    return log_mel
 
 
 def mel_with_temporal_detail(audio: torch.Tensor, cfg: LogMelFrontend

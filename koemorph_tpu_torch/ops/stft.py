@@ -98,11 +98,10 @@ def stft_power(x: torch.Tensor, *, n_fft: int, hop_length: int,
     time-major: windowed frames (librosa reflect centering when
     ``center``) against the DFT bases. ``win_length`` shorter than
     ``n_fft`` centre-pads the window; ``normalized`` divides by
-    ``sum(window ** 2)``; ``power`` 1 gives the magnitude."""
-    if method != "matmul":
-        if method == "rfft":
-            raise NotImplementedError("stft_power(method='rfft') is not "
-                                      "ported; only 'matmul' is")
+    ``sum(window ** 2)``; ``power`` 1 gives the magnitude. ``method``
+    ``"matmul"`` takes products against the DFT bases, ``"rfft"``
+    ``torch.fft.rfft`` (cuFFT on the card, which does not use TF32)."""
+    if method not in ("matmul", "rfft"):
         raise ValueError(f"Unknown stft method: {method!r}")
     if win_length is None:
         win_length = n_fft
@@ -113,9 +112,13 @@ def stft_power(x: torch.Tensor, *, n_fft: int, hop_length: int,
         window = torch.nn.functional.pad(
             window, (lpad, n_fft - win_length - lpad))
     frames = frame_signal(x, n_fft, hop_length, center=center) * window
-    c, s = dft_matrices(n_fft, x.device)
-    re = torch.matmul(frames, c)
-    im = torch.matmul(frames, s)
+    if method == "matmul":
+        c, s = dft_matrices(n_fft, x.device)
+        re = torch.matmul(frames, c)
+        im = torch.matmul(frames, s)
+    else:
+        spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+        re, im = spec.real, spec.imag
     sq = re * re + im * im
     if normalized:
         sq = sq / torch.sum(window * window)

@@ -93,6 +93,11 @@ class StreamingConfig:
     # at every refresh (bidirectional, so no incremental form); must match
     # the trained model's
     emotion2vec_config: Wav2Vec2Config = EMOTION2VEC_CONFIG
+    # the egemaps refresh's voice quality, as the model's
+    # egemaps_per_period: False selects the frame-level jitter and shimmer
+    # (no cycle_dsum; the LLD carry holds the last frame's period, voicing
+    # and RMS)
+    egemaps_per_period: bool = True
 
     def __post_init__(self):
         if self.emotion_backend not in ("egemaps", "basic", "emotion2vec"):
@@ -103,7 +108,8 @@ class StreamingConfig:
     @classmethod
     def from_model(cls, model, **overrides) -> "StreamingConfig":
         """The config that streams a ``SimplifiedDualStreamModel``'s
-        settings (its fusion knobs and encoder included)."""
+        settings (its fusion knobs, encoder and eGeMAPS voice-quality tier
+        included)."""
         kw = dict(
             sample_rate=model.sample_rate, target_fps=model.target_fps,
             window_frames=model.mel_sequence_length,
@@ -113,7 +119,8 @@ class StreamingConfig:
             use_concatenation=model.emotion_config.use_concatenation,
             use_learnable_weights=model.use_learnable_weights,
             fusion_temperature=model.fusion_temperature,
-            emotion2vec_config=model.emotion2vec_config)
+            emotion2vec_config=model.emotion2vec_config,
+            egemaps_per_period=model.egemaps_per_period)
         kw.update(overrides)
         return cls(**kw)
 
@@ -126,7 +133,8 @@ class StreamingConfig:
         return EmotionFrontendConfig(
             backend=self.emotion_backend,
             use_concatenation=self.use_concatenation,
-            sample_rate=self.sample_rate)
+            sample_rate=self.sample_rate,
+            egemaps_per_period=self.egemaps_per_period)
 
     @property
     def emotion_margin_samples(self) -> int:
@@ -163,7 +171,9 @@ class StreamingConfig:
 
     @property
     def egemaps_config(self) -> EgemapsConfig:
-        return EgemapsConfig(sample_rate=self.sample_rate)
+        return EgemapsConfig(
+            sample_rate=self.sample_rate,
+            per_period_voice_quality=self.egemaps_per_period)
 
     @property
     def lld_ring_rows(self) -> int:
@@ -187,7 +197,8 @@ def model_for_config(cfg: StreamingConfig) -> StreamingDualStreamModel:
         use_learnable_weights=cfg.use_learnable_weights,
         temperature=cfg.fusion_temperature,
         emotion_backend=cfg.emotion_backend,
-        emotion2vec_config=cfg.emotion2vec_config)
+        emotion2vec_config=cfg.emotion2vec_config,
+        egemaps_per_period=cfg.egemaps_per_period)
 
 
 @dataclasses.dataclass

@@ -7,11 +7,14 @@ the loss, ``torch.autograd.grad`` over every parameter, and the
 optimizer's update (:mod:`koemorph_tpu_torch.train.optim`). The epoch loop,
 validation, checkpoint cadence, early stopping, resume and TensorBoard
 scalars follow the JAX trainer's ``fit``. ``metrics["grad_norm"]`` is the
-global norm of the step's gradients before clipping.
+global norm of the step's gradients before clipping. With a TensorBoard
+writer, every ``log_images_every_n_steps`` steps the attention weights of
+the batch's first utterance go to ``attention/mel`` and
+``attention/emotion`` as images (:meth:`Trainer._log_attention_images`).
 
 Not ported (each raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): the device-resident scan epochs (``train_epoch_scan``), tensor
-parallelism, and attention-image logging.
+item): the device-resident scan epochs (``train_epoch_scan``) and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ __all__ = ["Trainer", "DualStreamTrainer", "SequentialTrainer",
 #: where the features that are not ported are queued
 SCAN_ITEM = "ROADMAP.md section 1, item 10 (the compiled train step)"
 TP_ITEM = "ROADMAP.md section 1, item 8 (several GPUs)"
-ATTN_ITEM = "ROADMAP.md section 1, item 7 (return_attention)"
 
 
 def loss_config_from(cfg: dict) -> KoeMorphLossConfig:
@@ -179,6 +181,8 @@ class Trainer:
                 "keep_epoch_every", 10)),
             config=to_dict(self.config))
         self.writer = self._make_writer()
+        #: False once the model showed it has no ``return_attention``
+        self._attention_images = True
         self.epoch = 0
         self.global_step = 0
 
@@ -391,12 +395,44 @@ class Trainer:
         """End-of-epoch hook (sequence-stat flush)."""
 
     def _log_attention_images(self, batch: dict) -> None:
-        if self.writer is None:
+        """Attention-weight images to TensorBoard: a forward of the batch's
+        first utterance with ``return_attention=True`` in eval mode (no
+        dropout, no generator: the training steps' masks are untouched),
+        each map (for a sequential model its last window's) divided by its
+        peak, as ``attention/mel`` and ``attention/emotion``. A model
+        without ``return_attention`` turns the images off once; a failed
+        call logs and is tried again at the next interval."""
+        if self.writer is None or not self._attention_images:
             return
-        raise NotImplementedError(
-            "attention-image logging is not ported (set "
-            "training.logging.log_images_every_n_steps=0 or "
-            f"training.logging.tensorboard=false): {ATTN_ITEM}")
+        if "return_attention" not in inspect.signature(
+                self.model.forward).parameters:
+            logger.info("attention images disabled: %s has no "
+                        "return_attention", type(self.model).__name__)
+            self._attention_images = False
+            return
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                out = self.model(batch["audio"][:1], return_attention=True)
+        except Exception as e:
+            logger.warning("attention image logging failed, will retry "
+                           "next interval: %s", e)
+            return
+        if isinstance(out, tuple):
+            out = out[0]
+        for name, key in (("mel", "mel_attention_weights"),
+                          ("emotion", "emotion_attention_weights")):
+            w = out.get(key)
+            if w is None:
+                continue
+            img = w[0].detach().to(torch.float32).cpu().numpy()
+            while img.ndim > 2:      # sequential models: (n, Q, K)
+                img = img[-1]
+            peak = float(img.max())
+            if peak > 0:
+                img = img / peak
+            self.writer.add_image(f"attention/{name}", img,
+                                  self.global_step, dataformats="HW")
 
 
 class DualStreamTrainer(Trainer):

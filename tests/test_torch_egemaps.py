@@ -122,18 +122,18 @@ def _jax_block():
     return jax.jit(lambda c, carry: jeg.compute_lld_block(c, cfg, carry))
 
 
-def _assert_lld_close(got: dict, want: dict):
+def _assert_lld_close(got: dict, want: dict, what: str = ""):
     assert set(got) == set(want)
     for key, w in want.items():
         w = np.asarray(w)
         g = got[key].numpy()
-        assert g.shape == w.shape, key
+        assert g.shape == w.shape, (what, key)
         if w.dtype == bool:
-            np.testing.assert_array_equal(g, w, err_msg=key)
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {key}")
         else:
             rtol = 1e-3 if key in ("formant_freq", "formant_bw") else 1e-4
             np.testing.assert_allclose(g, w, rtol=rtol, atol=1e-4,
-                                       err_msg=key)
+                                       err_msg=f"{what} {key}")
 
 
 class TestLldBlock:
@@ -201,10 +201,16 @@ class TestLldBlock:
                                            rtol=1e-4, atol=1e-4, err_msg=key)
 
     def test_unported_configs_raise(self):
-        with pytest.raises(NotImplementedError):
-            eg.EgemapsConfig(per_period_voice_quality=False)
-        with pytest.raises(NotImplementedError):
-            eg.EgemapsConfig(f0_smoother="viterbi")
+        # both options are ported (held against JAX by
+        # test_torch_egemaps_frame_level.py and test_torch_f0_viterbi.py);
+        # an unknown smoother raises when the block runs
+        for cfg in (eg.EgemapsConfig(per_period_voice_quality=False),
+                    eg.EgemapsConfig(f0_smoother="viterbi")):
+            block, _ = eg.compute_lld_block(torch.zeros(CHUNK), cfg)
+            assert block["voiced"].shape == (N_ROWS,)
+        with pytest.raises(ValueError, match="smoother"):
+            eg.compute_lld_block(torch.zeros(CHUNK),
+                                 eg.EgemapsConfig(f0_smoother="median"))
 
 
 def _lld_ring(rows: int, seed: int = 0) -> dict:

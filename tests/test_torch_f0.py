@@ -118,5 +118,9 @@ class TestYinCore:
             assert tc.cycle_valid.numpy()[voiced].sum(-1).min() >= 2
 
     def test_viterbi_smoother_is_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            f0.yin_core(torch.zeros(2048), smoother="viterbi")
+        # the smoother is ported (held against JAX by
+        # test_torch_f0_viterbi.py): silence picks tau_min, unvoiced
+        out = f0.yin_core(torch.zeros(2048), smoother="viterbi")
+        assert out.pick.shape == (13,) and not out.result.voiced_flag.any()
+        with pytest.raises(ValueError, match="smoother"):
+            f0.yin_core(torch.zeros(2048), smoother="pyin")

@@ -116,10 +116,15 @@ def _reset_lane(cfg, st, lane):
 
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 @pytest.mark.parametrize("cohorts", [1, 2])
-def test_static_server_step_equals_functional(tcfg, model, cohorts, dtype):
+@pytest.mark.parametrize("voice_quality", ["per_period", "frame_level"])
+def test_static_server_step_equals_functional(tcfg, model, cohorts, dtype,
+                                              voice_quality):
     """Ping-pong rings and dB rows, refresh fields and EMA carry in place:
     bitwise the functional composition over 2K+1 steps, with a lane reset
-    at a refresh boundary and one mid-cadence."""
+    at a refresh boundary and one mid-cadence; with frame-level voice
+    quality the LLD carry's period, voicing (bool) and RMS fields too."""
+    if voice_quality == "frame_level":
+        tcfg = dataclasses.replace(tcfg, egemaps_per_period=False)
     n_steps, lanes = 2 * K + 1, 4
     pcm = _pcm(lanes, n_steps)
     as_float = torch.from_numpy(pcm.astype(np.float32) / 32768.0)
@@ -148,7 +153,10 @@ def test_static_server_step_equals_functional(tcfg, model, cohorts, dtype):
             for k, v in ref.lld_ring.items():
                 assert torch.equal(st.lld_ring[k], v), (i, k)
             for a, b in zip(st.lld_carry, ref.lld_carry):
-                assert torch.equal(a, b), i
+                assert (a is None) == (b is None), i
+                assert a is None or torch.equal(a, b), i
+            assert (st.lld_carry.prev_voiced is None) == (
+                voice_quality == "per_period")
     assert st.frame_count == n_steps
 
 
@@ -351,9 +359,23 @@ class _CallingGraphs:
         self.dropped.append(key)
 
 
-def test_decoder_keeps_the_graphs_of_its_recent_shapes():
-    """Each shape's call reads its static buffer, refilled on every call;
-    past ``max_graphs`` shapes the least recently used graph goes."""
+def _decode_call(dec, method: str, audio: torch.Tensor, stride: int):
+    """One decode of ``audio`` (B, L) by ``method``."""
+    if method == "call":
+        return dec(audio)
+    if method == "scheduled":
+        return dec.decode_scheduled(audio, [stride, 1][:audio.shape[0]])[0]
+    return dec.decode_sequence_parallel(audio[0].numpy())
+
+
+@pytest.mark.parametrize("method", ["call", "scheduled",
+                                    "sequence_parallel"])
+def test_decoder_keeps_the_graphs_of_its_recent_shapes(method):
+    """Each key's call reads its static buffers (audio, and window starts
+    for the scheduled and sequence-parallel decodes), refilled on every
+    call: a call of a seen key with other strides or audio replays the
+    same graph and gives the eager result; past ``max_graphs`` keys the
+    least recently used graph goes."""
     dec_model = SequentialDualStreamModel(d_model=32, num_heads=2,
                                           mel_sequence_length=16,
                                           stride_frames=3)
@@ -363,11 +385,43 @@ def test_decoder_keeps_the_graphs_of_its_recent_shapes():
     dec.step_graphs = graphs = _CallingGraphs()
     dec.max_graphs = 2
     frames = [40, 41, 40, 42, 41]
+    stride = 3 if method == "scheduled" else 1
     for seed, n in enumerate(frames):
         audio = torch.from_numpy(_voice(n * HOP, seed=seed + 1)[None])
-        assert torch.equal(dec(audio), eager(audio)), seed
-    assert [k[0][1] for k in graphs.dropped] == [41 * HOP, 40 * HOP]
-    assert sorted(k[0][1] for k in graphs.bodies) == [41 * HOP, 42 * HOP]
+        if method == "scheduled":
+            audio = torch.cat([audio, audio.flip(-1)])
+            stride = 2 + seed % 2              # n_max is the stride-1 row's
+        assert torch.equal(_decode_call(dec, method, audio, stride),
+                           _decode_call(eager, method, audio, stride)), seed
+    assert [k[0] for k in graphs.dropped + list(graphs.bodies)] \
+        == [method] * 4
+    assert [k[1][-1] for k in graphs.dropped] == [41 * HOP, 40 * HOP]
+    assert sorted(k[1][-1] for k in graphs.bodies) == [41 * HOP, 42 * HOP]
+
+
+def test_decode_start_bodies_are_capture_safe(monkeypatch):
+    """The bodies of ``decode_scheduled`` and ``decode_sequence_parallel``
+    (window starts read from a buffer on the device) run with every host
+    copy and sync patched to raise, after warm-up."""
+    dec_model = SequentialDualStreamModel(d_model=32, num_heads=2,
+                                          mel_sequence_length=16,
+                                          stride_frames=3)
+    dec_model.init_random(torch.Generator().manual_seed(1))
+    dec = BatchedSequentialDecoder(dec_model, device="cpu")
+    audio = torch.from_numpy(np.stack([_voice(40 * HOP, seed=s)
+                                       for s in (1, 2)]))
+    want_sched, _ = dec.decode_scheduled(audio, [1, 4])
+    want_seq = dec.decode_sequence_parallel(audio[0].numpy())
+    span = 40 - 16
+    starts = torch.from_numpy(np.minimum(
+        np.arange(span + 1)[None] * np.array([[1], [4]]), span))
+    seq_starts = torch.arange(0, span + 1, 3)[None]
+    with torch.inference_mode(), _no_host_traffic(monkeypatch):
+        got_sched = dec._decode_at(audio, starts)
+        got_seq = dec._decode_sequence(audio[:1], seq_starts,
+                                       n_out=seq_starts.shape[1])
+    assert torch.equal(got_sched, want_sched)
+    assert torch.equal(got_seq, want_seq)
 
 
 @pytest.mark.parametrize("backend,kw", [

@@ -105,8 +105,9 @@ def test_stft_power(kw):
 
 def test_stft_power_methods():
     x = torch.zeros(2048)
-    with pytest.raises(NotImplementedError):
-        stft.stft_power(x, n_fft=1024, hop_length=533, method="rfft")
+    # "rfft" is ported (held against JAX by test_torch_frontend_variants.py)
+    assert stft.stft_power(x, n_fft=1024, hop_length=533,
+                           method="rfft").shape == (4, 513)
     with pytest.raises(ValueError):
         stft.stft_power(x, n_fft=1024, hop_length=533, method="fft2")
 
@@ -145,5 +146,10 @@ def test_log_mel_spectrogram_and_detail(fps):
 
 
 def test_unported_frontend_style_raises():
-    with pytest.raises(NotImplementedError):
-        frontend.LogMelFrontend(style="torchaudio")
+    # the torchaudio style is ported (test_torch_frontend_variants.py);
+    # an unknown style or STFT method raises
+    assert frontend.LogMelFrontend(style="torchaudio").style == "torchaudio"
+    with pytest.raises(ValueError, match="style"):
+        frontend.LogMelFrontend(style="kaldi")
+    with pytest.raises(ValueError, match="stft_method"):
+        frontend.LogMelFrontend(stft_method="pallas")

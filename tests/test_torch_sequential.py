@@ -315,8 +315,9 @@ def test_simplified_model_matches_jax():
 def test_model_options_raise():
     _, tm = _models(30)
     x = torch.from_numpy(AUDIO)
-    with pytest.raises(NotImplementedError):
-        tm(x, return_attention=True)
+    # return_attention is ported (test_torch_attention_out.py)
+    assert tm(x, return_attention=True)["mel_attention_weights"].shape[-2:] \
+        == (28, 80)
     with pytest.raises(ValueError):
         dm.SequentialDualStreamModel(**SMALL, window_edge="mirror")
     with pytest.raises(ValueError):

@@ -194,15 +194,17 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 def test_unported_configurations_raise():
-    # the stream's basic, emotion2vec and full-ring refreshes run now
-    # (held against JAX by tests/test_torch_stream_refresh.py); what is
-    # still unported raises: the viterbi F0 smoother and the frame-level
-    # jitter and shimmer proxies
+    # the stream's basic, emotion2vec and full-ring refreshes run (held
+    # against JAX by tests/test_torch_stream_refresh.py), and so do the
+    # viterbi F0 smoother and the frame-level jitter and shimmer
+    # (test_torch_f0_viterbi.py, test_torch_egemaps_frame_level.py); an
+    # unknown smoother or backend raises
     from koemorph_tpu_torch.ops import egemaps as eg
-    with pytest.raises(NotImplementedError):
-        f0_ops.yin_core(torch.zeros(2048), smoother="viterbi")
-    with pytest.raises(NotImplementedError):
-        eg.EgemapsConfig(per_period_voice_quality=False)
+    with pytest.raises(ValueError, match="smoother"):
+        f0_ops.yin_core(torch.zeros(2048), smoother="median")
+    cfg = streaming.StreamingConfig(**KW, egemaps_per_period=False)
+    assert cfg.egemaps_config == eg.EgemapsConfig(
+        per_period_voice_quality=False)
     with pytest.raises(ValueError):
         streaming.StreamingConfig(**KW, emotion_backend="precomputed")
     # checkpoints load: a missing path raises FileNotFoundError, and a
@@ -231,9 +233,11 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'koemorph_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "for m in ('serve', 'feed_serve', 'runtime.multistream',\n"
         "          'runtime.graphs', 'train', 'train.__main__',\n"
-        "          'train.optim', 'train.trainer', 'train.checkpoint'):\n"
+        "          'train.optim', 'train.trainer', 'train.checkpoint',\n"
+        "          'visualization.attention_viz'):\n"
         "    assert 'koemorph_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('koemorph_tpu_torch')]))\n")
@@ -297,3 +301,19 @@ def test_stereo_replay_mixes_to_mono(tmp_path):
     assert jax_audio.shape == (2 * len(x),)
     np.testing.assert_array_equal(jax_audio[0::2], x)
     np.testing.assert_array_equal(jax_audio[1::2], 0.5 * x)
+
+
+def test_chip_smoke_imports_no_jax_or_matplotlib():
+    """``chip_smoke.py`` runs on a machine without JAX or matplotlib: no
+    import of either, or of the JAX package, anywhere in it."""
+    import ast
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "koemorph_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "koemorph_tpu",
+                        "matplotlib"}, roots

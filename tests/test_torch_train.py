@@ -517,7 +517,8 @@ def test_unported_trainer_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 10"):
         tt.train_epoch_scan(iter([]))
     tt._log_attention_images({})          # no writer: nothing to log
+    # attention images are ported (test_torch_attention_out.py): a call
+    # that fails logs and leaves the writer untouched, to retry later
     tt.writer = object()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt._log_attention_images({})
+    tt._log_attention_images({})
     assert dataclasses.fields(tt.loss_config)
