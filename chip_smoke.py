@@ -141,6 +141,26 @@ inside ``plain_forms()``.
    torchaudio-style and rfft frontends against float64 on the card.
    The eager stream and server runs' wrapper counts are held equal to
    the expected launches too.
+14. the legacy model family (``slice10_phases``) at flagship width:
+   ``rt_simplified`` (``run_stream`` over 105 frames of the rolling 1 s
+   window, one graph; ``logmel`` at T = 31 once per frame by the profiler,
+   the capture's record and the eager wrappers; graphed bitwise equal to
+   eager; the plain forms within 1e-4, the mel within K3's rule; frame
+   times graphed and eager), the CLI chain (``python -m
+   koemorph_tpu_torch.train --config configs/config.yaml --synthetic 32``,
+   then ``rt_simplified --model`` on one file, bitwise equal to the
+   in-process frames, ``test_model --model-name simplified``, and
+   ``test_model --model-name sequential_dual_stream`` on random weights
+   from a ``.pth``, its metrics within 1e-5 of the same batch in process,
+   which launches K1, K2 and K3; one simplified evaluation batch counted
+   in process), ``KoeMorphTrainer.fit`` for 12 steps at batch 16 on 12 s
+   files (``logmel`` once per step at 5,776 frames; ms per step, audio
+   seconds per second, the fit's peak memory above what the process held
+   before it, the device-busy share of two profiled steps' wall time; one
+   step's loss and gradients against the plain forms; a resume
+   after step 6 bitwise), and ``KoeMorphModel`` carried over 30 steps per
+   smoothing method at batch 4 on K3's 256-frame mel (outputs finite in
+   [0, 1]).
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -155,6 +175,7 @@ table, the ``nvidia-smi`` name and power limit, and ``{"ok": true,
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import json
@@ -2223,6 +2244,486 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
             "t_global": t_global, "t_edges": t_edges, "synth": synth}
 
 
+#: the legacy family (phase 14): the frames of rt_simplified, the CLI
+#: training run (32 synthetic 12 s files, batch 16: 2 steps an epoch), the
+#: in-process KoeMorphTrainer steps and the KoeMorphModel's carried steps
+RT_FRAMES, LEGACY_FILES, LEGACY_EPOCHS, KOEMORPH_STEPS = 105, 32, 6, 30
+LEGACY_PLAIN_MAX = 1e-4                # blendshapes, kernels vs plain
+#: test_model's metrics in its subprocess against the same batch in process
+SEQ_EVAL_ATOL = 1e-5
+
+
+def k3_rule(got, want) -> bool:
+    """K3's agreement rule on dB rows: 1e-3 dB + 1e-4 relative."""
+    return bool(((got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
+
+
+def slice10_phases(card: str, work: Path, env: dict) -> dict:
+    """Phase 14: the legacy model family at flagship width (d_model 256, 8
+    heads, 80 mels, 30 fps), each through its entry points with the launch
+    counts set to 0 just before: ``rt_simplified`` (``FrameStep`` and
+    ``run_stream`` over 105 frames of the rolling 1 s window, graphed,
+    then eager, then with the plain forms; K3 at T = 31 once per frame by
+    the profiler and by the capture's record), ``legacy_cli`` (``python -m
+    koemorph_tpu_torch.train --config configs/config.yaml``, then
+    ``rt_simplified`` and ``test_model`` on what it wrote, and
+    ``test_model --model-name sequential_dual_stream``, subprocesses),
+    ``legacy_train`` (``KoeMorphTrainer.fit`` for 12 steps at batch 16 on
+    the CLI's files: times, the kernels against the plain forms, a resume
+    after step 6 bitwise) and ``koemorph_model`` (30 carried steps of
+    ``KoeMorphModel`` per smoothing method on K3's mel at batch 4, T =
+    256). Returns the recorded kernel arguments and launch counts for the
+    kernels table."""
+    import torch
+    from koemorph_tpu_torch import rt_simplified as rts
+    from koemorph_tpu_torch.data.dataset import KoeMorphDataModule
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.data.wav import read_wav, write_wav
+    from koemorph_tpu_torch.models import KoeMorphModel, KoeMorphModelState
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.runtime.audio import AudioFileReader
+    from koemorph_tpu_torch.models.losses import BlendshapeMetrics
+    from koemorph_tpu_torch.test_model import build_model as tm_build_model
+    from koemorph_tpu_torch.test_model import predict
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.trainer import (KoeMorphTrainer,
+                                                  dropout_generator)
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+
+    out: dict = {"rec": {}, "shapes": {}}
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+
+    def windows(audio, n):
+        """The rolling 1 s windows ``run_stream`` feeds the step."""
+        buf = np.zeros(SR, np.float32)
+        padded = np.pad(audio, (0, -len(audio) % HOP))
+        rows = []
+        for i in range(n):
+            buf = np.concatenate([buf[HOP:], padded[i * HOP:(i + 1) * HOP]])
+            rows.append(buf)
+        return np.stack(rows)
+
+    def event_ms(fn, items) -> list:
+        times = []
+        for x in items:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(x)                    # returns host numpy: synchronized
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return times
+
+    # ---- rt_simplified: the main path, counted ----
+    wav = work / "legacy_rt.wav"
+    write_wav(wav, voiced_audio(RT_FRAMES * HOP / SR, seed=3), SR)
+    audio, _ = read_wav(wav)              # as the file reader gives it
+    wins = windows(audio, RT_FRAMES)
+    t_rt = 1 + SR // HOP                                          # 31
+    model = rts.build_model(seed=0)
+    profiled(lambda: None)
+    ck.reset_launch_counts()
+    step = rts.FrameStep(model, SR)
+    source = AudioFileReader(wav, SR, HOP, realtime=False)
+    source.start()
+    try:
+        stats = rts.run_stream(step, source, max_frames=RT_FRAMES)
+    finally:
+        source.stop()
+    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    bs = stats.pop("blendshapes")
+    box = []
+    seen, want = replayed_launches(step.step_graphs, in_windows(
+        RT_FRAMES, lambda lo, hi: box.extend(step(w) for w in wins[lo:hi])))
+    eager = rts.FrameStep(model, SR, graphs=False)
+    eager.warmup()
+    before = dict(ck.LAUNCHES)
+    with recording_kernels(out["rec"], "rt_simplified"):
+        eager_bs = np.stack([eager(w) for w in wins])
+    eager_launches = {n: ck.LAUNCHES[n] - before[n] for n in KERNEL_PATTERNS}
+    with plain_forms():
+        before = dict(ck.LAUNCHES)
+        plain = rts.FrameStep(model, SR, graphs=False)
+        plain_bs = np.stack([plain(w) for w in wins])
+        check(dict(ck.LAUNCHES) == before,
+              "rt_simplified: the plain step launched a kernel")
+    wins_dev = torch.from_numpy(wins).to(dev)
+    lm_kw = model.frontend.logmel_kwargs()
+    with torch.inference_mode():
+        db_k = frontend.fused_log_mel_frontend(wins_dev, hop_length=HOP,
+                                               **lm_kw)
+        with plain_forms():
+            db_p = frontend.fused_log_mel_frontend(wins_dev, hop_length=HOP,
+                                                   **lm_kw)
+    graphed_ms = event_ms(step, wins)
+    eager_ms = event_ms(eager, wins)
+    d_plain = float(np.abs(plain_bs - bs).max())
+    expect = {"cycle_dsum": 0, "dk_roots": 0, "logmel": RT_FRAMES}
+    emit({"phase": "rt_simplified", "card": card, "frames": stats["frames"],
+          "window_samples": SR, "logmel_T": t_rt,
+          "run_stream": stats, "finite": bool(np.isfinite(bs).all()),
+          "min": float(bs.min()), "max": float(bs.max()),
+          "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "replayed_launches_profiled": seen,
+          "replayed_launches_recorded": want,
+          "eager_launches_counted": eager_launches,
+          "graphs": graph_info(step.step_graphs),
+          "run_stream_equals_steps": bool(np.array_equal(bs, np.stack(box))),
+          "graphed_bitwise_equal_eager": bool(np.array_equal(bs, eager_bs)),
+          "max_abs_diff_plain": d_plain, "bound_plain": LEGACY_PLAIN_MAX,
+          "mel_db_max_abs_diff_plain": float((db_k - db_p).abs().max()),
+          "mel_db_k3_rule": k3_rule(db_k, db_p),
+          "frame_ms_graphed": q(graphed_ms), "frame_ms_eager": q(eager_ms)})
+    check(bs.shape == (RT_FRAMES, 52) and bool(np.isfinite(bs).all())
+          and bs.min() >= 0.0 and bs.max() <= 1.0, "rt_simplified output")
+    check(np.array_equal(bs, np.stack(box)),
+          "rt_simplified: run_stream != the same windows stepped")
+    check(np.array_equal(bs, eager_bs), "rt_simplified: graphed != eager")
+    check(launches["logmel"] > 0 and shapes.get(("logmel", (t_rt,)), 0) > 0,
+          f"rt_simplified launched no logmel at T = {t_rt}: {launches}")
+    check(seen == want == expect == eager_launches,
+          f"rt_simplified: replays ran {seen}, the capture recorded "
+          f"{want}, the eager run counted {eager_launches}, expected "
+          f"{expect}")
+    check(d_plain <= LEGACY_PLAIN_MAX and k3_rule(db_k, db_p),
+          f"rt_simplified: kernels vs plain forms {d_plain}")
+    out["shapes"]["rt_simplified"] = shapes
+    out["t_rt"] = t_rt
+    del step, eager, plain, wins_dev
+
+    # ---- legacy_cli: train, then rt_simplified and test_model on it ----
+    config_path = ROOT / "configs" / "config.yaml"
+    cli_work = work / "legacy_cli"
+    last = cli_work / "checkpoints" / "last"
+    cli = {}
+
+    def run_cli(name, *args, key=None):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", name, *args], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0,
+              f"{name} failed:\n{proc.stderr[-3000:]}")
+        check("random" not in proc.stderr, f"{name} used random weights")
+        cli[key or name.rsplit(".", 1)[-1]] = {
+            "seconds": time.perf_counter() - t0}
+        return proc
+
+    proc = run_cli("koemorph_tpu_torch.train", "--config", str(config_path),
+                   "--synthetic", str(LEGACY_FILES), "--max-epochs", "1",
+                   "--work-dir", str(cli_work))
+    final = json.loads(proc.stdout.strip().splitlines()[-1])
+    meta = json.loads((last / "meta.json").read_text())
+    cli["train"].update(global_step=meta["global_step"],
+                        final_train_metrics=final["final_train_metrics"])
+    check(meta["global_step"] == LEGACY_FILES // 16
+          and np.isfinite(final["final_train_metrics"]["loss"]),
+          f"legacy train CLI: {final}, {meta}")
+    synth = cli_work / "synth_data"
+    rt_wav = synth / "synth_000.wav"
+    rt_rows = work / "legacy_cli_rt.jsonl"
+    proc = run_cli("koemorph_tpu_torch.rt_simplified", "--input",
+                   str(rt_wav), "--model", str(last), "--no-realtime",
+                   "--output", "file", "--output-file", str(rt_rows))
+    got = np.asarray([json.loads(r)["blendshapes"]
+                      for r in rt_rows.read_text().splitlines()])
+    cli_model = rts.build_model(checkpoint=str(last))
+    rt_audio, _ = read_wav(rt_wav)
+    in_proc = rts.FrameStep(cli_model, SR)
+    want_rt = np.stack([in_proc(w) for w in
+                        windows(rt_audio, -(-len(rt_audio) // HOP))])
+    cli["rt_simplified"].update(
+        frames=len(got), log=[ln for ln in proc.stderr.splitlines()
+                              if "RTF" in ln],
+        max_abs_diff_in_process=float(np.abs(got - want_rt).max())
+        if got.shape == want_rt.shape else None)
+    check(got.shape == want_rt.shape and np.array_equal(got, want_rt),
+          "rt_simplified --model differs from the in-process frames")
+    proc = run_cli("koemorph_tpu_torch.test_model", "--data-dir",
+                   str(synth), "--model-name", "simplified", "--model",
+                   str(last))
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli["test_model"].update(metrics=result)
+    check(result["batches"] >= 1
+          and all(np.isfinite(v) for v in result.values()),
+          f"test_model: {result}")
+    # the sequential dual-stream model through the same CLI (K1, K2 and K3
+    # in its eGeMAPS refresh and mel frontend), random weights from a
+    # .pth, then its first batch in process, counted
+    seq_args = argparse.Namespace(
+        model_name="sequential_dual_stream", d_model=256, num_heads=8,
+        fps=30, emotion_backend="egemaps")
+    seq_model, seq_span = tm_build_model(seq_args)
+    seq_model.init_random(torch.Generator().manual_seed(0))
+    seq_pth = work / "legacy_cli_sequential.pth"
+    torch.save(seq_model.state_dict(), seq_pth)
+    proc = run_cli("koemorph_tpu_torch.test_model", "--data-dir",
+                   str(synth), "--model-name", "sequential_dual_stream",
+                   "--model", str(seq_pth), "--max-batches", "1",
+                   key="test_model_sequential")
+    seq_result = json.loads(proc.stdout.strip().splitlines()[-1])
+    seq_loader, _ = create_sequential_dataloader(
+        synth, batch_size=4, window_frames=seq_span, stride_frames=seq_span,
+        drop_last=True)
+    seq_batch = next(iter(seq_loader()))
+    seq_model = seq_model.eval().to(dev)
+    ck.reset_launch_counts()
+    seq_pred, seq_target = predict(seq_model, "sequential_dual_stream",
+                                   256, seq_batch, dev)
+    seq_launches = dict(ck.LAUNCHES)
+    seq_metrics = BlendshapeMetrics()
+    seq_metrics.update(seq_pred, np.asarray(seq_target))
+    seq_in_proc = {k: float(v) for k, v in seq_metrics.compute().items()}
+    seq_diff = max(abs(seq_result[k] - v) for k, v in seq_in_proc.items())
+    cli["test_model_sequential"].update(
+        metrics=seq_result, launches_in_process=seq_launches,
+        max_abs_diff_in_process=seq_diff)
+    check(seq_result["batches"] == 1.0
+          and all(np.isfinite(v) for v in seq_result.values()),
+          f"test_model sequential_dual_stream: {seq_result}")
+    check(all(seq_launches[k] > 0 for k in ("cycle_dsum", "dk_roots",
+                                             "logmel")),
+          f"the sequential evaluation batch launched {seq_launches}")
+    check(seq_diff <= SEQ_EVAL_ATOL,
+          f"test_model sequential_dual_stream differs from the same batch "
+          f"in process by {seq_diff}")
+    del seq_model
+    # one evaluation batch in process, counted: 4 windows of 256 frames
+    loader_fn, _ = create_sequential_dataloader(
+        synth, batch_size=4, window_frames=256, stride_frames=256)
+    ev_batch = next(iter(loader_fn()))
+    ck.reset_launch_counts()
+    with recording_kernels(out["rec"], "eval"):
+        pred, _ = predict(cli_model.eval(), "simplified", 256, ev_batch, dev)
+    out["shapes"]["eval"] = dict(ck.SHAPE_LAUNCHES)
+    t_eval = 4 * (1 + ev_batch["audio"].shape[1] // HOP)
+    cli["eval_batch_launches"] = {f"{a}{list(b)}": v for (a, b), v in
+                                  out["shapes"]["eval"].items()}
+    emit({"phase": "legacy_cli", "card": card, **cli})
+    check(out["shapes"]["eval"] == {("logmel", (t_eval,)): 1}
+          and pred.shape == (4, 52),
+          f"an evaluation batch launched {out['shapes']['eval']}")
+    out["t_eval"] = t_eval
+    del cli_model, in_proc
+
+    # ---- legacy_train: KoeMorphTrainer on the CLI's files ----
+    cfg = load_config(config_path)
+    tcfg = to_dict(cfg)
+    batch_size = int(cfg.data.batch_size)
+
+    def new_trainer(tag, dropout=None):
+        legacy, kind = build_model(cfg)
+        check(kind == "frame", f"configs/config.yaml's model is {kind}")
+        if dropout is not None:
+            legacy.dropout.rate = legacy.attention.attn_dropout.rate = dropout
+        dm_ = KoeMorphDataModule(train_data_dir=synth, batch_size=batch_size)
+        dm_.setup()
+        steps = len(dm_.train_dataloader())
+        trainer = KoeMorphTrainer(legacy, tcfg,
+                                  work_dir=work / f"legacy_{tag}",
+                                  steps_per_epoch=steps)
+
+        def loader(epoch):
+            ld = dm_.train_dataloader()
+            ld.set_epoch(epoch)
+            return iter(ld)
+        return trainer, loader, steps
+
+    trainer, loader, per_epoch = new_trainer("main")
+    n_steps = per_epoch * LEGACY_EPOCHS
+    events, losses = [], []
+    real_step = trainer.train_step
+
+    def timed_step(batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        metrics = real_step(batch)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = timed_step
+    before_p = {k: v.detach().clone() for k, v in trainer.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernels(out["rec"], "legacy_train"):
+        history = trainer.fit(loader, None, max_epochs=LEGACY_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    # the fit's own peak: above what the process held when it started
+    peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+    trainer.train_step = real_step
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    losses = [float(v) for v in losses]
+    moved = [k for k, v in trainer.params.items()
+             if not bool((v.detach() != before_p[k]).any())]
+    batches = [trainer._prepare(b) for b in list(loader(0))[:2]]
+    prof = profiled(lambda: [trainer.train_step(b) for b in batches])
+    ks = device_kernels(None, prof)
+    busy_ms = sum(us for _, us in ks) / 1e3 / 2
+    profiled_step_ms = prof.wall_s * 1e3 / 2
+    own = {k: v / KERNELS_PER_LAUNCH[k]
+           for k, v in own_kernels(ks, 2).items()}
+    t_train = batch_size * (1 + batches[0]["audio"].shape[1] // HOP)
+    audio_s = batch_size * batches[0]["audio"].shape[1] / SR
+    med = float(np.median(step_ms[1:]))
+
+    # one step's loss and gradients, kernels against the plain forms
+    plain_t, _, _ = new_trainer("plain", dropout=0.0)
+    plain_t.model.load_state_dict(trainer.model.state_dict())
+    b = batches[1]
+
+    def loss_grads():
+        plain_t.model.train()
+        loss, _ = plain_t.loss_fn(b, dropout_generator(0, 0, dev))
+        grads = torch.autograd.grad(loss, list(plain_t.params.values()))
+        return float(loss.detach()), dict(zip(plain_t.params, grads))
+
+    loss_k, grads_k = loss_grads()
+    with plain_forms():
+        before = dict(ck.LAUNCHES)
+        loss_p, grads_p = loss_grads()
+        check(dict(ck.LAUNCHES) == before,
+              "the plain legacy step launched a kernel")
+    rel = {k: float((grads_k[k] - g).abs().max() / g.abs().max())
+           for k, g in grads_p.items()}
+    (x_t,), kw_t = out["rec"][("logmel", "legacy_train", t_train)]
+    with torch.inference_mode():
+        k3_ok = k3_rule(ck.logmel(x_t, **kw_t),
+                        frontend.frames_to_logmel_plain(x_t, **kw_t))
+
+    # a resume after step 6 against the uninterrupted run (dropout on)
+    whole, loader_w, _ = new_trainer("whole")
+    whole.fit(loader_w, None, max_epochs=LEGACY_EPOCHS)
+    first, loader_f, _ = new_trainer("split")
+    first.fit(loader_f, None, max_epochs=LEGACY_EPOCHS // 2)
+    resumed, loader_r, _ = new_trainer("split")
+    check(resumed.resume() and resumed.global_step == n_steps // 2,
+          "the resumed legacy trainer did not find its checkpoint")
+    resumed.fit(loader_r, None, max_epochs=LEGACY_EPOCHS)
+    diffs = {k: float((p.detach() - resumed.params[k].detach()).abs().max())
+             for k, p in whole.params.items()}
+    sa, sb = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    moments_equal = all(torch.equal(sa[m][k], sb[m][k])
+                        for m in ("mu", "nu") for k in sa[m])
+    emit({"phase": "legacy_train", "card": card, "batch": batch_size,
+          "audio_samples": int(batches[0]["audio"].shape[1]),
+          "logmel_T": t_train, "steps": len(step_ms),
+          "first_step_ms": float(step_ms[0]), "step_ms": q(step_ms[1:]),
+          "fit_wall_s": wall,
+          "audio_s_per_wall_s": len(step_ms) * audio_s / wall,
+          "audio_s_per_step_s": audio_s / (med / 1e3),
+          "activities_per_step": len(ks) / 2,
+          "device_busy_ms_per_step": busy_ms,
+          "profiled_step_ms": profiled_step_ms,
+          "device_busy_share": busy_ms / profiled_step_ms,
+          "fit_peak_gb_above_start": peak_gb, "launches": launches,
+          "launches_by_shape": {f"{a}{list(s)}": v
+                                for (a, s), v in shapes.items()},
+          "profiled_kernels_per_step": own,
+          "top_kernels_us_per_step": profile_summary(ks, 2, top_n=8),
+          "losses": losses, "train_metrics": history["train"][-1],
+          "params_not_moved": moved,
+          "loss_kernels": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+          "grad_max_rel_diff": max(rel.values()),
+          "logmel_train_shape_k3_rule": k3_ok,
+          "resume_bitwise_equal": max(diffs.values()) == 0.0
+          and moments_equal,
+          "resume_max_abs_diff": max(diffs.values())})
+    check(len(step_ms) == n_steps and all(np.isfinite(losses)),
+          f"legacy fit: {len(step_ms)} steps, losses {losses}")
+    check(not moved, f"legacy parameters did not move: {moved}")
+    check(launches == {"cycle_dsum": 0, "dk_roots": 0, "logmel": n_steps}
+          and shapes.get(("logmel", (t_train,)), 0) == n_steps,
+          f"legacy train launches {shapes} for {n_steps} steps")
+    check(own == {"cycle_dsum": 0.0, "dk_roots": 0.0, "logmel": 1.0},
+          f"legacy train: profiled kernels per step {own}")
+    check(abs(loss_k - loss_p) <= TRAIN_PLAIN_LOSS_RTOL * abs(loss_p),
+          f"legacy loss: kernels {loss_k}, plain {loss_p}")
+    check(max(rel.values()) <= TRAIN_PLAIN_GRAD,
+          f"legacy gradients: kernels vs plain {rel}")
+    check(k3_ok, "logmel disagrees with its plain form at the legacy "
+          "training shape")
+    check(max(diffs.values()) == 0.0 and moments_equal
+          and sa["count"] == sb["count"] == n_steps,
+          f"resumed legacy run != uninterrupted run: {diffs}")
+    out["shapes"]["legacy_train"] = shapes
+    out["t_train"] = t_train
+    del trainer, plain_t, whole, first, resumed
+
+    # ---- koemorph_model: 30 carried steps per smoothing method ----
+    n_mel = 256
+    km_audio = torch.from_numpy(np.stack([
+        voiced_audio((n_mel - 1 + KOEMORPH_STEPS) * HOP / SR, seed=s)
+        for s in range(4, 8)])).to(dev)
+    emo = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (KOEMORPH_STEPS, 4, n_mel, 256)).astype(np.float32)).to(dev)
+    mel_cfg = frontend.LogMelFrontend()
+    km = {}
+    ck.reset_launch_counts()
+    for method in ("exponential", "gaussian", "median"):
+        m = KoeMorphModel(smoothing_method=method, dropout=0.0,
+                          attention_dropout=0.0, window_size=30,
+                          causal=True)
+        m.init_random(torch.Generator().manual_seed(0))
+        m = m.eval().to(dev)
+        state = KoeMorphModelState.create(4, device=dev)
+        outs, ms = [], []
+        with torch.inference_mode():
+            for s in range(KOEMORPH_STEPS):
+                x = km_audio[:, s * HOP:(s + n_mel - 1) * HOP]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                mel = frontend.log_mel_spectrogram(x, mel_cfg)
+                res, state = m(mel, emo[s], state)
+                e1.record()
+                outs.append(res["blendshapes"])
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+        o = torch.stack(outs).cpu().numpy()
+        km[method] = {"step_ms": q(ms[1:]), "finite": bool(
+            np.isfinite(o).all()), "min": float(o.min()),
+            "max": float(o.max()), "mel_T": int(mel.shape[1]),
+            "history_ptr": int(state.smoother.history_ptr)}
+        check(mel.shape == (4, n_mel, 80), f"KoeMorphModel mel {mel.shape}")
+        check(km[method]["finite"] and o.min() >= 0.0 and o.max() <= 1.0,
+              f"KoeMorphModel ({method}) output {km[method]}")
+    km_shapes = dict(ck.SHAPE_LAUNCHES)
+    # the models' mel (dB before the normalization), kernels vs plain
+    with torch.inference_mode():
+        x = km_audio[:, :(n_mel - 1) * HOP]
+        db_k = frontend.fused_log_mel_frontend(x)
+        with plain_forms():
+            db_p = frontend.fused_log_mel_frontend(x)
+    mel_ok = k3_rule(db_k, db_p)
+    emit({"phase": "koemorph_model", "card": card, "batch": 4,
+          "mel_frames": n_mel, "steps": KOEMORPH_STEPS, "d_model": 256,
+          "d_query": 128, "window_size": 30,
+          "launches_by_shape": {f"{a}{list(s)}": v
+                                for (a, s), v in km_shapes.items()},
+          "mel_db_max_abs_diff_plain": float((db_k - db_p).abs().max()),
+          "mel_db_k3_rule": mel_ok, "methods": km})
+    check(km_shapes == {("logmel", (4 * n_mel,)): 3 * KOEMORPH_STEPS},
+          f"KoeMorphModel launches {km_shapes}")
+    check(mel_ok, "KoeMorphModel's mel: kernels vs plain forms")
+    emit({"phase": "slice10", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 def main() -> int:  # noqa: C901
     import torch
 
@@ -3181,6 +3682,9 @@ def main() -> int:  # noqa: C901
 
     # ---- 13. the remaining eGeMAPS, F0, frontend and decoder options ----
     s9 = slice9_phases(card)
+
+    # ---- 14. the legacy model family ----
+    s10 = slice10_phases(card, work, env)
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -3636,6 +4140,33 @@ def main() -> int:  # noqa: C901
                 f"viterbi args n{n} x{rows_v}", frames_a, st, tau, off, kw,
                 sh_v.get(("cycle_dsum", (rows_v, n_cyc, L, n)), 0),
                 float((got - want).abs().max())))
+
+    # the shapes of phase 14: K3 per rt_simplified frame (T = 31), per
+    # legacy train step (16 x 361 frames) and per evaluation batch (4 x
+    # 257), on the arguments those runs passed it
+    with torch.inference_mode():
+        for label, tag, t in (("rt_simplified", "rt_simplified",
+                               s10["t_rt"]),
+                              ("legacy train", "legacy_train",
+                               s10["t_train"]),
+                              ("evaluation", "eval", s10["t_eval"])):
+            (x_l,), kw_l = s10["rec"][("logmel", tag, t)]
+            err_l = float((ck.logmel(x_l, **kw_l)
+                           - frontend.frames_to_logmel_plain(x_l, **kw_l))
+                          .abs().max())
+            x_flat = x_l.reshape(-1, 1024)
+            kernels.append(entry(
+                f"logmel[{label} T={t}]",
+                "koemorph_tpu_torch/ops/cuda/logmel.cu",
+                "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+                s10["shapes"][tag].get(("logmel", (t,)), 0), err_l,
+                lambda: ck.logmel(x_l, **kw_l), "logmel_",
+                lambda: frontend.frames_to_logmel_plain(x_l, **kw_l),
+                4.0 * (t * 1024 + 2 * 1024 * live + nnz + t * 80),
+                t * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+                time_ms(lambda: cublas_chain(x_flat), iters=50),
+                "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+                "(3 cuBLAS fp32 products)", tensor_cores=True))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

@@ -21,6 +21,11 @@ Entry points:
 - ``python -m koemorph_tpu_torch.infer --input x.wav --output y.jsonl``
 - :class:`koemorph_tpu_torch.train.SequentialTrainer`
 - ``python -m koemorph_tpu_torch.train --config <root.yaml> [k=v ...]``
+- the legacy family: :class:`koemorph_tpu_torch.models.
+  SimplifiedKoeMorphModel` and :class:`koemorph_tpu_torch.models.
+  KoeMorphModel`, :class:`koemorph_tpu_torch.train.KoeMorphTrainer`,
+  ``python -m koemorph_tpu_torch.rt_simplified --input x.wav ...`` and
+  ``python -m koemorph_tpu_torch.test_model --data-dir d ...``
 """
 
 __version__ = "0.1.0"

@@ -25,11 +25,9 @@ from torch import nn
 
 from koemorph_tpu_torch.blendshapes import (EXPRESSION_INDICES,
                                             MOUTH_INDICES, NUM_BLENDSHAPES)
-from koemorph_tpu_torch.models.attention import TorchStyleMHA
+from koemorph_tpu_torch.models.attention import (LN_EPS, TorchStyleMHA,
+                                                 TransformerEncoderLayer)
 from koemorph_tpu_torch.models.dropout import Dropout
-
-#: Flax's LayerNorm epsilon (torch's default is 1e-5)
-LN_EPS = 1e-6
 
 
 def _stream_weights(mouth_val: float, expr_val: float, n: int
@@ -161,3 +159,45 @@ class DualStreamCrossAttention(nn.Module):
             out["emotion_blendshapes"] = zero.index_copy(
                 1, self._expr_idx, expr_bs)
         return out
+
+
+class DualStreamEncoder(nn.Module):
+    """The legacy encoder pair: mel and emotion frames each through a
+    dense layer, ReLU, dropout and a LayerNorm, then ``num_layers``
+    :class:`~koemorph_tpu_torch.models.attention.TransformerEncoderLayer`
+    per stream. Returns ``(mel, emotion)``, each ``(B, T, d_model)``; the
+    masks ``(B, T)``, True = valid, are each stream's key padding mask."""
+
+    def __init__(self, mel_dim: int = 80, emotion_dim: int = 256,
+                 d_model: int = 256, num_layers: int = 2,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.num_layers = num_layers
+        for name, dim in (("mel", mel_dim), ("emotion", emotion_dim)):
+            self.add_module(f"{name}_dense", nn.Linear(dim, d_model))
+            self.add_module(f"{name}_norm", nn.LayerNorm(d_model, eps=LN_EPS))
+            for i in range(num_layers):
+                self.add_module(f"{name}_layer_{i}", TransformerEncoderLayer(
+                    d_model, dim_feedforward=d_model * 4, dropout=dropout))
+        self.dropout = Dropout(dropout)
+
+    def _encode(self, name: str, x: torch.Tensor,
+                mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        h = self.dropout(torch.relu(getattr(self, f"{name}_dense")(x)),
+                         generator)
+        h = getattr(self, f"{name}_norm")(h)
+        for i in range(self.num_layers):
+            h = getattr(self, f"{name}_layer_{i}")(
+                h, key_padding_mask=mask, generator=generator)
+        return h
+
+    def forward(self, mel_features: torch.Tensor,
+                emotion_features: torch.Tensor,
+                mel_mask: Optional[torch.Tensor] = None,
+                emotion_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        return (self._encode("mel", mel_features, mel_mask, generator),
+                self._encode("emotion", emotion_features, emotion_mask,
+                             generator))

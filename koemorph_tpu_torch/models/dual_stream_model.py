@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Optional
 
 import numpy as np
@@ -28,9 +27,9 @@ from torch import nn
 from koemorph_tpu_torch.features.emotion import (EmotionFrontendConfig,
                                                  emotion_features)
 from koemorph_tpu_torch.features.wav2vec2 import (Wav2Vec2Config,
-                                                  Wav2Vec2Encoder,
-                                                  lecun_normal)
+                                                  Wav2Vec2Encoder)
 from koemorph_tpu_torch.models.dual_stream import DualStreamCrossAttention
+from koemorph_tpu_torch.models.init import init_like_flax
 from koemorph_tpu_torch.ops import frontend
 from koemorph_tpu_torch.ops.device_cache import device_cache
 
@@ -151,25 +150,12 @@ class StreamingDualStreamModel(nn.Module):
         ``smoothing_alpha`` at ``smoothing_alpha_init``; then the
         ``emotion2vec`` encoder's (:meth:`Wav2Vec2Encoder.init_random`).
         Drawn on the CPU from ``generator``."""
-        for name, mod in self.named_modules():
-            if name.startswith("emotion2vec"):
-                continue
-            if isinstance(mod, nn.Linear):
-                mod.weight.copy_(lecun_normal(tuple(mod.weight.shape),
-                                              mod.in_features, generator))
-                mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
         att = self.dual_stream_attention
-        for q in (att.mouth_queries, att.expression_queries):
-            q.copy_(0.02 * torch.randn(q.shape, generator=generator))
-        for mha in (att.mel_attention, att.emotion_attention):
-            w = mha.in_proj_weight
-            limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
-            w.copy_((2.0 * torch.rand(w.shape, generator=generator) - 1.0)
-                    * limit)
-            mha.in_proj_bias.zero_()
+        init_like_flax(
+            self, generator, skip=("emotion2vec",),
+            queries=[(q, lambda shape, g: 0.02 * torch.randn(shape,
+                                                              generator=g))
+                     for q in (att.mouth_queries, att.expression_queries)])
         self.smoothing_alpha.fill_(self.smoothing_alpha_init)
         if self.emotion_backend == "emotion2vec":
             self.emotion2vec.init_random(generator)

@@ -7,6 +7,7 @@ from koemorph_tpu_torch.train.checkpoint import (CheckpointManager,
 from koemorph_tpu_torch.train.optim import (Optimizer, create_lr_schedule,
                                             create_optimizer)
 from koemorph_tpu_torch.train.trainer import (DualStreamTrainer,
+                                              KoeMorphTrainer,
                                               SequentialTrainer, Trainer,
                                               loss_config_from,
                                               sequence_targets)
@@ -15,6 +16,6 @@ __all__ = [
     "create_lr_schedule", "create_optimizer", "Optimizer",
     "CheckpointManager", "save_checkpoint", "load_checkpoint",
     "load_opt_state",
-    "Trainer", "DualStreamTrainer", "SequentialTrainer",
+    "Trainer", "KoeMorphTrainer", "DualStreamTrainer", "SequentialTrainer",
     "loss_config_from", "sequence_targets",
 ]

@@ -1,9 +1,11 @@
 """Training CLI: ``python -m koemorph_tpu_torch.train --config <root.yaml>
 [k=v...]``, the counterpart of ``python -m koemorph_tpu.train``.
 
-One dispatcher keyed on ``model.name`` (``simplified_dual_stream`` or
-``sequential_dual_stream``; the legacy ``simplified`` model is not ported)
-over the same config tree and dot-notation overrides. ``--synthetic N``
+One dispatcher keyed on ``model.name`` (``simplified``, the legacy frame
+model of ``configs/config.yaml``, trained by ``KoeMorphTrainer`` on
+``KoeMorphDataModule``; ``simplified_dual_stream`` or
+``sequential_dual_stream``) over the same config tree and dot-notation
+overrides. ``--synthetic N``
 writes N synthetic WAV+JSONL pairs (the same files the JAX CLI writes) and
 trains on them. Trains on the GPU and fails when there is none; ``--cpu``
 trains on the CPU. The last line of standard output is one JSON object
@@ -11,7 +13,8 @@ with the work directory and the final epoch's mean train metrics.
 
 Resume a run with ``--resume`` (the work directory's ``checkpoints/last``);
 serve what it wrote with ``--model <work>/checkpoints/last`` on
-``koemorph_tpu_torch.infer``, ``.rt`` or ``.serve``.
+``koemorph_tpu_torch.infer``, ``.rt`` or ``.serve`` (the dual-stream
+models) or ``.rt_simplified`` and ``.test_model`` (the simplified one).
 """
 
 from __future__ import annotations
@@ -26,9 +29,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger("koemorph_tpu_torch.train")
-
-#: where the legacy frame model and its trainer are queued
-LEGACY_ITEM = "ROADMAP.md section 1, item 9 (the legacy models)"
 
 
 def write_synthetic_dataset(out_dir: Path, n_files: int, *,
@@ -116,12 +116,18 @@ def write_synthetic_dataset(out_dir: Path, n_files: int, *,
 
 def build_model(cfg):
     """``(model, kind)`` from the ``model`` config group; ``kind`` is
-    ``"window"`` or ``"sequence"``."""
+    ``"frame"``, ``"window"`` or ``"sequence"``."""
     name = cfg.model.get("name", "simplified")
+    common = dict(
+        d_model=int(cfg.model.d_model),
+        num_heads=int(cfg.model.num_heads),
+        num_blendshapes=int(cfg.model.get("num_blendshapes", 52)),
+        sample_rate=int(cfg.model.get("sample_rate", 16000)),
+        target_fps=int(cfg.model.get("target_fps", 30)))
     if name == "simplified":
-        raise NotImplementedError(
-            f"model.name 'simplified' (the legacy frame model) is not "
-            f"ported: {LEGACY_ITEM}")
+        from koemorph_tpu_torch.models.simplified import (
+            SimplifiedKoeMorphModel)
+        return SimplifiedKoeMorphModel(**common), "frame"
     if name not in ("simplified_dual_stream", "sequential_dual_stream"):
         raise ValueError(f"Unknown model.name: {name}")
     from koemorph_tpu_torch.models.dual_stream_model import (
@@ -129,11 +135,7 @@ def build_model(cfg):
 
     emotion = cfg.model.get("emotion_config", {})
     ds = dict(
-        d_model=int(cfg.model.d_model),
-        num_heads=int(cfg.model.num_heads),
-        num_blendshapes=int(cfg.model.get("num_blendshapes", 52)),
-        sample_rate=int(cfg.model.get("sample_rate", 16000)),
-        target_fps=int(cfg.model.get("target_fps", 30)),
+        common,
         mel_sequence_length=int(cfg.model.get("mel_sequence_length", 256)),
         emotion_backend=emotion.get("backend", "egemaps"),
         use_concatenation=bool(emotion.get("use_concatenation", True)),
@@ -175,6 +177,7 @@ def main(argv=None) -> int:
     from koemorph_tpu_torch.device import resolve_device
     from koemorph_tpu_torch.train.trainer import (SCAN_ITEM,
                                                   DualStreamTrainer,
+                                                  KoeMorphTrainer,
                                                   SequentialTrainer)
     from koemorph_tpu_torch.utils.config import load_config, to_dict
 
@@ -203,32 +206,58 @@ def main(argv=None) -> int:
     tcfg = to_dict(cfg)
     max_epochs = args.max_epochs or int(cfg.training.get("max_epochs", 1))
 
-    # window samples per training example: the model window for the
-    # single-frame trainer, model window + extra output span for the
-    # sequence trainer
-    window = (model.window_frames + 32 if kind == "sequence"
-              else model.mel_sequence_length)
-    loader_fn, dataset = create_sequential_dataloader(
-        cfg.data.train_data_dir,
-        batch_size=int(cfg.data.batch_size),
-        window_frames=window,
-        stride_frames=int(cfg.data.get("stride_frames", 8)),
-        sample_rate=int(cfg.data.sample_rate),
-        target_fps=float(cfg.data.target_fps))
-    steps = args.steps_per_epoch or max(1, dataset.get_num_windows()
-                                        // int(cfg.data.batch_size))
-    cls = SequentialTrainer if kind == "sequence" else DualStreamTrainer
-    kwargs = {"span_frames": window} if kind == "sequence" else {}
-    trainer = cls(model, tcfg, work_dir=work_dir, steps_per_epoch=steps,
-                  device=device, **kwargs)
-    if args.resume:
-        trainer.resume()
+    if kind == "frame":
+        from koemorph_tpu_torch.data.dataset import KoeMorphDataModule
+        dm = KoeMorphDataModule(
+            train_data_dir=cfg.data.train_data_dir,
+            val_data_dir=cfg.data.get("val_data_dir"),
+            batch_size=int(cfg.data.batch_size),
+            sample_rate=int(cfg.data.sample_rate),
+            target_fps=float(cfg.data.target_fps))
+        dm.setup()
+        steps = args.steps_per_epoch or max(1, len(dm.train_dataloader()))
+        trainer = KoeMorphTrainer(
+            model, tcfg, work_dir=work_dir, steps_per_epoch=steps,
+            device=device)
+        if args.resume:
+            trainer.resume()
 
-    def train_loader(epoch: int):
-        dataset.set_epoch(epoch)     # stride schedule + file reshuffle
-        return loader_fn()
+        def train_loader(epoch: int):
+            loader = dm.train_dataloader()
+            loader.set_epoch(epoch)      # per-epoch reshuffle
+            return iter(loader)
 
-    history = trainer.fit(train_loader, None, max_epochs=max_epochs)
+        history = trainer.fit(
+            train_loader,
+            (lambda: iter(dm.val_dataloader())) if dm.val_dataset else None,
+            max_epochs=max_epochs)
+    else:
+        # window samples per training example: the model window for the
+        # single-frame trainer, model window + extra output span for the
+        # sequence trainer
+        window = (model.window_frames + 32 if kind == "sequence"
+                  else model.mel_sequence_length)
+        loader_fn, dataset = create_sequential_dataloader(
+            cfg.data.train_data_dir,
+            batch_size=int(cfg.data.batch_size),
+            window_frames=window,
+            stride_frames=int(cfg.data.get("stride_frames", 8)),
+            sample_rate=int(cfg.data.sample_rate),
+            target_fps=float(cfg.data.target_fps))
+        steps = args.steps_per_epoch or max(1, dataset.get_num_windows()
+                                            // int(cfg.data.batch_size))
+        cls = SequentialTrainer if kind == "sequence" else DualStreamTrainer
+        kwargs = {"span_frames": window} if kind == "sequence" else {}
+        trainer = cls(model, tcfg, work_dir=work_dir, steps_per_epoch=steps,
+                      device=device, **kwargs)
+        if args.resume:
+            trainer.resume()
+
+        def train_loader(epoch: int):
+            dataset.set_epoch(epoch)     # stride schedule + file reshuffle
+            return loader_fn()
+
+        history = trainer.fit(train_loader, None, max_epochs=max_epochs)
 
     final = history["train"][-1] if history["train"] else {}
     logger.info("training done: %s",

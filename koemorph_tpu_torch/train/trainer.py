@@ -1,5 +1,6 @@
-"""Trainers: the dual-stream window trainer and the sequential trainer,
-the counterpart of ``koemorph_tpu.train.trainer`` on one device.
+"""Trainers: the legacy frame trainer, the dual-stream window trainer and
+the sequential trainer, the counterpart of ``koemorph_tpu.train.trainer``
+on one device.
 
 A train step runs eagerly in full fp32: the model's forward (in training
 mode, dropout masks drawn from a generator seeded from ``(seed, step)``),
@@ -33,6 +34,7 @@ from koemorph_tpu_torch.blendshapes import EXPRESSION_INDICES, MOUTH_INDICES
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.losses import (KoeMorphLossConfig,
                                               dual_stream_loss,
+                                              koemorph_loss,
                                               sequence_koemorph_loss)
 from koemorph_tpu_torch.train.checkpoint import CheckpointManager
 from koemorph_tpu_torch.train.optim import (create_lr_schedule,
@@ -42,7 +44,8 @@ from koemorph_tpu_torch.utils.params import load_model_state
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Trainer", "DualStreamTrainer", "SequentialTrainer",
+__all__ = ["Trainer", "KoeMorphTrainer", "DualStreamTrainer",
+           "SequentialTrainer",
            "loss_config_from", "sequence_targets", "dropout_generator"]
 
 #: where the features that are not ported are queued
@@ -435,13 +438,30 @@ class Trainer:
                                   self.global_step, dataformats="HW")
 
 
+class KoeMorphTrainer(Trainer):
+    """Legacy frame trainer over ``SimplifiedKoeMorphModel``: each sample is
+    a whole (padded) file, and the target is its first frame,
+    ``arkit[:, 0, :]``, under ``koemorph_loss``."""
+
+    def __init__(self, model, config: dict, **kw):
+        self.loss_config = loss_config_from(
+            (config or {}).get("training", config or {}))
+        super().__init__(model, config, **kw)
+
+    def loss_fn(self, batch, generator):
+        pred = self.model(batch["audio"], generator=generator)
+        target = batch["arkit"][:, 0, :]
+        pred, scale = _mask_padded(pred, target, batch)
+        loss, metrics = koemorph_loss(pred, target, config=self.loss_config)
+        return loss * scale, metrics
+
+
 class DualStreamTrainer(Trainer):
     """Single-window dual-stream trainer (``SimplifiedDualStreamModel``)
     with the stream-separation regularizer; the target is each window's
     last frame."""
 
-    def __init__(self, model, config: dict, *,
-                 audio_samples: Optional[int] = None, **kw):
+    def __init__(self, model, config: dict, **kw):
         cfg = config or {}
         tcfg = cfg.get("training", cfg).get("loss", {})
         self.l1_weight = float(tcfg.get("l1_weight", 1.0))
@@ -449,9 +469,6 @@ class DualStreamTrainer(Trainer):
                                         tcfg.get("mse_weight", 0.5)))
         self.separation_weight = float(
             tcfg.get("stream_separation_weight", 0.01))
-        self.audio_samples = audio_samples or (
-            model.mel_sequence_length * int(
-                model.sample_rate / model.target_fps))
         super().__init__(model, config, **kw)
 
     def loss_fn(self, batch, generator):

@@ -23,6 +23,22 @@ backend) maps onto the encoder's HuggingFace names under ``emotion2vec.``:
 ``encoder.layer_norm``; a conv ``kernel`` (k, in/groups, out) becomes a
 ``weight`` (out, in/groups, k).
 
+The legacy family maps the same way. ``SimplifiedKoeMorphModel``'s tree
+(``enc_0``, ``enc_1``, ``blendshape_queries``, ``attention``, ``dec_0``,
+``dec_1``, ``dec_out``) keeps its names. ``KoeMorphModel``'s keeps
+``audio_encoder`` (``{mel,emotion}_dense`` / ``_norm`` / ``_layer_{i}``),
+``query_embeddings``, ``cross_attention_{i}``, ``attention_norm_{i}``,
+``query_up_proj``, ``decoder`` and ``temporal_smoother/alpha`` or
+``gaussian_weights``; Flax's auto-named submodules become torch's names:
+in a transformer layer ``Dense_0`` / ``Dense_1`` / ``LayerNorm_0`` /
+``LayerNorm_1`` are ``linear1`` / ``linear2`` / ``norm1`` / ``norm2``, in
+the query embedding ``Dense_0`` / ``Dense_1`` are ``cond_hidden`` /
+``cond_out``, and in ``MultiStreamAudioEncoder`` ``Dense_0``-``Dense_4``
+are ``mel_out``, ``mel_hidden``, ``prosody_out``, ``prosody_hidden``,
+``emotion_proj``, then ``fusion`` or the three gates, and ``LayerNorm_0``
+is ``norm``. The model is picked from the tree's (or the state dict's)
+top-level names, and a name no rule maps raises ``ValueError``.
+
 Both directions only transpose, so a round trip is bit-exact.
 
 The optimizer state crosses the same way: :func:`optimizer_state_from_optax`
@@ -42,6 +58,7 @@ parameter that does not fit.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from pathlib import Path
 from typing import Union
 
@@ -67,6 +84,9 @@ _NORMS = ("mel_norm", "emotion_norm")
 _MHAS = ("mel_attention", "emotion_attention")
 _PLAIN = ("mouth_queries", "expression_queries", "mel_weights",
           "emotion_weights")
+_E2V = "emotion2vec"
+_E2V_FF = {"intermediate_dense": "feed_forward.intermediate_dense",
+           "output_dense": "feed_forward.output_dense"}
 
 
 def _t(a) -> torch.Tensor:
@@ -77,148 +97,253 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32, copy=True)
 
 
-_E2V = "emotion2vec"
-_E2V_FF = {"intermediate_dense": "feed_forward.intermediate_dense",
-           "output_dense": "feed_forward.output_dense"}
+# ---------------------------------------------------------------------------
+# module pairs: (Flax path, state-dict prefix, kind), paths dot-joined
+# ---------------------------------------------------------------------------
+
+def _count(keys, *formats: str) -> int:
+    """How many consecutive ``i`` some key starts with one of ``formats``
+    formatted with ``i`` (a Flax and a state-dict spelling)."""
+    n = 0
+    while any(k.startswith(f.format(n)) for f in formats for k in keys):
+        n += 1
+    return n
 
 
-def _e2v_names(tree_or_sd, from_flax: bool) -> tuple[int, int]:
-    """(conv layers, transformer layers) of an emotion2vec subtree (Flax)
-    or of the ``emotion2vec.`` keys of a state dict."""
-    if from_flax:
-        return (sum(k.startswith("conv_")
-                    for k in tree_or_sd["feature_extractor"]),
-                sum(k.startswith("layer_") and k[6:].isdigit()
-                    for k in tree_or_sd))
-    convs = {k.split(".")[3] for k in tree_or_sd
-             if k.startswith(f"{_E2V}.feature_extractor.conv_layers.")}
-    layers = {k.split(".")[3] for k in tree_or_sd
-              if k.startswith(f"{_E2V}.encoder.layers.")}
-    return len(convs), len(layers)
+def _top(keys) -> set:
+    return {k.split(".")[0] for k in keys}
 
 
-def _e2v_pairs(n_conv: int, n_layers: int):
-    """(Flax path, state-dict prefix, kind) of every emotion2vec module:
-    kind ``conv``, ``dense`` or ``norm``."""
+def _e2v_pairs(keys, fp: str, tp: str):
+    """The wav2vec2 encoder's modules (under ``fp`` / ``tp``)."""
+    n_conv = _count(keys, f"{fp}feature_extractor.conv_{{}}.",
+                    f"{tp}feature_extractor.conv_layers.{{}}.")
+    n_layers = _count(keys, f"{fp}layer_{{}}.", f"{tp}encoder.layers.{{}}.")
     for i in range(n_conv):
-        yield (("feature_extractor", f"conv_{i}"),
-               f"feature_extractor.conv_layers.{i}.conv", "conv")
-        yield (("feature_extractor", f"layer_norm_{i}"),
-               f"feature_extractor.conv_layers.{i}.layer_norm", "norm")
-    yield ("fp_layer_norm",), "feature_projection.layer_norm", "norm"
-    yield ("fp_projection",), "feature_projection.projection", "dense"
-    yield ("pos_conv_embed", "conv"), "encoder.pos_conv_embed.conv", "conv"
+        yield (f"{fp}feature_extractor.conv_{i}",
+               f"{tp}feature_extractor.conv_layers.{i}.conv", "conv")
+        yield (f"{fp}feature_extractor.layer_norm_{i}",
+               f"{tp}feature_extractor.conv_layers.{i}.layer_norm", "norm")
+    yield f"{fp}fp_layer_norm", f"{tp}feature_projection.layer_norm", "norm"
+    yield f"{fp}fp_projection", f"{tp}feature_projection.projection", "dense"
+    yield (f"{fp}pos_conv_embed.conv", f"{tp}encoder.pos_conv_embed.conv",
+           "conv")
     for i in range(n_layers):
-        base = f"encoder.layers.{i}"
+        f, t = f"{fp}layer_{i}", f"{tp}encoder.layers.{i}"
         for name in ("layer_norm", "final_layer_norm"):
-            yield (f"layer_{i}", name), f"{base}.{name}", "norm"
+            yield f"{f}.{name}", f"{t}.{name}", "norm"
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            yield ((f"layer_{i}", "attention", name),
-                   f"{base}.attention.{name}", "dense")
+            yield f"{f}.attention.{name}", f"{t}.attention.{name}", "dense"
         for name, torch_name in _E2V_FF.items():
-            yield (f"layer_{i}", name), f"{base}.{torch_name}", "dense"
-    yield ("encoder_layer_norm",), "encoder.layer_norm", "norm"
+            yield f"{f}.{name}", f"{t}.{torch_name}", "dense"
+    yield f"{fp}encoder_layer_norm", f"{tp}encoder.layer_norm", "norm"
+    yield f"{fp}layer_fusion_weights", f"{tp}layer_fusion_weights", "param"
 
 
-def _e2v_from_flax(tree: dict, sd: dict) -> None:
-    for path, prefix, kind in _e2v_pairs(*_e2v_names(tree, True)):
+def _dual_stream_pairs(keys):
+    for flax_name, torch_name in _DENSE.items():
+        yield f"{_ATT}.{flax_name}", f"{_ATT}.{torch_name}", "dense"
+    for name in _NORMS:
+        yield f"{_ATT}.{name}", f"{_ATT}.{name}", "norm"
+    for name in _MHAS:
+        yield f"{_ATT}.{name}", f"{_ATT}.{name}", "mha"
+    for name in _PLAIN:
+        yield f"{_ATT}.{name}", f"{_ATT}.{name}", "param"
+    yield "emotion_projection", "emotion_projection", "dense"
+    yield "smoothing_alpha", "smoothing_alpha", "scalar"
+    yield from _e2v_pairs(keys, f"{_E2V}.", f"{_E2V}.")
+
+
+def _simplified_pairs(keys):
+    for name in ("enc_0", "enc_1", "dec_0", "dec_1", "dec_out"):
+        yield name, name, "dense"
+    yield "blendshape_queries", "blendshape_queries", "param"
+    yield "attention", "attention", "mha"
+
+
+def _transformer_layer_pairs(keys, p: str = ""):
+    """``TransformerEncoderLayer``: Flax's auto-named submodules become
+    ``nn.TransformerEncoderLayer``'s names."""
+    yield f"{p}self_attn", f"{p}self_attn", "mha"
+    yield f"{p}Dense_0", f"{p}linear1", "dense"
+    yield f"{p}Dense_1", f"{p}linear2", "dense"
+    yield f"{p}LayerNorm_0", f"{p}norm1", "norm"
+    yield f"{p}LayerNorm_1", f"{p}norm2", "norm"
+
+
+def _multistream_encoder_pairs(keys):
+    """``MultiStreamAudioEncoder``: Flax names each stream's outer dense
+    layer first (``Dense_0`` is the mel stream's output layer)."""
+    for flax_name, torch_name in (("Dense_0", "mel_out"),
+                                  ("Dense_1", "mel_hidden"),
+                                  ("Dense_2", "prosody_out"),
+                                  ("Dense_3", "prosody_hidden"),
+                                  ("Dense_4", "emotion_proj")):
+        yield flax_name, torch_name, "dense"
+    if _top(keys) & {"Dense_6", "gate_mel"}:
+        for i, name in enumerate(("gate_mel", "gate_prosody",
+                                  "gate_emotion")):
+            yield f"Dense_{5 + i}", name, "dense"
+    else:
+        yield "Dense_5", "fusion", "dense"
+    for i in range(_count(keys, "layer_{}.", "layers.{}.")):
+        for f, t, kind in _transformer_layer_pairs(keys):
+            yield f"layer_{i}.{f}", f"layers.{i}.{t}", kind
+    yield "LayerNorm_0", "norm", "norm"
+
+
+def _dual_stream_encoder_pairs(keys, p: str = ""):
+    n_layers = _count(keys, f"{p}mel_layer_{{}}.")
+    for s in ("mel", "emotion"):
+        yield f"{p}{s}_dense", f"{p}{s}_dense", "dense"
+        yield f"{p}{s}_norm", f"{p}{s}_norm", "norm"
+        for i in range(n_layers):
+            yield from _transformer_layer_pairs(keys, f"{p}{s}_layer_{i}.")
+
+
+def _query_embedding_pairs(keys, p: str = ""):
+    yield (f"{p}query_embeddings", f"{p}query_embeddings", "param")
+    yield f"{p}Dense_0", f"{p}cond_hidden", "dense"
+    yield f"{p}Dense_1", f"{p}cond_out", "dense"
+
+
+def _cross_attention_pairs(keys, p: str = ""):
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        yield f"{p}{name}", f"{p}{name}", "dense"
+
+
+def _decoder_pairs(keys, p: str = ""):
+    yield f"{p}input_proj", f"{p}input_proj", "dense"
+    for i in range(_count(keys, f"{p}hidden_{{}}.")):
+        yield f"{p}hidden_{i}", f"{p}hidden_{i}", "dense"
+        yield f"{p}norm_{i}", f"{p}norm_{i}", "norm"
+    yield f"{p}output_proj", f"{p}output_proj", "dense"
+
+
+def _legacy_pairs(keys):
+    yield from _dual_stream_encoder_pairs(keys, "audio_encoder.")
+    yield from _query_embedding_pairs(keys, "query_embeddings.")
+    for i in range(_count(keys, "cross_attention_{}.")):
+        yield from _cross_attention_pairs(keys, f"cross_attention_{i}.")
+        yield f"attention_norm_{i}", f"attention_norm_{i}", "norm"
+    yield "query_up_proj", "query_up_proj", "dense"
+    yield from _decoder_pairs(keys, "decoder.")
+    yield from _smoother_pairs(keys, "temporal_smoother.")
+
+
+def _smoother_pairs(keys, p: str = ""):
+    yield f"{p}alpha", f"{p}alpha", "scalar"
+    yield f"{p}gaussian_weights", f"{p}gaussian_weights", "param"
+
+
+#: (a top-level name that marks the tree or state dict, its modules), one
+#: per model
+_KINDS = (
+    ({_ATT}, _dual_stream_pairs),
+    ({"blendshape_queries"}, _simplified_pairs),
+    ({"audio_encoder"}, _legacy_pairs),
+)
+
+
+def _pairs(keys):
+    top = _top(keys)
+    for marks, pairs in _KINDS:
+        if top & marks:
+            return list(pairs(keys))
+    raise ValueError(f"no known model has the parameters {sorted(top)}")
+
+
+def _transpose(a):
+    return np.swapaxes(np.asarray(a), 0, 1)
+
+
+def _flip(a):
+    return np.transpose(np.asarray(a), (2, 1, 0))
+
+
+def _scalar(a):
+    return np.reshape(np.asarray(a), ())
+
+
+def _leaf_rules(pairs):
+    """(Flax key, state-dict key, to torch, to Flax) of every leaf the
+    module pairs name."""
+    same = np.asarray
+    for f, t, kind in pairs:
+        if kind == "mha":
+            yield f"{f}.in_proj_weight", f"{t}.in_proj_weight", same, same
+            yield f"{f}.in_proj_bias", f"{t}.in_proj_bias", same, same
+            f, t, kind = f"{f}.out_proj", f"{t}.out_proj", "dense"
+        if kind in ("dense", "conv"):
+            op = _transpose if kind == "dense" else _flip
+            yield f"{f}.kernel", f"{t}.weight", op, op
+            yield f"{f}.bias", f"{t}.bias", same, same
+        elif kind == "norm":
+            yield f"{f}.scale", f"{t}.weight", same, same
+            yield f"{f}.bias", f"{t}.bias", same, same
+        else:
+            op = _scalar if kind == "scalar" else same
+            yield f, t, op, op
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _convert(flat: dict, to_torch: bool, pairs=_pairs) -> dict:
+    """``flat`` (Flax dot paths or state-dict keys) renamed by the rules of
+    the module pairs ``pairs(flat)`` yields (by default its model's);
+    raises ``ValueError`` naming a key no rule maps."""
+    out, used = {}, set()
+    for fk, tk, to_t, to_f in _leaf_rules(pairs(flat)):
+        src, dst, op = (fk, tk, to_t) if to_torch else (tk, fk, to_f)
+        if src in flat:
+            value = flat[src] if to_torch else _n(flat[src])
+            out[dst] = op(value)
+            used.add(src)
+    unmapped = [k for k in flat if k not in used]
+    if unmapped:
+        raise ValueError(f"parameter {unmapped[0]!r} has no counterpart "
+                         f"({len(unmapped)} unmapped)")
+    return out
+
+
+def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """Flax tree of numpy arrays -> ``state_dict`` of float32 tensors. The
+    model is picked from the tree's top-level names; a name no rule maps
+    raises ``ValueError``."""
+    return _module_state_dict(params, _pairs)
+
+
+def _module_state_dict(params: dict, pairs) -> dict[str, torch.Tensor]:
+    """The tree of one module whose pairs ``pairs`` yields (e.g.
+    ``_decoder_pairs``) -> its ``state_dict``."""
+    return {k: _t(v) for k, v in
+            _convert(_flatten(params), True, pairs).items()}
+
+
+def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`state_dict_from_flax`: numpy float32 arrays."""
+    tree: dict = {}
+    for key, value in _convert(dict(sd), False).items():
+        *path, leaf = key.split(".")
         node = tree
         for k in path:
-            node = node[k]
-        key = f"{_E2V}.{prefix}"
-        if kind == "norm":
-            sd[f"{key}.weight"] = _t(node["scale"])
-        elif kind == "conv":
-            sd[f"{key}.weight"] = _t(np.transpose(node["kernel"], (2, 1, 0)))
-        else:
-            sd[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
-        if "bias" in node:
-            sd[f"{key}.bias"] = _t(node["bias"])
-    sd[f"{_E2V}.layer_fusion_weights"] = _t(tree["layer_fusion_weights"])
+            node = node.setdefault(k, {})
+        node[leaf] = np.array(value, dtype=np.float32, order="C")
+    return tree
 
 
 def encoder_state_dict_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """A Flax ``Wav2Vec2Encoder`` tree (with fusion) -> the state dict of
     :class:`koemorph_tpu_torch.features.wav2vec2.Wav2Vec2Encoder`."""
-    sd: dict = {}
-    _e2v_from_flax(tree, sd)
-    return {k.removeprefix(f"{_E2V}."): v for k, v in sd.items()}
-
-
-def _e2v_to_flax(sd: dict) -> dict:
-    tree: dict = {}
-    for path, prefix, kind in _e2v_pairs(*_e2v_names(sd, False)):
-        node = tree
-        for k in path:
-            node = node.setdefault(k, {})
-        key = f"{_E2V}.{prefix}"
-        w = _n(sd[f"{key}.weight"])
-        if kind == "norm":
-            node["scale"] = w
-        elif kind == "conv":
-            node["kernel"] = np.transpose(w, (2, 1, 0)).copy()
-        else:
-            node["kernel"] = w.T.copy()
-        if f"{key}.bias" in sd:
-            node["bias"] = _n(sd[f"{key}.bias"])
-    tree["layer_fusion_weights"] = _n(sd[f"{_E2V}.layer_fusion_weights"])
-    return tree
-
-
-def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """Flax tree of numpy arrays -> ``state_dict`` of float32 tensors."""
-    sd: dict[str, torch.Tensor] = {}
-
-    def dense(prefix, p):
-        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
-        sd[f"{prefix}.bias"] = _t(p["bias"])
-
-    att = params[_ATT]
-    for flax_name, torch_name in _DENSE.items():
-        dense(f"{_ATT}.{torch_name}", att[flax_name])
-    for name in _NORMS:
-        sd[f"{_ATT}.{name}.weight"] = _t(att[name]["scale"])
-        sd[f"{_ATT}.{name}.bias"] = _t(att[name]["bias"])
-    for name in _MHAS:
-        sd[f"{_ATT}.{name}.in_proj_weight"] = _t(att[name]["in_proj_weight"])
-        sd[f"{_ATT}.{name}.in_proj_bias"] = _t(att[name]["in_proj_bias"])
-        dense(f"{_ATT}.{name}.out_proj", att[name]["out_proj"])
-    for name in _PLAIN:
-        if name in att:
-            sd[f"{_ATT}.{name}"] = _t(att[name])
-    dense("emotion_projection", params["emotion_projection"])
-    sd["smoothing_alpha"] = _t(np.reshape(params["smoothing_alpha"], ()))
-    if _E2V in params:
-        _e2v_from_flax(params[_E2V], sd)
-    return sd
-
-
-def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
-    """Inverse of :func:`state_dict_from_flax`: numpy float32 arrays."""
-    def dense(prefix):
-        return {"kernel": _n(sd[f"{prefix}.weight"]).T.copy(),
-                "bias": _n(sd[f"{prefix}.bias"])}
-
-    att: dict = {}
-    for flax_name, torch_name in _DENSE.items():
-        att[flax_name] = dense(f"{_ATT}.{torch_name}")
-    for name in _NORMS:
-        att[name] = {"scale": _n(sd[f"{_ATT}.{name}.weight"]),
-                     "bias": _n(sd[f"{_ATT}.{name}.bias"])}
-    for name in _MHAS:
-        att[name] = {
-            "in_proj_weight": _n(sd[f"{_ATT}.{name}.in_proj_weight"]),
-            "in_proj_bias": _n(sd[f"{_ATT}.{name}.in_proj_bias"]),
-            "out_proj": dense(f"{_ATT}.{name}.out_proj")}
-    for name in _PLAIN:
-        if f"{_ATT}.{name}" in sd:
-            att[name] = _n(sd[f"{_ATT}.{name}"])
-    tree = {_ATT: att,
-            "emotion_projection": dense("emotion_projection"),
-            "smoothing_alpha": _n(sd["smoothing_alpha"]).reshape(())}
-    if f"{_E2V}.layer_fusion_weights" in sd:
-        tree[_E2V] = _e2v_to_flax(sd)
-    return tree
+    return _module_state_dict(tree, lambda keys: _e2v_pairs(keys, "", ""))
 
 
 def _fields(node) -> tuple:

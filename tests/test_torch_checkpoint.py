@@ -506,8 +506,9 @@ def test_trainer_cli_needs_cuda_unless_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--work-dir", str(tmp_path), "--synthetic", "1"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["--cpu", "--config", str(REPO / "configs" / "config.yaml"),
+    # the legacy config (model.name: simplified) trains on the card too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--config", str(REPO / "configs" / "config.yaml"),
                   "--work-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(["--cpu", "--scan-epochs", "--work-dir", str(tmp_path)])
