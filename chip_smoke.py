@@ -161,6 +161,20 @@ inside ``plain_forms()``.
    after step 6 bitwise), and ``KoeMorphModel`` carried over 30 steps per
    smoothing method at batch 4 on K3's 256-frame mel (outputs finite in
    [0, 1]).
+15. from files to a checked, trained model (``slice11_phases``):
+   ``fit_wall_split`` (phase 14's legacy fit as the train CLI runs it,
+   validation and checkpoints included, its wall split into the wait for
+   batches, the steps, validation and checkpoint writes, in turns
+   through the Python readers and the native WAV / JSONL parsers, losses
+   bitwise equal; a load-only pass over the 32 files both ways),
+   ``reference_import`` (a synthetic reference ``.pth`` at flagship width,
+   learnable and fixed fusion, through ``import_torch_checkpoint``, then
+   ``infer``, ``rt`` and ``test_model`` on the card, within 1e-5 of the
+   same model in process), ``rehearsal`` (``demo_lipsync_learning`` at its
+   defaults, the loss falling; ``reproduce_results --smoke``, its report
+   written; K1-K3 against their plain forms on the batch-4 train step's
+   arguments) and ``extractor`` (``EmotionExtractor``'s fallback matrix
+   and ``integration_check`` with ``"ok": true``).
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -178,6 +192,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import io
 import json
 import os
 import re
@@ -345,8 +360,9 @@ def refresh_record(t: int, rows: int, refresh: bool) -> dict:
 
 #: steps or frames per profiling window of a main path's run: a window of
 #: all 105 server steps (~25,000 device activities) lost 1-2 replays'
-#: kernels from the profile in two of three runs
-WINDOW = 21
+#: kernels from the profile in two of three runs, and a window of 21
+#: frames of the 24-layer emotion2vec stream lost 8 frames' in one run
+WINDOW = 7
 
 
 def in_windows(n: int, fn) -> list:
@@ -2258,6 +2274,42 @@ def k3_rule(got, want) -> bool:
     return bool(((got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
 
 
+def hold_recorded(rec: dict, tags) -> dict:
+    """Every launch shape :func:`recording_kernels` recorded under one of
+    ``tags``: the kernel against its plain form on the recorded arguments,
+    by the kernel's rule (K1 within K1_RTOL / K1_ATOL, K2 by
+    :func:`dk_train_agreement` and :func:`dk_train_ok`, K3 by
+    :func:`k3_rule`). Returns ``{(name, tag, shape): {"ok": bool,
+    "max_abs_err": float, ...}}``; K2's error is the Hausdorff distance
+    on the rows held."""
+    import torch
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+
+    held = {}
+    with torch.inference_mode():
+        for key in sorted(k for k in rec if k[1] in tags):
+            args, kw = rec[key]
+            if key[0] == "dk_roots":
+                r = dk_train_agreement(args[0])
+                held[key] = {"ok": dk_train_ok(r),
+                             "max_abs_err": r["hausdorff_max_held"], **r}
+                continue
+            if key[0] == "cycle_dsum":
+                got = ck.cycle_dsum(*args, **kw)
+                want = f0_ops.cycle_dsum_plain(*args, **kw)
+                ok = bool(torch.allclose(got, want, rtol=K1_RTOL,
+                                         atol=K1_ATOL))
+            else:
+                got = ck.logmel(*args, **kw)
+                want = frontend.frames_to_logmel_plain(*args, **kw)
+                ok = k3_rule(got, want)
+            held[key] = {"ok": ok,
+                         "max_abs_err": float((got - want).abs().max())}
+    return held
+
+
 def slice10_phases(card: str, work: Path, env: dict) -> dict:
     """Phase 14: the legacy model family at flagship width (d_model 256, 8
     heads, 80 mels, 30 fps), each through its entry points with the launch
@@ -2721,6 +2773,470 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
           f"KoeMorphModel launches {km_shapes}")
     check(mel_ok, "KoeMorphModel's mel: kernels vs plain forms")
     emit({"phase": "slice10", "seconds": time.perf_counter() - t_phase})
+    out["synth"] = synth
+    return out
+
+
+#: an imported checkpoint's outputs through the entry points against the
+#: same model in process
+IMPORT_ATOL = 1e-5
+#: the paths of phase 15 whose kernel arguments are recorded: tag -> the
+#: path's name in the kernels line
+SLICE11_PATHS = {"import_learnable": "import", "import_fixed": "import",
+                 "demo": "lip-sync demo", "rehearsal": "rehearsal"}
+#: the level-1 extractor's embedding, kernels against the plain forms
+EXTRACTOR_PLAIN_MAX = 1e-4
+
+
+def _stdout_json(fn, *, last_line: bool = True):
+    """``fn()`` (an entry point's ``main``) with its standard output
+    captured: its return code and the JSON it printed (its last line, or
+    the whole output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    text = buf.getvalue().strip()
+    return rc, json.loads(text.splitlines()[-1] if last_line else text)
+
+
+def slice11_phases(card: str, work: Path, s10: dict) -> dict:
+    """Phase 15: from files to a checked, trained model, each part through
+    its entry points with the launch counts set to 0 just before.
+    ``fit_wall_split``: phase 14's legacy ``KoeMorphTrainer.fit`` as the
+    train CLI runs it (batch 16, 12 s files, validation on the same files
+    every ``check_val_every_n_epoch``, the config's checkpoint cadence),
+    its wall split into the main thread's wait for batches, the steps
+    (host time and CUDA events), validation and checkpoint writes, in
+    turns through the Python readers and the native parsers (Python,
+    native, native, Python; losses bitwise equal), and a load-only pass
+    over the files both ways.
+    ``reference_import``: a synthetic reference state dict at flagship
+    width, learnable and fixed fusion, through ``import_torch_checkpoint``,
+    then ``infer``, ``rt`` and ``test_model`` on what it wrote, each within
+    1e-5 of the same model in process. ``rehearsal``: the lip-sync demo
+    at its defaults (the loss must fall) and ``reproduce_results --smoke``
+    with a validation every epoch (the report written, the held-out loss
+    falling). ``slice11_kernels_vs_plain``: every launch shape of the
+    served import, the demo and the smoke (train steps and validation), on
+    the arguments recorded there, against its plain form. ``extractor``:
+    ``EmotionExtractor``'s fallback matrix (no source, eGeMAPS, basic, a
+    ConvEmotionEncoder, precomputed hits and a miss, a runtime demotion)
+    and ``integration_check`` with ``"ok": true``. Returns the recorded
+    kernel arguments and launch counts for the kernels table."""
+    import shutil
+    import threading
+    import unittest.mock as mock
+
+    import torch
+    from koemorph_tpu_torch import demo_lipsync_learning, infer
+    from koemorph_tpu_torch import import_torch_checkpoint as importer
+    from koemorph_tpu_torch import integration_check, reproduce_results, rt
+    from koemorph_tpu_torch import test_model as tm
+    from koemorph_tpu_torch.data import native
+    from koemorph_tpu_torch.data.dataset import KoeMorphDataModule
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.data.wav import write_wav
+    from koemorph_tpu_torch.features.emotion import (
+        EmotionExtractor, PrecomputedEmotionFeatures)
+    from koemorph_tpu_torch.features.emotion2vec import ConvEmotionEncoder
+    from koemorph_tpu_torch.models.dual_stream_model import (
+        SequentialDualStreamModel, SimplifiedDualStreamModel)
+    from koemorph_tpu_torch.models.losses import BlendshapeMetrics
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.parallel.batched_decode import (
+        BatchedSequentialDecoder)
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.trainer import KoeMorphTrainer
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+    from koemorph_tpu_torch.utils.params import (read_model_state,
+                                                 read_state_dict)
+
+    out: dict = {"rec": {}, "shapes": {}}
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    synth = Path(s10["synth"])
+
+    @contextlib.contextmanager
+    def python_readers(on: bool):
+        """The loaders' native parsers declining every file, so the
+        strict Python readers run (``on``), or as they are."""
+        if not on:
+            yield
+            return
+        with mock.patch.object(native, "decode_wav_native",
+                               return_value=None), \
+                mock.patch.object(native, "parse_blendshape_jsonl_native",
+                                  return_value=None):
+            yield
+
+    # ---- fit_wall_split: the legacy fit as the train CLI runs it ----
+    config_path = ROOT / "configs" / "config.yaml"
+    cfg = load_config(config_path)
+    tcfg = to_dict(cfg)
+    batch_size = int(cfg.data.batch_size)
+
+    def fit_split(tag: str, python_path: bool) -> dict:
+        legacy, kind = build_model(cfg)
+        check(kind == "frame", f"configs/config.yaml's model is {kind}")
+        dm_ = KoeMorphDataModule(train_data_dir=synth, val_data_dir=synth,
+                                 batch_size=batch_size)
+        dm_.setup()
+        steps = len(dm_.train_dataloader())
+        trainer = KoeMorphTrainer(legacy, tcfg,
+                                  work_dir=work / f"fit_split_{tag}",
+                                  steps_per_epoch=steps)
+        split = collections.Counter()
+        lock = threading.Lock()
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    with lock:
+                        split[key] += time.perf_counter() - t0
+            return run
+
+        events, losses = [], []
+        real_step = trainer.train_step
+
+        def step(batch):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            metrics = real_step(batch)
+            e1.record()
+            events.append((e0, e1))
+            losses.append(metrics["loss"])
+            return metrics
+
+        trainer.train_step = timed("step_host_s", step)
+        trainer._save = timed("checkpoint_s", trainer._save)
+        trainer.validate = timed("validation_s", trainer.validate)
+        for ds, key in ((dm_.train_dataset, "train_load_work_s"),
+                        (dm_.val_dataset, "val_load_work_s")):
+            ds.loader.load_sample = timed(key, ds.loader.load_sample)
+
+        def train_loader(epoch):
+            ld = dm_.train_dataloader()
+            ld.set_epoch(epoch)
+            it = iter(ld)
+            while True:          # the main thread's wait for each batch
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    split["data_wait_s"] += time.perf_counter() - t0
+                yield batch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with python_readers(python_path):
+            history = trainer.fit(train_loader,
+                                  lambda: iter(dm_.val_dataloader()),
+                                  max_epochs=LEGACY_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        audio_s = steps * LEGACY_EPOCHS * batch_size * 12.0
+        parts = ("data_wait_s", "step_host_s", "validation_s",
+                 "checkpoint_s")
+        row = {"wall_s": wall, **{k: split[k] for k in parts},
+               "other_s": wall - sum(split[k] for k in parts),
+               "train_load_work_s": split["train_load_work_s"],
+               "val_load_work_s": split["val_load_work_s"],
+               "steps": len(events),
+               "step_device_ms": q([a.elapsed_time(b) for a, b in events]),
+               "step_device_s_total": sum(a.elapsed_time(b)
+                                          for a, b in events) / 1e3,
+               "validations": len(history["val"]),
+               "checkpoint_dirs": sorted(
+                   p.name for p in (work / f"fit_split_{tag}" /
+                                    "checkpoints").iterdir()),
+               "audio_s_per_wall_s": audio_s / wall}
+        row["dominant"] = max(parts, key=lambda k: row[k])
+        return row, [float(v) for v in losses]
+
+    # in turns (Python, native, native, Python): the first run of each
+    # pair reads the files cold from the page cache of a fresh process
+    runs = [fit_split(f"{tag}_{i}", tag == "python") for i, tag in
+            enumerate(("python", "native", "native", "python"))]
+    (split_py, losses_py), (split_nat, losses_nat) = runs[3], runs[2]
+
+    def load_pass(python_path: bool):
+        ds = KoeMorphDataModule(train_data_dir=synth)
+        ds.setup()
+        t0 = time.perf_counter()
+        with python_readers(python_path):
+            items = [ds.train_dataset[i] for i in range(len(ds.train_dataset))]
+        return time.perf_counter() - t0, items
+
+    load_py_s, items_py = load_pass(True)
+    load_nat_s, items_nat = load_pass(False)
+    same_items = all(np.array_equal(a[k], b[k]) for a, b in
+                     zip(items_py, items_nat) for k in ("wav", "arkit"))
+    files_audio_s = sum(len(x["wav"]) for x in items_nat) / SR
+    emit({"phase": "fit_wall_split", "card": card, "batch": batch_size,
+          "epochs": LEGACY_EPOCHS, "files": len(items_nat),
+          "check_val_every_n_epoch": int(tcfg["training"].get(
+              "check_val_every_n_epoch", 1)),
+          "python_readers": split_py, "native_parsers": split_nat,
+          "first_pair": {"python": runs[0][0], "native": runs[1][0]},
+          "losses_bitwise_equal": all(r[1] == losses_nat for r in runs),
+          "load_only": {"python_s": load_py_s, "native_s": load_nat_s,
+                        "speedup": load_py_s / load_nat_s,
+                        "audio_s_per_s_python": files_audio_s / load_py_s,
+                        "audio_s_per_s_native": files_audio_s / load_nat_s,
+                        "bitwise_equal": same_items}})
+    check(all(r[1] == losses_nat for r in runs)
+          and all(np.isfinite(losses_nat)),
+          "the fit through the native parsers differs from the Python "
+          f"readers': {losses_py} vs {losses_nat}")
+    check(same_items and len(items_nat) == LEGACY_FILES,
+          "native and Python readers disagree on the legacy files")
+
+    # ---- reference_import: a reference .pth through the entry points ----
+    imp = {}
+    wav = work / "import_in.wav"
+    write_wav(wav, voiced_audio(10.0, seed=13), SR)
+    for learnable in (True, False):
+        tag = "learnable" if learnable else "fixed"
+        ref = SimplifiedDualStreamModel(dropout=0.0)
+        ref.init_random(torch.Generator().manual_seed(5))
+        sd = {k: v for k, v in ref.state_dict().items()
+              if not k.startswith("emotion_projection.")}
+        if not learnable:
+            att = SimplifiedDualStreamModel(
+                dropout=0.0, use_learnable_weights=False).dual_stream_attention
+            sd["dual_stream_attention.mel_weights"] = att.mel_weights
+            sd["dual_stream_attention.emotion_weights"] = att.emotion_weights
+        pth = work / f"reference_{tag}.pth"
+        torch.save({"model_state_dict": sd}, pth)
+        out_dir = work / f"imported_{tag}"
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = importer.main([str(pth), "--output", str(out_dir)]
+                               + ([] if learnable else ["--fixed-fusion"]))
+        imported = read_state_dict(out_dir)
+        check(rc == 0 and printed.getvalue().strip() == str(out_dir)
+              and (("dual_stream_attention.mel_weights" in imported)
+                   == learnable),
+              f"import_torch_checkpoint ({tag}) wrote {sorted(imported)[:4]}")
+        check(all(torch.equal(imported[k], v.cpu()) for k, v in sd.items()
+                  if k in imported),
+              f"the imported {tag} checkpoint differs from the reference's")
+        # the served path: infer, rt (the stream) and test_model on the
+        # card from the imported file, the kernels' arguments recorded
+        rows_path = work / f"imported_{tag}_infer.jsonl"
+        rt_rows = work / f"imported_{tag}_rt.jsonl"
+        ck.reset_launch_counts()
+        with recording_kernels(out["rec"], f"import_{tag}"):
+            rc_inf = infer.main(["--input", str(wav), "--output",
+                                 str(rows_path), "--model", str(out_dir)])
+            rc_rt = rt.main(["--input", str(wav), "--model", str(out_dir),
+                             "--output", "file", "--output-file",
+                             str(rt_rows), "--no-realtime", "--max-frames",
+                             "30"])
+            rc, result = _stdout_json(lambda: tm.main(
+                ["--data-dir", str(synth), "--model-name",
+                 "sequential_dual_stream", "--model", str(out_dir),
+                 "--max-batches", "1"]))
+        launches = dict(ck.LAUNCHES)
+        out["shapes"][f"import_{tag}"] = dict(ck.SHAPE_LAUNCHES)
+        check(rc_inf == 0 and rc_rt == 0,
+              f"infer / rt on the imported {tag} checkpoint: "
+              f"{rc_inf} / {rc_rt}")
+        # infer against the same decode in process
+        got = np.asarray([json.loads(r)["blendshapes"] for r in
+                          rows_path.read_text().splitlines()])
+        model = SequentialDualStreamModel(
+            use_learnable_weights=learnable, dropout=0.0)
+        model.load_state_dict(imported)
+        audio = infer.load_audio(str(wav), SR, 256, HOP)
+        want = BatchedSequentialDecoder(model, dev, graphs=False)(
+            audio[None])[0].cpu().numpy()
+        d_infer = (float(np.abs(got - want).max())
+                   if got.shape == want.shape else None)
+        rt_bs = np.asarray([json.loads(r)["blendshapes"] for r in
+                            rt_rows.read_text().splitlines()])
+        # test_model against its first batch in process
+        seq_args = argparse.Namespace(
+            model_name="sequential_dual_stream", d_model=256, num_heads=8,
+            fps=30, emotion_backend="egemaps")
+        tm_model, tm_span = tm.build_model(
+            seq_args, **read_model_state(out_dir)[1])
+        tm_model.load_state_dict(imported)
+        loader, _ = create_sequential_dataloader(
+            synth, batch_size=4, window_frames=tm_span,
+            stride_frames=tm_span, drop_last=True)
+        pred, target = tm.predict(tm_model.eval().to(dev),
+                                  "sequential_dual_stream", 256,
+                                  next(iter(loader())), dev)
+        metrics = BlendshapeMetrics()
+        metrics.update(pred, np.asarray(target))
+        d_tm = max(abs(result[k] - float(v))
+                   for k, v in metrics.compute().items())
+        imp[tag] = {"seconds": time.perf_counter() - t0,
+                    "infer_rows": len(got),
+                    "infer_max_abs_diff_in_process": d_infer,
+                    "launches": launches,
+                    "launches_by_shape": {
+                        f"{a}{list(b)}": v for (a, b), v in
+                        out["shapes"][f"import_{tag}"].items()},
+                    "rt_frames": len(rt_bs),
+                    "rt_finite_in_range": bool(
+                        np.isfinite(rt_bs).all() and rt_bs.min() >= 0
+                        and rt_bs.max() <= 1),
+                    "test_model": result,
+                    "test_model_max_abs_diff_in_process": d_tm}
+        check(d_infer is not None and d_infer <= IMPORT_ATOL,
+              f"infer on the imported {tag} checkpoint vs in process: "
+              f"{d_infer}")
+        check(all(launches[k] > 0 for k in KERNEL_PATTERNS),
+              f"infer, rt and test_model on the imported {tag} checkpoint "
+              f"launched {launches}")
+        check(len(rt_bs) == 30 and imp[tag]["rt_finite_in_range"],
+              f"rt on the imported {tag} checkpoint: {rt_bs.shape}")
+        check(rc == 0 and d_tm <= IMPORT_ATOL,
+              f"test_model on the imported {tag} checkpoint: {d_tm}")
+        del model, tm_model
+    emit({"phase": "reference_import", "card": card, **imp})
+
+    # ---- rehearsal: the lip-sync demo and reproduce_results --smoke ----
+    ck.reset_launch_counts()
+    with recording_kernels(out["rec"], "demo"):
+        rc, demo = _stdout_json(lambda: demo_lipsync_learning.main(
+            ["--work-dir", str(work / "lipsync_demo")]))
+    out["shapes"]["demo"] = dict(ck.SHAPE_LAUNCHES)
+    demo_launches = dict(ck.LAUNCHES)
+    ck.reset_launch_counts()
+    with recording_kernels(out["rec"], "rehearsal"):
+        rc_r, rep = _stdout_json(lambda: reproduce_results.main(
+            ["--smoke", "--val-every", "1",
+             "--work-dir", str(work / "reproduce")]))
+    out["shapes"]["rehearsal"] = dict(ck.SHAPE_LAUNCHES)
+    rep_launches = dict(ck.LAUNCHES)
+    report = Path(rep["report"])
+    val_losses = rep["val_losses"]
+    emit({"phase": "rehearsal", "card": card, "demo": demo,
+          "demo_launches": demo_launches,
+          "demo_launches_by_shape": {f"{a}{list(b)}": v for (a, b), v in
+                                     out["shapes"]["demo"].items()},
+          "reproduce_smoke": rep, "reproduce_launches": rep_launches,
+          "reproduce_launches_by_shape": {
+              f"{a}{list(b)}": v
+              for (a, b), v in out["shapes"]["rehearsal"].items()}})
+    check(rc == 0 and demo["loss_last"] < demo["loss_first"]
+          and np.isfinite(demo["jaw_corr_after"]),
+          f"the lip-sync demo: {demo}")
+    check(demo_launches["logmel"] > 0, f"the demo launched {demo_launches}")
+    # the smoke's four one-step epochs each train on a reshuffled batch,
+    # so the train loss of one epoch is not comparable with another's;
+    # learning is read on the held-out windows, the same in every round
+    check(rc_r == 0 and report.exists()
+          and "NOT corpus results" in report.read_text()
+          and np.isfinite(rep["mae"]) and len(val_losses) == 4
+          and val_losses[-1] < val_losses[0],
+          f"reproduce_results --smoke: {rep}")
+    check(all(rep_launches[k] > 0 for k in KERNEL_PATTERNS),
+          f"reproduce_results --smoke launched {rep_launches}")
+
+    # every launch shape of the import, demo and rehearsal paths, on the
+    # arguments those runs passed, against the kernel's plain form
+    held = hold_recorded(out["rec"], SLICE11_PATHS)
+    emit({"phase": "slice11_kernels_vs_plain", "card": card,
+          "held": {f"{name} {tag} {shape}": {
+              k: v for k, v in r.items() if k != "plain_misses_rounded"}
+              for (name, tag, shape), r in held.items()}})
+    check(held and all(r["ok"] for r in held.values()),
+          "kernels vs plain forms on the phase-15 paths: "
+          + str([k for k, r in held.items() if not r["ok"]]))
+    out["held"] = held
+
+    # ---- extractor: the fallback matrix, then integration_check ----
+    audio = voiced_audio(2.0, seed=12)
+    ext, matrix = {}, {}
+
+    def run(name, ex, x=audio):
+        res = ex.extract_features(x)
+        emb, bw = res["embeddings"], res["blendshape_weights"]
+        matrix[name] = {"level": ex.fallback_level,
+                        "served": res["metadata"]["backend_used"],
+                        "dim": int(emb.shape[-1]),
+                        "finite": bool(np.isfinite(emb).all()),
+                        "blendshapes_valid": bool((bw >= 0).all()
+                                                  and (bw <= 1).all())}
+        return res
+
+    ck.reset_launch_counts()
+    res_eg = run("egemaps", EmotionExtractor(backend="egemaps",
+                                             enable_caching=False))
+    ext["egemaps_launches"] = dict(ck.LAUNCHES)
+    with plain_forms():
+        plain_eg = EmotionExtractor(backend="egemaps", enable_caching=False
+                                    ).extract_features(audio)
+    ext["egemaps_max_abs_diff_plain"] = float(np.abs(
+        res_eg["embeddings"] - plain_eg["embeddings"]).max())
+    run("emotion2vec without a source", EmotionExtractor(
+        enable_caching=False))
+    run("basic", EmotionExtractor(backend="basic", enable_caching=False))
+    torch.manual_seed(0)
+    conv_sd = ConvEmotionEncoder().state_dict()
+    run("emotion2vec, ConvEmotionEncoder", EmotionExtractor(
+        emotion2vec_params=conv_sd, enable_caching=False))
+    feats = np.random.default_rng(0).standard_normal(
+        (7, 1024)).astype(np.float32)
+    PrecomputedEmotionFeatures.save(work / "precomputed", audio, feats)
+    pre = EmotionExtractor(precomputed_dir=work / "precomputed",
+                           enable_caching=False)
+    hit = run("emotion2vec, precomputed hit", pre)
+    run("emotion2vec, precomputed miss", pre,
+        voiced_audio(2.0, seed=14))
+    ext["precomputed_restored_level"] = pre.fallback_level
+    ext["precomputed_hit_exact"] = bool(np.array_equal(
+        hit["embeddings"][0], feats.mean(0)))
+    bad = {k: v[..., :1] for k, v in conv_sd.items()}
+    demoted = EmotionExtractor(emotion2vec_params=bad, enable_caching=False)
+    run("emotion2vec, bad weights (runtime demotion)", demoted)
+    shutil.rmtree(work / "emotion_cache", ignore_errors=True)
+    cached = EmotionExtractor(backend="basic",
+                              cache_dir=work / "emotion_cache")
+    run("basic, cache miss", cached)
+    run("basic, cache hit", cached)
+    ext["cache_stats"] = cached.get_statistics()
+    rc_i, integ = _stdout_json(
+        lambda: integration_check.main(["--seconds", "4"]), last_line=False)
+    want_served = {
+        "egemaps": ("opensmile", 264), "emotion2vec without a source":
+        ("opensmile", 264), "basic": ("basic", 9),
+        "emotion2vec, ConvEmotionEncoder": ("emotion2vec", 1024),
+        "emotion2vec, precomputed hit": ("emotion2vec", 1024),
+        "emotion2vec, precomputed miss": ("opensmile", 264),
+        "emotion2vec, bad weights (runtime demotion)": ("opensmile", 264),
+        "basic, cache miss": ("basic", 9), "basic, cache hit": ("basic", 9)}
+    emit({"phase": "extractor", "card": card, "matrix": matrix, **ext,
+          "integration_check": integ})
+    check(all((m["served"], m["dim"]) == want_served[k] and m["finite"]
+              and m["blendshapes_valid"] for k, m in matrix.items()),
+          f"the extractor's fallback matrix: {matrix}")
+    check(ext["precomputed_restored_level"] == 0
+          and ext["precomputed_hit_exact"] and demoted.fallback_level == 1
+          and ext["cache_stats"]["cache_hits"] == 1,
+          f"extractor levels, precomputed store, cache: {ext}")
+    check(ext["egemaps_launches"]["cycle_dsum"] > 0
+          and ext["egemaps_launches"]["dk_roots"] > 0,
+          f"the eGeMAPS extractor launched {ext['egemaps_launches']}")
+    check(ext["egemaps_max_abs_diff_plain"] <= EXTRACTOR_PLAIN_MAX,
+          "the eGeMAPS extractor vs the plain forms: "
+          f"{ext['egemaps_max_abs_diff_plain']}")
+    check(rc_i == 0 and integ["ok"]
+          and integ["device"] == card,
+          f"integration_check: {integ}")
+    emit({"phase": "slice11", "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -3685,6 +4201,9 @@ def main() -> int:  # noqa: C901
 
     # ---- 14. the legacy model family ----
     s10 = slice10_phases(card, work, env)
+
+    # ---- 15. files to a checked, trained model ----
+    s11 = slice11_phases(card, work, s10)
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -4167,6 +4686,64 @@ def main() -> int:  # noqa: C901
                 time_ms(lambda: cublas_chain(x_flat), iters=50),
                 "chain: window, 2 DFT matmuls, power, mel matmul, dB "
                 "(3 cuBLAS fp32 products)", tensor_cores=True))
+
+    # the shapes of phase 15, on the arguments its paths passed them: the
+    # imported checkpoints served (infer's decode, rt's stream, test_model's
+    # batch; both fusion modes pass the kernels the same audio, so one row
+    # per shape counts the launches of both), the lip-sync demo's batch-8
+    # step and reproduce_results --smoke (its batch-4 train step and its
+    # validation batch); each was held against its plain form in phase 15
+    rows15: dict = {}
+    for (kname, tag, shape), r in sorted(s11["held"].items()):
+        row = rows15.setdefault((kname, SLICE11_PATHS[tag], shape),
+                                {"tags": [], "err": 0.0})
+        row["tags"].append(tag)
+        row["err"] = max(row["err"], r["max_abs_err"])
+    with torch.inference_mode():
+        for (kname, path, shape), row in rows15.items():
+            args, kw = s11["rec"][(kname, row["tags"][0], shape)]
+            if kname == "cycle_dsum":
+                frames_a, st, tau, off = args
+                key = (st.numel(), kw["n_cycles"], 2 * kw["half_lag"] + 1,
+                       shape[1])
+            else:
+                key = (shape,)
+            launches = sum(s11["shapes"][tag].get((kname, key), 0)
+                           for tag in row["tags"])
+            if kname == "cycle_dsum":
+                kernels.append(k1_entry(
+                    f"{path} args n{shape[1]} x{shape[0]}", frames_a, st, tau,
+                    off, kw, launches, row["err"]))
+            elif kname == "dk_roots":
+                a_p = args[0].reshape(shape, args[0].shape[-1])
+                comp_p = companion(a_p)
+                kernels.append(entry(
+                    f"dk_roots[{path}, {shape} rows]",
+                    "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+                    "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+                    launches, row["err"], lambda: ck.dk_roots(a_p),
+                    "dk_roots_kernel", lambda: eg.poly_roots_plain(a_p),
+                    shape * 11 * 4 + shape * 10 * 8 + 10 * 8,
+                    20.0 * 10 * (10 * 11 + 10 * 10 + 14) * shape,
+                    time_ms(lambda: torch.linalg.eigvals(comp_p), iters=2,
+                            warmup=1),
+                    "torch.linalg.eigvals of the companion matrices"))
+            else:
+                (x_p,) = args
+                x_flat = x_p.reshape(-1, 1024)
+                kernels.append(entry(
+                    f"logmel[{path} T={shape}]",
+                    "koemorph_tpu_torch/ops/cuda/logmel.cu",
+                    "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+                    launches, row["err"], lambda: ck.logmel(x_p, **kw),
+                    "logmel_",
+                    lambda: frontend.frames_to_logmel_plain(x_p, **kw),
+                    4.0 * (shape * 1024 + 2 * 1024 * live + nnz
+                           + shape * 80),
+                    shape * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+                    time_ms(lambda: cublas_chain(x_flat), iters=50),
+                    "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+                    "(3 cuBLAS fp32 products)", tensor_cores=True))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

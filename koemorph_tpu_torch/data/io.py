@@ -1,8 +1,9 @@
 """Synchronized ARKit blendshape (JSONL) + audio (WAV) loading, on the
 host in numpy: 52-coefficient validation, [0, 1]-range warning,
 monotonic-timestamp warning, audio/blendshape duration-drift gate, fps
-detection and resampling. The counterpart of ``koemorph_tpu.data.io``'s
-pure-Python path.
+detection and resampling. The counterpart of ``koemorph_tpu.data.io``:
+the loader reads through the native parsers (``data/native.py``) and
+leaves a file they decline to the strict Python readers.
 """
 
 from __future__ import annotations
@@ -68,40 +69,22 @@ class ARKitDataLoader:
                 "arkit": blendshapes.astype(np.float32)}
 
     def _load_blendshapes(self, jsonl_path: Path) -> np.ndarray:
-        blendshapes: list[np.ndarray] = []
-        timestamps: list[float] = []
-        with open(jsonl_path) as f:
-            for line_no, line in enumerate(f, 1):
-                try:
-                    data = json.loads(line.strip())
-                except json.JSONDecodeError as e:
-                    raise ValueError(f"Invalid JSON at line {line_no}: {e}")
-                if "timestamp" not in data:
-                    raise ValueError(
-                        f"Missing 'timestamp' field at line {line_no}")
-                if "blendshapes" not in data:
-                    raise ValueError(
-                        f"Missing 'blendshapes' field at line {line_no}")
-                values = data["blendshapes"]
-                if len(values) != 52:
-                    raise ValueError(
-                        f"Expected 52 blendshapes, got {len(values)} at "
-                        f"line {line_no}")
-                arr = np.asarray(values, dtype=np.float32)
-                if not np.all((arr >= 0) & (arr <= 1)):
-                    warnings.warn(
-                        f"Blendshape values outside [0,1] range at "
-                        f"line {line_no}")
-                timestamps.append(data["timestamp"])
-                blendshapes.append(arr)
+        """The ``(T, 52)`` rows through the native parser; a file it
+        declines (any irregular line) goes through
+        :func:`load_blendshapes_python`, which raises its errors."""
+        from koemorph_tpu_torch.data.native import (
+            parse_blendshape_jsonl_native)
 
-        if not blendshapes:
-            raise ValueError("No blendshape data found in file")
-        stacked = np.stack(blendshapes, axis=0)
-        ts = np.asarray(timestamps)
+        parsed = parse_blendshape_jsonl_native(
+            Path(jsonl_path).read_bytes(), n_coeffs=52)
+        if parsed is None:
+            return load_blendshapes_python(jsonl_path)
+        arr, ts = parsed
+        if not np.all((arr >= 0) & (arr <= 1)):
+            warnings.warn("Blendshape values outside [0,1] range")
         if len(ts) > 1 and not np.all(np.diff(ts) > 0):
             warnings.warn("Non-monotonic timestamps detected")
-        return stacked
+        return arr
 
     def load_batch(self, file_pairs) -> list[dict[str, np.ndarray]]:
         samples = []
@@ -111,6 +94,46 @@ class ARKitDataLoader:
             except (FileNotFoundError, ValueError) as e:
                 warnings.warn(f"Failed to load {jsonl_path}, {wav_path}: {e}")
         return samples
+
+
+def load_blendshapes_python(jsonl_path: PathLike) -> np.ndarray:
+    """The strict pure-Python JSONL reader: ``(T, 52)`` float32 rows;
+    ``ValueError`` naming the line on invalid JSON, a missing field or
+    another count, a warning per line outside [0, 1] and one for
+    non-monotonic timestamps."""
+    blendshapes: list[np.ndarray] = []
+    timestamps: list[float] = []
+    with open(jsonl_path) as f:
+        for line_no, line in enumerate(f, 1):
+            try:
+                data = json.loads(line.strip())
+            except json.JSONDecodeError as e:
+                raise ValueError(f"Invalid JSON at line {line_no}: {e}")
+            if "timestamp" not in data:
+                raise ValueError(
+                    f"Missing 'timestamp' field at line {line_no}")
+            if "blendshapes" not in data:
+                raise ValueError(
+                    f"Missing 'blendshapes' field at line {line_no}")
+            values = data["blendshapes"]
+            if len(values) != 52:
+                raise ValueError(
+                    f"Expected 52 blendshapes, got {len(values)} at "
+                    f"line {line_no}")
+            arr = np.asarray(values, dtype=np.float32)
+            if not np.all((arr >= 0) & (arr <= 1)):
+                warnings.warn(
+                    f"Blendshape values outside [0,1] range at "
+                    f"line {line_no}")
+            timestamps.append(data["timestamp"])
+            blendshapes.append(arr)
+    if not blendshapes:
+        raise ValueError("No blendshape data found in file")
+    stacked = np.stack(blendshapes, axis=0)
+    ts = np.asarray(timestamps)
+    if len(ts) > 1 and not np.all(np.diff(ts) > 0):
+        warnings.warn("Non-monotonic timestamps detected")
+    return stacked
 
 
 def detect_fps(timestamps: np.ndarray) -> float:

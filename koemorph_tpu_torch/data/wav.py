@@ -1,5 +1,5 @@
-"""WAV decode/encode in pure Python over numpy: PCM 8/16/24/32-bit and
-IEEE float32/64, any channel count."""
+"""WAV decode/encode over numpy: PCM 8/16/24/32-bit and IEEE float32/64,
+any channel count; float32 reads take the native parser."""
 
 from __future__ import annotations
 
@@ -17,8 +17,26 @@ _EXTENSIBLE = 0xFFFE
 def read_wav(path: Union[str, Path], *, mono: bool = False,
              dtype=np.float32) -> tuple[np.ndarray, int]:
     """``(audio, sample_rate)``; audio is ``(L,)`` for mono files (or with
-    ``mono=True``) else ``(L, C)``, scaled to [-1, 1]."""
+    ``mono=True``) else ``(L, C)``, scaled to [-1, 1]. A float32 read goes
+    through the native parser
+    (:func:`koemorph_tpu_torch.data.native.decode_wav_native`) and a file
+    it declines through :func:`decode_wav_python`, which raises on what
+    it cannot read."""
     raw = Path(path).read_bytes()
+    if dtype is np.float32:
+        from koemorph_tpu_torch.data.native import decode_wav_native
+
+        decoded = decode_wav_native(raw, mono=mono)
+        if decoded is not None:
+            return decoded
+    return decode_wav_python(raw, path, mono=mono, dtype=dtype)
+
+
+def decode_wav_python(raw: bytes, path: Union[str, Path] = "<bytes>", *,
+                      mono: bool = False, dtype=np.float32
+                      ) -> tuple[np.ndarray, int]:
+    """The pure-Python decode of WAV bytes: :func:`read_wav`'s result
+    (``path`` names the file in errors), in float64 arithmetic."""
     if len(raw) < 12 or raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
         raise ValueError(f"Not a RIFF/WAVE file: {path}")
     pos = 12

@@ -32,3 +32,26 @@ def scalar_like(value: float, like: torch.Tensor,
     can move a value across a rounding or flooring boundary.
     """
     return torch.full((), value, dtype=dtype or like.dtype, device=like.device)
+
+
+def device_label(device: DeviceLike = None) -> str:
+    """``cpu``, or the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit`` gives them (the name alone where
+    ``nvidia-smi`` cannot be run): every time measured on the card is
+    reported beside it."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "-i", str(index),
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return torch.cuda.get_device_name(dev)
+    out = proc.stdout.strip()
+    return out if proc.returncode == 0 and out else \
+        torch.cuda.get_device_name(dev)

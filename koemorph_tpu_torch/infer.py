@@ -81,20 +81,20 @@ def main(argv=None) -> int:
     from koemorph_tpu_torch.parallel.batched_decode import (
         BatchedSequentialDecoder)
     from koemorph_tpu_torch.utils.params import (load_model_state,
-                                                 read_state_dict)
+                                                 read_model_state)
 
     device = resolve_device(args.device)
     window = 512 if args.fps == 60 else 256
+    sd, fixed_by_state = read_model_state(args.model)
     model = SequentialDualStreamModel(
         d_model=args.d_model, num_heads=args.num_heads,
         mel_sequence_length=window, target_fps=args.fps,
         emotion_backend=args.emotion_backend,
         use_concatenation=args.emotion_backend == "egemaps",
         stride_frames=args.stride_frames, decode_mode=args.decode_mode,
-        dropout=0.0)
+        dropout=0.0, **fixed_by_state)
     if args.model:
-        load_model_state(model, read_state_dict(args.model),
-                         f"checkpoint {args.model}")
+        load_model_state(model, sd, f"checkpoint {args.model}")
         logger.info("Loaded %s", args.model)
     else:
         model.init_random(torch.Generator().manual_seed(args.seed))

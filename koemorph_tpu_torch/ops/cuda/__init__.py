@@ -44,8 +44,8 @@ import torch
 
 from koemorph_tpu_torch.ops.device_cache import device_cache
 
-__all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "build", "build_dir",
-           "reset_launch_counts", "capturing", "FrameLayout",
+__all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "KernelError", "build",
+           "build_dir", "reset_launch_counts", "capturing", "FrameLayout",
            "frame_layout", "cycle_dsum", "dk_roots", "logmel"]
 
 _HERE = Path(__file__).resolve().parent
@@ -68,6 +68,12 @@ _LOCK = threading.Lock()
 #: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) per
 #: kernel built by this process
 BUILD_LOGS: dict[str, str] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel that could not be built, loaded or launched: a fault of the
+    card or of its toolchain, which no caller may answer by serving
+    something else."""
 
 
 def reset_launch_counts() -> None:
@@ -103,8 +109,8 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       "source with the CUDA toolkit's nvcc")
+    raise KernelError("nvcc not found: the CUDA kernels are built from "
+                      "source with the CUDA toolkit's nvcc")
 
 
 def _lib_path(name: str) -> Path:
@@ -141,7 +147,7 @@ def build(names=None) -> dict[str, Path]:
             continue
         os.replace(tmp, path)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return {name: _lib_path(name) for name in names}
 
 
@@ -159,7 +165,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             for entry, (n_ptr, n_int) in _ENTRIES[name].items():
                 fn = getattr(lib, entry)
                 fn.restype = ctypes.c_int
@@ -178,8 +187,8 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype,
 
 def _launched(name: str, shape: tuple, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: "
+                          f"cudaError {err}")
     LAUNCHES[name] += 1
     SHAPE_LAUNCHES[(name, shape)] += 1
 

@@ -17,7 +17,7 @@ from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
                                                   StreamingInference,
                                                   model_for_config)
 from koemorph_tpu_torch.utils.params import (load_model_state,
-                                             read_state_dict)
+                                             read_model_state)
 
 logger = logging.getLogger(__name__)
 
@@ -43,12 +43,14 @@ def build_streaming_model(
     emotion ring, a refresh every 0.3 s. ``checkpoint`` is a directory the
     trainer wrote
     (``state.pth`` inside) or a ``.pth`` state dict in the reference's
-    names; a missing path raises ``FileNotFoundError``, a missing or
-    wrongly shaped parameter ``ValueError`` naming it. Without one the
+    names (fixed fusion when it holds no ``mel_weights``); a missing path
+    raises ``FileNotFoundError``, a missing or wrongly shaped parameter
+    ``ValueError`` naming it. Without one the
     weights are random, drawn from ``seed`` with an explicit
     ``torch.Generator``. Returns ``(model, cfg)`` with the model on
     ``device`` (``cuda`` by default; raises when CUDA is absent)."""
     dev = resolve_device(device)
+    sd, fixed_by_state = read_model_state(checkpoint)
     cfg = StreamingConfig(
         sample_rate=sample_rate, target_fps=fps,
         window_frames=512 if fps == 60 else 256,
@@ -56,12 +58,12 @@ def build_streaming_model(
         emotion_backend=emotion_backend,
         use_concatenation=emotion_backend == "egemaps",
         emotion_update_frames=max(1, int(0.3 * fps)),
+        **fixed_by_state,
         **({} if emotion2vec_config is None
            else dict(emotion2vec_config=emotion2vec_config)))
     model = model_for_config(cfg)
     if checkpoint:
-        load_model_state(model, read_state_dict(checkpoint),
-                         f"checkpoint {checkpoint}")
+        load_model_state(model, sd, f"checkpoint {checkpoint}")
         logger.info("Loaded checkpoint %s", checkpoint)
     else:
         model.init_random(torch.Generator().manual_seed(seed))

@@ -32,9 +32,10 @@ import torch
 logger = logging.getLogger("test_model")
 
 
-def build_model(args):
+def build_model(args, **fixed_by_state):
     """The model ``--model-name`` names, at the flags' width, for
-    evaluation (dropout 0)."""
+    evaluation (dropout 0); a dual-stream model takes the keywords
+    ``read_model_state`` gives for the checkpoint it will load."""
     from koemorph_tpu_torch.models import (SequentialDualStreamModel,
                                            SimplifiedDualStreamModel,
                                            SimplifiedKoeMorphModel)
@@ -48,7 +49,7 @@ def build_model(args):
                   mel_sequence_length=window, target_fps=args.fps,
                   emotion_backend=args.emotion_backend,
                   use_concatenation=args.emotion_backend == "egemaps",
-                  dropout=0.0)
+                  dropout=0.0, **fixed_by_state)
     if args.model_name == "simplified_dual_stream":
         return SimplifiedDualStreamModel(**common), window
     return SequentialDualStreamModel(**common, stride_frames=1), window + 32
@@ -101,13 +102,13 @@ def main(argv=None) -> int:
     from koemorph_tpu_torch.device import resolve_device
     from koemorph_tpu_torch.models.losses import BlendshapeMetrics
     from koemorph_tpu_torch.utils.params import (load_model_state,
-                                                 read_state_dict)
+                                                 read_model_state)
 
     device = resolve_device(args.device)
-    model, span = build_model(args)
+    sd, fixed_by_state = read_model_state(args.model)
+    model, span = build_model(args, **fixed_by_state)
     if args.model:
-        load_model_state(model, read_state_dict(args.model),
-                         f"checkpoint {args.model}")
+        load_model_state(model, sd, f"checkpoint {args.model}")
         logger.info("Loaded %s", args.model)
     else:
         model.init_random(torch.Generator().manual_seed(args.seed))

@@ -68,7 +68,7 @@ import torch
 __all__ = ["state_dict_from_flax", "flax_from_state_dict",
            "encoder_state_dict_from_flax",
            "optimizer_state_from_optax", "optax_from_optimizer_state",
-           "read_state_dict", "load_model_state"]
+           "read_state_dict", "load_model_state", "read_model_state"]
 
 #: the model's file in a checkpoint directory
 STATE_FILE = "state.pth"
@@ -486,3 +486,14 @@ def load_model_state(model: torch.nn.Module, sd: dict,
                 "(check --d-model / --num-heads / --fps against the "
                 "training config)")
     model.load_state_dict(sd)
+
+
+def read_model_state(path: Union[str, Path, None]) -> tuple[dict | None,
+                                                            dict]:
+    """The state dict of the checkpoint at ``path`` (``None`` without a
+    path) and the dual-stream constructor keywords it fixes: its fusion
+    mode, ``use_learnable_weights``, is trained (True) unless it stores no
+    ``mel_weights`` (a fixed-fusion model); True for random weights."""
+    sd = read_state_dict(path) if path else None
+    return sd, {"use_learnable_weights":
+                sd is None or "dual_stream_attention.mel_weights" in sd}
