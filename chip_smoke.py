@@ -175,6 +175,26 @@ inside ``plain_forms()``.
    written; K1-K3 against their plain forms on the batch-4 train step's
    arguments) and ``extractor`` (``EmotionExtractor``'s fallback matrix
    and ``integration_check`` with ``"ok": true``).
+16. the reference-named feature extractors, reconstruction, prosody and
+   export (``slice12_phases``): ``MelSlidingWindowExtractor`` at its
+   defaults fed 8.5 s hop by hop (``logmel`` once per extraction at T =
+   257; the dB rows by K3's rule and the normalized mel within 1e-4 of the
+   plain forms), ``EgemapsStreamingExtractor`` on a 20 s context with the
+   3-window concatenation (``cycle_dsum`` twice and ``dk_roots`` once per
+   window on 1,997 LLD rows; the functionals against the plain forms at
+   the CPU tests' bounds), ``MelSpectrogramExtractor``,
+   ``InverseMelSpectrogram`` and ``extract_prosody`` (no kernel; against
+   the same calls on the CPU, the Griffin-Lim pitch round trip), then
+   ``python -m koemorph_tpu_torch.export_model --benchmark`` on phase
+   15's imported checkpoint, the ``.pt2`` reloaded in another process and
+   run for 30 frames with the EMA carry threaded: within 1e-5 of the live
+   module and 1e-4 of the plain forms, the three ``torch.library``
+   operators in its graph, its launches counted there and its kernels
+   seen by the profiler, exported and live frame ms between CUDA events
+   (and, from ``--benchmark``, in one process in alternating rounds);
+   the live frame through the operators bitwise equal to the direct
+   route, the two routes timed in alternating rounds, per frame and per
+   kernel call on the host.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -282,15 +302,49 @@ def profiled(fn):
     return prof
 
 
+#: the device's idle time that ends the lead-in (its synchronization and
+#: 20 ms of sleep) on the device's own clock, in µs
+LEAD_GAP_US = 15000
+
+
+def _is_lead_in(name: str) -> bool:
+    """The lead-in's device activities: its fill and its adds."""
+    low = name.lower()
+    return "fill" in low or "add" in low or name.startswith("Memset")
+
+
 def measured_events(prof):
-    """The profile's events that start inside its ``MEASURED`` range (10
-    ms of slack for aligning the device's clock with the host's: with 1
-    ms, a run left out the first replay of a window; the lead-in ended 20
-    ms before)."""
+    """The profile's events of its ``MEASURED`` range. Host events: those
+    that start inside it (10 ms of slack). Device activities: those after
+    the lead-in's idle gap on the device's own clock, found as the first
+    gap of ``LEAD_GAP_US`` with nothing but lead-in activities before it,
+    since the device's timestamps are aligned with the host's only to
+    milliseconds (with 1 ms of slack a run left out the first replay of a
+    window); where the gap does not show (the lead-in's activities lost),
+    those too from 10 ms before the range's start."""
     events = prof.events()
     start = min(e.time_range.start for e in events if e.name == MEASURED)
-    return [e for e in events
-            if e.name != MEASURED and e.time_range.start >= start - 10000]
+    on_device = sorted((e for e in events
+                        if str(e.device_type).endswith("CUDA")),
+                       key=lambda e: e.time_range.start)
+    first = None
+    for i in range(1, len(on_device)):
+        if not _is_lead_in(on_device[i - 1].name):
+            break
+        if (on_device[i].time_range.start
+                - on_device[i - 1].time_range.end) >= LEAD_GAP_US:
+            first = on_device[i].time_range.start
+            break
+    out = []
+    for e in events:
+        if e.name == MEASURED:
+            continue
+        if first is not None and str(e.device_type).endswith("CUDA"):
+            if e.time_range.start >= first:
+                out.append(e)
+        elif e.time_range.start >= start - 10000:
+            out.append(e)
+    return out
 
 
 def device_kernels(fn, prof=None):
@@ -517,6 +571,93 @@ def plain_forms():
         yield
     finally:
         f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
+
+
+@contextlib.contextmanager
+def through_operators():
+    """Every kernel's dispatcher switched to its ``torch.library``
+    operator, the route an exported program takes, on the live paths
+    too."""
+    import torch
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+    ops = torch.ops.koemorph_torch
+
+    def cycle_dsum(frames, start, tau, off, *, n_cycles, half_lag):
+        return ops.cycle_dsum(frames, start.to(torch.int32), tau, off,
+                              n_cycles, half_lag)
+
+    def frames_to_logmel(frames, *, sample_rate=16000, n_mels=80,
+                         f_min=80.0, f_max=8000.0):
+        return ops.logmel(frames, int(sample_rate), int(n_mels),
+                          float(f_min), float(f_max))
+
+    saved = (f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel)
+    f0_ops.cycle_dsum, eg.poly_roots = cycle_dsum, ops.dk_roots
+    frontend.frames_to_logmel = frames_to_logmel
+    try:
+        yield
+    finally:
+        f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
+
+
+def round_stats(rounds: dict) -> dict:
+    """Medians and spreads of two sides' rounds (``{name: [ms]}``, as
+    ``benchmark_rounds`` gives them) and, per round, the second side's
+    time over the first's."""
+    first, second = rounds.values()
+    ratio = [b / a for a, b in zip(first, second)]
+    return {"rounds_ms": rounds,
+            "median_ms": {k: float(np.median(v)) for k, v in rounds.items()},
+            "spread_ms": {k: [min(v), max(v)] for k, v in rounds.items()},
+            "ratio_per_round": ratio, "ratio_median": float(np.median(ratio)),
+            "rounds_second_slower": int(sum(x > 1.0 for x in ratio))}
+
+
+def dispatch_host_ms(rec: dict, tag: str, rounds: int, calls: int
+                     ) -> dict:
+    """Host ms per call of each kernel on ``tag``'s recorded arguments,
+    through its dispatcher (the live route) and through its operator: a
+    loop of ``calls`` calls timed without waiting for the device (their
+    launches fit in the launch queue), the device drained between loops,
+    in ``rounds`` rounds that alternate which route goes first."""
+    import torch
+    from koemorph_tpu_torch.ops import egemaps as eg
+    from koemorph_tpu_torch.ops import f0 as f0_ops
+    from koemorph_tpu_torch.ops import frontend
+    ops = torch.ops.koemorph_torch
+    routes = {
+        "cycle_dsum": (lambda a, kw: f0_ops.cycle_dsum(*a, **kw),
+                       lambda a, kw: ops.cycle_dsum(
+                           *a, kw["n_cycles"], kw["half_lag"])),
+        "dk_roots": (lambda a, kw: eg.poly_roots(*a),
+                     lambda a, kw: ops.dk_roots(*a)),
+        "logmel": (lambda a, kw: frontend.frames_to_logmel(*a, **kw),
+                   lambda a, kw: ops.logmel(
+                       *a, kw["sample_rate"], kw["n_mels"], kw["f_min"],
+                       kw["f_max"]))}
+    out = {}
+    for (name, t, shape), (args, kw) in sorted(rec.items(), key=str):
+        if t != tag:
+            continue
+        direct, routed = routes[name]
+        sides = {"direct": lambda: direct(args, kw),
+                 "operators": lambda: routed(args, kw)}
+        got: dict = {side: [] for side in sides}
+        for r in range(rounds):
+            for side in (("direct", "operators") if r % 2 == 0
+                         else ("operators", "direct")):
+                sides[side]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    sides[side]()
+                got[side].append((time.perf_counter() - t0) / calls * 1e3)
+                torch.cuda.synchronize()
+        out[f"{name}{[int(x) for x in np.atleast_1d(shape)]}"] = \
+            round_stats(got)
+    return out
 
 
 def k1_cases(case: str, rows: int, half_lag: int, rng, tau_max: int = 291):
@@ -3240,6 +3381,452 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
     return out
 
 
+#: phase 16's paths whose kernel arguments are recorded: tag -> the
+#: path's name in the kernels line
+SLICE12_PATHS = {"sliding_window": "sliding window",
+                 "egemaps_extractor": "eGeMAPS extractor",
+                 "export": "exported program"}
+#: the eGeMAPS extractor's functionals, kernels against the plain forms:
+#: the CPU tests' bound of the port against JAX (rtol 1e-3 / atol 1e-4;
+#: rtol 1e-2 for the F0 slope and jitter functionals, which amplify
+#: period rounding)
+SHIM_EGEMAPS_RTOL, SHIM_EGEMAPS_ATOL = 1e-3, 1e-4
+SHIM_EGEMAPS_RTOL_LOOSE = 1e-2
+#: the sliding window's normalized mel and the frame function's outputs
+#: against the plain forms (the stream's bound)
+SHIM_PLAIN_MAX = 1e-4
+#: the exported program against the live module (the exporter's gate) and
+#: against the live module with the plain forms
+EXPORT_LIVE_MAX, EXPORT_PLAIN_MAX = 1e-5, 1e-4
+EXPORT_FRAMES = 30
+#: the frames of the exported program's run that are profiled
+EXPORT_PROFILED = 5
+#: the live frame's two dispatch routes timed in alternating rounds:
+#: rounds, calls per round
+ROUTE_ROUNDS, ROUTE_CALLS = 8, 20
+
+#: run in a fresh process: load the exported program, run it for
+#: EXPORT_FRAMES frames with the EMA carry threaded (CUDA events around
+#: each), profile EXPORT_PROFILED more, print one JSON line
+EXPORT_RUN = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from koemorph_tpu_torch.export import load_program
+from koemorph_tpu_torch.ops import cuda as ck
+path, out_npy, device = sys.argv[1], sys.argv[2], sys.argv[3]
+loaded = load_program(path)
+targets = sorted({str(n.target) for n in loaded.graph.nodes
+                  if n.op == 'call_function'})
+# what each operator's frames come from in the graph (a view, or a copy
+# the export made)
+op_inputs = {str(n.target): str(getattr(n.args[0], 'target', n.args[0]))
+             for n in loaded.graph.nodes
+             if str(n.target).startswith('koemorph_torch.')}
+program = loaded.module()
+dev = torch.device(device)
+frames = cs.export_frames(dev)
+
+
+def run(n):
+    prev = torch.zeros((1, 52), device=dev)
+    init = torch.zeros((1,), dtype=torch.bool, device=dev)
+    outs, evs = [], []
+    for a in frames[:n]:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        b, prev, init = program(a, prev, init)
+        e1.record()
+        outs.append(b)
+        evs.append((e0, e1))
+    return outs, evs
+
+
+with torch.no_grad():
+    run(1)                   # loads the kernels' libraries
+    ck.reset_launch_counts()
+    outs, evs = run(len(frames))
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    shapes = [[k, list(v), n] for (k, v), n in ck.SHAPE_LAUNCHES.items()]
+    ks = cs.device_kernels(lambda: run(cs.EXPORT_PROFILED))
+np.save(out_npy, torch.cat(outs).cpu().numpy())
+print(json.dumps({'targets': targets, 'op_inputs': op_inputs,
+                  'launches': launches, 'launches_by_shape': shapes,
+                  'activities_per_frame': len(ks) / cs.EXPORT_PROFILED,
+                  'busy_ms_per_frame': sum(us for _, us in ks)
+                  / cs.EXPORT_PROFILED / 1e3,
+                  'copies_per_frame': cs.copies(ks, cs.EXPORT_PROFILED),
+                  'top_kernels_us': cs.profile_summary(
+                      ks, cs.EXPORT_PROFILED),
+                  'frame_ms': [a.elapsed_time(b) for a, b in evs],
+                  'profiled_kernels': cs.own_kernels(ks),
+                  'profiled_frames': cs.EXPORT_PROFILED,
+                  'device': torch.cuda.get_device_name(dev)}))
+"""
+
+
+def export_frames(dev):
+    """(EXPORT_FRAMES, 1, 256 * HOP) float32 on ``dev``: the flagship
+    window sliding one hop per frame over voiced audio."""
+    import torch
+    n = 256 * HOP
+    audio = voiced_audio(((EXPORT_FRAMES - 1) * HOP + n) / SR, seed=23)
+    return torch.from_numpy(np.stack(
+        [audio[i * HOP:i * HOP + n][None] for i in range(EXPORT_FRAMES)])
+    ).to(dev)
+
+
+def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path
+                   ) -> dict:
+    """Phase 16: the reference-named feature extractors, reconstruction,
+    prosody and export, each through its entry points on the card with the
+    launch counts set to 0 just before. ``sliding_window``:
+    ``MelSlidingWindowExtractor`` at its defaults fed 8.5 s hop by hop,
+    then its batch path on the window (``logmel`` once per extraction at
+    T = 257); the window's dB rows against the plain form by K3's rule,
+    the normalized mel within 1e-4. ``egemaps_extractor``:
+    ``EgemapsStreamingExtractor`` on a 20 s context with the 3-window
+    concatenation, two refreshes (``cycle_dsum`` twice and ``dk_roots``
+    once per window on 1,997 LLD rows), the functionals against the plain
+    forms. ``mel_prosody``: ``MelSpectrogramExtractor``,
+    ``InverseMelSpectrogram`` (the pitch round trip) and
+    ``extract_prosody``, which launch no kernel, against the same calls on
+    the CPU. ``export``: ``python -m koemorph_tpu_torch.export_model
+    --benchmark`` on ``checkpoint`` (flagship, egemaps with the
+    concatenation) in a subprocess, the ``.pt2`` reloaded and run in
+    another for 30 frames with the carry threaded (launches counted and
+    profiled there), within 1e-5 of the live module and 1e-4 of the plain
+    forms, the three operators in its graph; the live frame through the
+    operators (:func:`through_operators`) bitwise equal to the direct
+    route with the same launches, the two routes' frame times and each
+    kernel call's host time (:func:`dispatch_host_ms`) in alternating
+    rounds. Returns the recorded kernel
+    arguments, the checks against the plain forms and the launch counts
+    for the kernels table."""
+    import torch
+    from koemorph_tpu_torch.export import FrameFunction, benchmark_rounds
+    from koemorph_tpu_torch.features import (EgemapsStreamingExtractor,
+                                             InverseMelSpectrogram,
+                                             MelSlidingWindowExtractor,
+                                             MelSpectrogramExtractor)
+    from koemorph_tpu_torch.models.dual_stream_model import (
+        SimplifiedDualStreamModel)
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.ops import frontend
+    from koemorph_tpu_torch.ops.egemaps import FEATURE_NAMES
+    from koemorph_tpu_torch.ops.library import OPS
+    from koemorph_tpu_torch.ops.prosody import extract_prosody
+    from koemorph_tpu_torch.utils.params import (load_model_state,
+                                                 read_model_state)
+
+    out: dict = {"rec": {}, "shapes": {}}
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(KERNEL_PATTERNS, 0)
+
+    # ---- sliding_window: the host ring, K3 per extraction ----
+    audio = voiced_audio(8.5, seed=21)
+    ex = MelSlidingWindowExtractor()
+    check(ex.device.type == dev.type, f"the extractor runs on {ex.device}")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernels(out["rec"], "sliding_window"):
+        for i in range(len(audio) // HOP):
+            win = ex.process_audio_frame(audio[i * HOP:(i + 1) * HOP])
+        loop_s = time.perf_counter() - t0
+        window_audio = ex.buffer.get_current_audio()
+        batch = ex.process_audio_batch(window_audio)
+    launches = dict(ck.LAUNCHES)
+    out["shapes"]["sliding_window"] = shapes = dict(ck.SHAPE_LAUNCHES)
+    stats = ex.get_stats()
+    t_win = 1 + len(window_audio) // HOP
+    mel_k, det_k = ex._compute(window_audio)
+    with torch.inference_mode():
+        x_win = torch.from_numpy(window_audio).to(dev)
+        db_k = frontend.fused_log_mel_frontend(x_win)
+    with plain_forms():
+        mel_p, det_p = ex._compute(window_audio)
+        with torch.inference_mode():
+            db_p = frontend.fused_log_mel_frontend(x_win)
+    d_mel = float(max(np.abs(mel_k - mel_p).max(),
+                      np.abs(det_k - det_p).max()))
+    want = {**none, "logmel": stats["extractions"] + 1}
+    emit({"phase": "sliding_window", "card": card, "frames_fed": i + 1,
+          "window_frames": int(win.shape[0]), "logmel_T": t_win,
+          "stats": stats, "loop_s": loop_s, "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "expected_launches": want,
+          "batch_shape": list(batch.shape),
+          "mel_max_abs_diff_plain": d_mel, "bound_plain": SHIM_PLAIN_MAX,
+          "db_max_abs_diff_plain": float((db_k - db_p).abs().max()),
+          "db_k3_rule": k3_rule(db_k, db_p)})
+    check(win.shape == (256, 80) and batch.shape == (1, t_win, 80)
+          and bool(np.isfinite(batch).all()),
+          f"sliding window shapes {win.shape} {batch.shape}")
+    check(launches == want and shapes == {("logmel", (t_win,)):
+                                          want["logmel"]},
+          f"the sliding window launched {launches} ({shapes}), expected "
+          f"{want} at T = {t_win}")
+    check(d_mel <= SHIM_PLAIN_MAX and k3_rule(db_k, db_p),
+          f"the sliding window vs the plain forms: {d_mel}")
+
+    # ---- egemaps_extractor: 3 windows of 20 s per refresh ----
+    context = voiced_audio(22.6, seed=22)
+    gex = EgemapsStreamingExtractor()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernels(out["rec"], "egemaps_extractor"):
+        first = gex.process_audio_frame(context[:-HOP], timestamp=0.0)
+        cached = gex.process_audio_frame(context[-HOP:], timestamp=0.1)
+        gex.process_audio_frame(context[-2 * HOP:-HOP], timestamp=0.4)
+        torch.cuda.synchronize()
+    refresh_s = (time.perf_counter() - t0) / 2
+    launches = dict(ck.LAUNCHES)
+    out["shapes"]["egemaps_extractor"] = shapes = dict(ck.SHAPE_LAUNCHES)
+    concat = gex.get_concatenated_features()
+    rows = 1 + (int(20.0 * SR) - 512) // 160
+    n_win = 2 * len(gex.window_intervals)
+    want = {"cycle_dsum": 2 * n_win, "dk_roots": n_win, "logmel": 0}
+    want_shapes = {("cycle_dsum", (rows, 8, 17, 512)): n_win,
+                   ("cycle_dsum", (rows, 5, 33, 1024)): n_win,
+                   ("dk_roots", (rows,)): n_win}
+    with plain_forms():
+        pex = EgemapsStreamingExtractor()
+        pex.process_audio_frame(context[:-HOP], timestamp=0.0)
+        pex.process_audio_frame(context[-HOP:], timestamp=0.1)
+        pex.process_audio_frame(context[-2 * HOP:-HOP], timestamp=0.4)
+    plain_concat = pex.get_concatenated_features()
+    rtol = np.tile([SHIM_EGEMAPS_RTOL_LOOSE
+                    if (n.startswith("F0semitone") and "Slope" in n)
+                    or n.startswith("jitterLocal") else SHIM_EGEMAPS_RTOL
+                    for n in FEATURE_NAMES], 3)
+    excess = (np.abs(concat - plain_concat)
+              - (SHIM_EGEMAPS_ATOL + rtol * np.abs(plain_concat)))
+    emit({"phase": "egemaps_extractor", "card": card,
+          "context_s": gex.context_window, "lld_rows": rows,
+          "extractions": gex.extractions, "served_cache": cached is first,
+          "refresh_host_s": refresh_s, "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "expected_launches": want, "feature_dim": int(concat.shape[0]),
+          "finite": bool(np.isfinite(concat).all()),
+          "max_abs_diff_plain": float(np.abs(concat - plain_concat).max()),
+          "worst_excess_plain": float(excess.max()),
+          "worst_feature": FEATURE_NAMES[int(np.argmax(excess)) % 88]})
+    check(gex.extractions == 2 and cached is first and concat.shape == (264,)
+          and bool(np.isfinite(concat).all()),
+          f"the eGeMAPS extractor: {gex.get_stats()}")
+    check(launches == want and shapes == want_shapes,
+          f"the eGeMAPS extractor launched {launches} ({shapes}), expected "
+          f"{want_shapes}")
+    check(float(excess.max()) <= 0,
+          "the eGeMAPS extractor vs the plain forms beyond the bound at "
+          f"{FEATURE_NAMES[int(np.argmax(excess)) % 88]}")
+
+    # ---- mel_prosody: no kernel on these paths; the card vs the CPU ----
+    clip = voiced_audio(2.0, seed=24)
+    tone = (0.5 * np.sin(2 * np.pi * 220.0 * np.arange(SR) / SR)).astype(
+        np.float32)
+    ck.reset_launch_counts()
+    mx = MelSpectrogramExtractor()
+    log_mel = mx(clip).cpu().numpy()
+    ex60 = MelSpectrogramExtractor(n_fft=1024, target_fps=60.0)
+    rec = InverseMelSpectrogram(n_fft=1024, target_fps=60.0, n_iter=32)(
+        ex60(tone)).cpu().numpy()[0]
+    with torch.inference_mode():
+        pros = extract_prosody(torch.from_numpy(clip).to(dev)).cpu().numpy()
+    launches = dict(ck.LAUNCHES)
+    log_mel_cpu = MelSpectrogramExtractor(device="cpu")(clip).numpy()
+    pros_cpu = extract_prosody(torch.from_numpy(clip)).numpy()
+    spec = np.abs(np.fft.rfft(rec))
+    dominant = float(np.fft.rfftfreq(len(rec), 1 / SR)[np.argmax(spec)])
+    both = (pros[:, 0] > 0) & (pros_cpu[:, 0] > 0)
+    d_f0 = float(np.median(np.abs(pros[both, 0] - pros_cpu[both, 0])))
+    emit({"phase": "mel_prosody", "card": card, "launches": launches,
+          "log_mel_shape": list(log_mel.shape),
+          "log_mel_max_abs_diff_cpu": float(np.abs(log_mel
+                                                   - log_mel_cpu).max()),
+          "griffin_lim_dominant_hz": dominant,
+          "griffin_lim_peak": float(np.abs(rec).max()),
+          "prosody_shape": list(pros.shape),
+          "prosody_voiced_frames": int(both.sum()),
+          "prosody_f0_median_abs_diff_cpu_hz": d_f0,
+          "prosody_voicing_agreement": float(
+              ((pros[:, 0] > 0) == (pros_cpu[:, 0] > 0)).mean()),
+          "prosody_energy_max_abs_diff_cpu": float(
+              np.abs(pros[:, 1] - pros_cpu[:, 1]).max())})
+    check(launches == none, f"mel / reconstruction / prosody launched "
+          f"{launches}")
+    check(log_mel.shape == (1, 60, 80)
+          and float(np.abs(log_mel - log_mel_cpu).max()) <= SHIM_PLAIN_MAX,
+          "MelSpectrogramExtractor on the card vs the CPU")
+    check(abs(dominant - 220.0) < 15.0 and 0.05 < np.abs(rec).max() < 5.0
+          and bool(np.isfinite(rec).all()),
+          f"the Griffin-Lim round trip: {dominant} Hz")
+    check(pros.shape == (60, 4) and bool(np.isfinite(pros).all())
+          and both.sum() > 20 and d_f0 < 0.01
+          and float(np.abs(pros[:, 1] - pros_cpu[:, 1]).max()) <= 1e-3,
+          f"extract_prosody on the card vs the CPU: {d_f0} Hz")
+
+    # ---- export: the CLI, then the program reloaded in another process ----
+    check((checkpoint / "state.pth").exists(),
+          f"no checkpoint at {checkpoint}")
+    export_dir = work / "export"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koemorph_tpu_torch.export_model",
+         "--model", str(checkpoint), "--output", str(export_dir),
+         "--benchmark"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    export_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"export_model failed:\n{proc.stderr[-3000:]}")
+    (report,) = json.loads(proc.stdout)
+    out_npy = work / "export_frames.npy"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", EXPORT_RUN, report["path"], str(out_npy),
+         DEVICE], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    reload_s = time.perf_counter() - t0
+    check(run.returncode == 0,
+          f"the reloaded program failed:\n{run.stderr[-3000:]}")
+    ran = json.loads(run.stdout.strip().splitlines()[-1])
+    got = np.load(out_npy)
+    # the live module on the same frames, its kernels' arguments recorded
+    sd, fixed = read_model_state(checkpoint)
+    model = SimplifiedDualStreamModel(dropout=0.0, **fixed)
+    load_model_state(model, sd, str(checkpoint))
+    frame_fn = FrameFunction(model.eval().to(dev))
+    frames = export_frames(dev)
+
+    def live_run():
+        prev = torch.zeros((1, 52), device=dev)
+        init = torch.zeros((1,), dtype=torch.bool, device=dev)
+        outs = []
+        for a in frames:
+            b, prev, init = frame_fn(a, prev, init)
+            outs.append(b)
+        return torch.cat(outs).cpu().numpy()
+
+    with torch.no_grad():
+        with recording_kernels(out["rec"], "export"):
+            frame_fn(frames[0], torch.zeros((1, 52), device=dev),
+                     torch.zeros((1,), dtype=torch.bool, device=dev))
+        live = live_run()
+        live_ms = _event_ms(lambda: frame_fn(
+            frames[0], torch.zeros((1, 52), device=dev),
+            torch.zeros((1,), dtype=torch.bool, device=dev)), 20)
+        live_ks = device_kernels(lambda: [frame_fn(
+            a, torch.zeros((1, 52), device=dev),
+            torch.zeros((1,), dtype=torch.bool, device=dev))
+            for a in frames[:EXPORT_PROFILED]])
+        with plain_forms():
+            plain = live_run()
+        # the live frame with the dispatchers as they are (the wrappers
+        # direct) against the same frame through the operators
+        carry = (torch.zeros((1, 52), device=dev),
+                 torch.zeros((1,), dtype=torch.bool, device=dev))
+        direct_b = frame_fn(frames[0], *carry)[0]
+        ck.reset_launch_counts()
+        with through_operators():
+            routed_b = frame_fn(frames[0], *carry)[0]
+        routed_launches = dict(ck.LAUNCHES)
+
+        def routed(*args):
+            with through_operators():
+                return frame_fn(*args)
+
+        route_ms = round_stats(benchmark_rounds(
+            {"direct": frame_fn, "operators": routed}, (frames[0], *carry),
+            rounds=ROUTE_ROUNDS, warmup=3, iters=ROUTE_CALLS))
+        dispatch = dispatch_host_ms(out["rec"], "export", ROUTE_ROUNDS, 200)
+    route_equal = bool(torch.equal(direct_b, routed_b))
+    d_live = float(np.abs(got - live).max())
+    d_plain = float(np.abs(got - plain).max())
+    out["shapes"]["export"] = {(k, tuple(v)): n
+                               for k, v, n in ran["launches_by_shape"]}
+    per_frame = {"cycle_dsum": 2, "dk_roots": 1, "logmel": 1}
+    prof_want = {k: v * EXPORT_PROFILED * KERNELS_PER_LAUNCH[k]
+                 for k, v in per_frame.items()}
+    emit({"phase": "export", "card": card, "report": report,
+          "export_cli_s": export_s, "reload_run_s": reload_s,
+          "operators_in_graph": [t for t in ran["targets"]
+                                 if t.startswith("koemorph_torch.")],
+          "launches": ran["launches"],
+          "launches_by_shape": ran["launches_by_shape"],
+          "profiled_kernels": ran["profiled_kernels"],
+          "profiled_expected": prof_want,
+          "frames": int(got.shape[0]),
+          "exported_frame_ms": q(ran["frame_ms"][1:]),
+          "exported_first_frame_ms": ran["frame_ms"][0],
+          "live_frame_ms": q(live_ms),
+          "exported_profile": {k: ran[k] for k in (
+              "op_inputs", "activities_per_frame", "busy_ms_per_frame",
+              "copies_per_frame", "top_kernels_us")},
+          "live_profile": {
+              "activities_per_frame": len(live_ks) / EXPORT_PROFILED,
+              "busy_ms_per_frame": sum(us for _, us in live_ks)
+              / EXPORT_PROFILED / 1e3,
+              "copies_per_frame": copies(live_ks, EXPORT_PROFILED),
+              "top_kernels_us": profile_summary(live_ks,
+                                                EXPORT_PROFILED)},
+          "benchmark_ms": {**round_stats(report["latency_rounds_ms"]),
+                           "device": report["device"]},
+          "max_abs_diff_live": d_live, "bound_live": EXPORT_LIVE_MAX,
+          "max_abs_diff_plain": d_plain, "bound_plain": EXPORT_PLAIN_MAX,
+          "live_route": {**route_ms, "launches_operators": routed_launches,
+                         "bitwise_equal": route_equal},
+          "dispatch_host_ms_per_call": dispatch})
+    check(report["passed"] and report["max_abs_diff"] < EXPORT_LIVE_MAX,
+          f"export_model's gate: {report}")
+    check({f"{op}.default" for op in OPS} <= set(ran["targets"]),
+          f"the exported graph lacks an operator: {ran['targets']}")
+    check(got.shape == (EXPORT_FRAMES, 52) and bool(np.isfinite(got).all())
+          and got.min() >= 0.0 and got.max() <= 1.0,
+          f"the exported program's output {got.shape}")
+    check(d_live <= EXPORT_LIVE_MAX and d_plain <= EXPORT_PLAIN_MAX,
+          f"the exported program vs the live module {d_live}, vs the plain "
+          f"forms {d_plain}")
+    check(route_equal and routed_launches == per_frame,
+          f"the live frame through the operators launched "
+          f"{routed_launches}, bitwise equal to the direct route: "
+          f"{route_equal}")
+    check(ran["launches"] == {k: v * EXPORT_FRAMES
+                              for k, v in per_frame.items()},
+          f"the exported program launched {ran['launches']} in "
+          f"{EXPORT_FRAMES} frames")
+    check(ran["profiled_kernels"] == prof_want,
+          f"the profiler saw {ran['profiled_kernels']} in the exported "
+          f"program's {EXPORT_PROFILED} frames, expected {prof_want}")
+    rows_f = 1 + (256 * HOP - 512) // 160
+    want_shapes = {("cycle_dsum", (rows_f, 8, 17, 512)): EXPORT_FRAMES,
+                   ("cycle_dsum", (rows_f, 5, 33, 1024)): EXPORT_FRAMES,
+                   ("dk_roots", (rows_f,)): EXPORT_FRAMES,
+                   ("logmel", (1 + 256,)): EXPORT_FRAMES}
+    check(out["shapes"]["export"] == want_shapes,
+          f"the exported program's launches by shape "
+          f"{out['shapes']['export']}, expected {want_shapes}")
+
+    # every launch shape of the phase's paths, on the arguments recorded,
+    # against the kernel's plain form
+    held = hold_recorded(out["rec"], SLICE12_PATHS)
+    emit({"phase": "slice12_kernels_vs_plain", "card": card,
+          "held": {f"{name} {tag} {shape}": {
+              k: v for k, v in r.items() if k != "plain_misses_rounded"}
+              for (name, tag, shape), r in held.items()}})
+    check(held and all(r["ok"] for r in held.values()),
+          "kernels vs plain forms on the phase-16 paths: "
+          + str([k for k, r in held.items() if not r["ok"]]))
+    out["held"] = held
+    emit({"phase": "slice12", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 def main() -> int:  # noqa: C901
     import torch
 
@@ -4204,6 +4791,9 @@ def main() -> int:  # noqa: C901
 
     # ---- 15. files to a checked, trained model ----
     s11 = slice11_phases(card, work, s10)
+
+    # ---- 16. the feature shims, reconstruction, prosody and export ----
+    s12 = slice12_phases(card, work, env, work / "imported_learnable")
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -4693,57 +5283,62 @@ def main() -> int:  # noqa: C901
     # per shape counts the launches of both), the lip-sync demo's batch-8
     # step and reproduce_results --smoke (its batch-4 train step and its
     # validation batch); each was held against its plain form in phase 15
-    rows15: dict = {}
-    for (kname, tag, shape), r in sorted(s11["held"].items()):
-        row = rows15.setdefault((kname, SLICE11_PATHS[tag], shape),
-                                {"tags": [], "err": 0.0})
-        row["tags"].append(tag)
-        row["err"] = max(row["err"], r["max_abs_err"])
-    with torch.inference_mode():
-        for (kname, path, shape), row in rows15.items():
-            args, kw = s11["rec"][(kname, row["tags"][0], shape)]
-            if kname == "cycle_dsum":
-                frames_a, st, tau, off = args
-                key = (st.numel(), kw["n_cycles"], 2 * kw["half_lag"] + 1,
-                       shape[1])
-            else:
-                key = (shape,)
-            launches = sum(s11["shapes"][tag].get((kname, key), 0)
-                           for tag in row["tags"])
-            if kname == "cycle_dsum":
-                kernels.append(k1_entry(
-                    f"{path} args n{shape[1]} x{shape[0]}", frames_a, st, tau,
-                    off, kw, launches, row["err"]))
-            elif kname == "dk_roots":
-                a_p = args[0].reshape(shape, args[0].shape[-1])
-                comp_p = companion(a_p)
-                kernels.append(entry(
-                    f"dk_roots[{path}, {shape} rows]",
-                    "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
-                    "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
-                    launches, row["err"], lambda: ck.dk_roots(a_p),
-                    "dk_roots_kernel", lambda: eg.poly_roots_plain(a_p),
-                    shape * 11 * 4 + shape * 10 * 8 + 10 * 8,
-                    20.0 * 10 * (10 * 11 + 10 * 10 + 14) * shape,
-                    time_ms(lambda: torch.linalg.eigvals(comp_p), iters=2,
-                            warmup=1),
-                    "torch.linalg.eigvals of the companion matrices"))
-            else:
-                (x_p,) = args
-                x_flat = x_p.reshape(-1, 1024)
-                kernels.append(entry(
-                    f"logmel[{path} T={shape}]",
-                    "koemorph_tpu_torch/ops/cuda/logmel.cu",
-                    "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
-                    launches, row["err"], lambda: ck.logmel(x_p, **kw),
-                    "logmel_",
-                    lambda: frontend.frames_to_logmel_plain(x_p, **kw),
-                    4.0 * (shape * 1024 + 2 * 1024 * live + nnz
-                           + shape * 80),
-                    shape * (2.0 * 1024 * live * 2 + 2.0 * nnz),
-                    time_ms(lambda: cublas_chain(x_flat), iters=50),
-                    "chain: window, 2 DFT matmuls, power, mel matmul, dB "
-                    "(3 cuBLAS fp32 products)", tensor_cores=True))
+    # and of phase 16: the sliding window (K3 at T = 257), the eGeMAPS
+    # extractor (K1 and K2 on a 20 s window's 1,997 LLD rows) and the
+    # exported program's frames (its launches counted in the process that
+    # ran it, the arguments recorded from the live module's frame)
+    for s_, paths in ((s11, SLICE11_PATHS), (s12, SLICE12_PATHS)):
+        rows_: dict = {}
+        for (kname, tag, shape), r in sorted(s_["held"].items()):
+            row = rows_.setdefault((kname, paths[tag], shape),
+                                   {"tags": [], "err": 0.0})
+            row["tags"].append(tag)
+            row["err"] = max(row["err"], r["max_abs_err"])
+        with torch.inference_mode():
+            for (kname, path, shape), row in rows_.items():
+                args, kw = s_["rec"][(kname, row["tags"][0], shape)]
+                if kname == "cycle_dsum":
+                    frames_a, st, tau, off = args
+                    key = (st.numel(), kw["n_cycles"],
+                           2 * kw["half_lag"] + 1, shape[1])
+                else:
+                    key = (shape,)
+                launches = sum(s_["shapes"][tag].get((kname, key), 0)
+                               for tag in row["tags"])
+                if kname == "cycle_dsum":
+                    kernels.append(k1_entry(
+                        f"{path} args n{shape[1]} x{shape[0]}", frames_a,
+                        st, tau, off, kw, launches, row["err"]))
+                elif kname == "dk_roots":
+                    a_p = args[0].reshape(shape, args[0].shape[-1])
+                    comp_p = companion(a_p)
+                    kernels.append(entry(
+                        f"dk_roots[{path}, {shape} rows]",
+                        "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
+                        "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
+                        launches, row["err"], lambda: ck.dk_roots(a_p),
+                        "dk_roots_kernel", lambda: eg.poly_roots_plain(a_p),
+                        shape * 11 * 4 + shape * 10 * 8 + 10 * 8,
+                        20.0 * 10 * (10 * 11 + 10 * 10 + 14) * shape,
+                        time_ms(lambda: torch.linalg.eigvals(comp_p), iters=2,
+                                warmup=1),
+                        "torch.linalg.eigvals of the companion matrices"))
+                else:
+                    (x_p,) = args
+                    x_flat = x_p.reshape(-1, 1024)
+                    kernels.append(entry(
+                        f"logmel[{path} T={shape}]",
+                        "koemorph_tpu_torch/ops/cuda/logmel.cu",
+                        "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
+                        launches, row["err"], lambda: ck.logmel(x_p, **kw),
+                        "logmel_",
+                        lambda: frontend.frames_to_logmel_plain(x_p, **kw),
+                        4.0 * (shape * 1024 + 2 * 1024 * live + nnz
+                               + shape * 80),
+                        shape * (2.0 * 1024 * live * 2 + 2.0 * nnz),
+                        time_ms(lambda: cublas_chain(x_flat), iters=50),
+                        "chain: window, 2 DFT matmuls, power, mel matmul, dB "
+                        "(3 cuBLAS fp32 products)", tensor_cores=True))
 
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the path was not launched by its run: "

@@ -19,6 +19,9 @@ Entry points:
 - ``python -m koemorph_tpu_torch.rt --input x.wav ...``
 - :class:`koemorph_tpu_torch.parallel.batched_decode.BatchedSequentialDecoder`
 - ``python -m koemorph_tpu_torch.infer --input x.wav --output y.jsonl``
+- ``python -m koemorph_tpu_torch.export_model --output exports`` (a
+  ``torch.export`` program of the frame function,
+  :mod:`koemorph_tpu_torch.export`)
 - :class:`koemorph_tpu_torch.train.SequentialTrainer`
 - ``python -m koemorph_tpu_torch.train --config <root.yaml> [k=v ...]``
 - the legacy family: :class:`koemorph_tpu_torch.models.
@@ -29,3 +32,20 @@ Entry points:
 """
 
 __version__ = "0.1.0"
+
+from koemorph_tpu_torch.blendshapes import (
+    ARKIT_BLENDSHAPES,
+    EXPRESSION_INDICES,
+    MOUTH_BLENDSHAPES,
+    MOUTH_INDICES,
+    NUM_BLENDSHAPES,
+)
+
+__all__ = [
+    "ARKIT_BLENDSHAPES",
+    "MOUTH_BLENDSHAPES",
+    "MOUTH_INDICES",
+    "EXPRESSION_INDICES",
+    "NUM_BLENDSHAPES",
+    "__version__",
+]

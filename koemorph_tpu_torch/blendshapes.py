@@ -6,6 +6,8 @@ stream; the other 24 by the emotion stream.
 
 from __future__ import annotations
 
+import numpy as np
+
 ARKIT_BLENDSHAPES: tuple[str, ...] = (
     "eyeBlinkLeft", "eyeLookDownLeft", "eyeLookInLeft", "eyeLookOutLeft",
     "eyeLookUpLeft", "eyeSquintLeft", "eyeWideLeft", "eyeBlinkRight",
@@ -42,3 +44,21 @@ MOUTH_INDICES: tuple[int, ...] = tuple(
 EXPRESSION_INDICES: tuple[int, ...] = tuple(
     i for i in range(NUM_BLENDSHAPES) if i not in set(MOUTH_INDICES))
 assert len(MOUTH_INDICES) == 28 and len(EXPRESSION_INDICES) == 24
+
+
+def mouth_index_array() -> np.ndarray:
+    """The mouth indices as an int32 array."""
+    return np.asarray(MOUTH_INDICES, dtype=np.int32)
+
+
+def expression_index_array() -> np.ndarray:
+    """The expression indices as an int32 array."""
+    return np.asarray(EXPRESSION_INDICES, dtype=np.int32)
+
+
+def blendshape_index(name: str) -> int:
+    """The index of an ARKit blendshape name; ``ValueError`` if unknown."""
+    try:
+        return ARKIT_BLENDSHAPES.index(name)
+    except ValueError as exc:
+        raise ValueError(f"Unknown ARKit blendshape: {name!r}") from exc

@@ -22,6 +22,11 @@ def infer_main() -> int:
     return main()
 
 
+def export_main() -> int:
+    from koemorph_tpu_torch.export_model import main
+    return main()
+
+
 def serve_main() -> int:
     from koemorph_tpu_torch.serve import main
     return main()

@@ -21,7 +21,10 @@ from koemorph_tpu_torch.models.legacy import (KoeMorphModel,
                                               KoeMorphModelState,
                                               create_koemorph_model)
 from koemorph_tpu_torch.models.losses import (BlendshapeMetrics,
+                                              KoeMorphLoss,
                                               KoeMorphLossConfig,
+                                              LandmarkConsistencyLoss,
+                                              PerceptualBlendshapeLoss,
                                               compute_lip_sync_metrics,
                                               dual_stream_loss,
                                               koemorph_loss,
@@ -38,7 +41,9 @@ __all__ = [
     "SequentialDualStreamModel", "SimplifiedDualStreamModel",
     "TemporalState",
     "KoeMorphModel", "KoeMorphModelState", "create_koemorph_model",
-    "BlendshapeMetrics", "KoeMorphLossConfig", "compute_lip_sync_metrics",
+    "BlendshapeMetrics", "KoeMorphLoss", "KoeMorphLossConfig",
+    "LandmarkConsistencyLoss", "PerceptualBlendshapeLoss",
+    "compute_lip_sync_metrics",
     "dual_stream_loss", "koemorph_loss", "sequence_koemorph_loss",
     "SimplifiedKoeMorphModel",
 ]

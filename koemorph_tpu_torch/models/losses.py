@@ -20,7 +20,8 @@ __all__ = ["PERCEPTUAL_GROUPS", "PERCEPTUAL_GROUP_WEIGHTS",
            "KoeMorphLossConfig", "perceptual_loss", "landmark_loss",
            "koemorph_loss", "frame_metrics", "sequence_koemorph_loss",
            "dual_stream_loss", "BlendshapeMetrics",
-           "compute_lip_sync_metrics"]
+           "compute_lip_sync_metrics", "KoeMorphLoss",
+           "PerceptualBlendshapeLoss", "LandmarkConsistencyLoss"]
 
 #: perceptual group index ranges
 PERCEPTUAL_GROUPS: dict[str, tuple[int, int]] = {
@@ -350,3 +351,38 @@ def compute_lip_sync_metrics(pred, target, audio_features=None
         else:
             m["audiovisual_sync"] = 0.0
     return m
+
+
+class KoeMorphLoss:
+    """The reference's callable loss over :func:`koemorph_loss`: returns
+    ``(total, metrics)``, as the reference's ``(loss, loss_dict)``; the
+    keyword weights are :class:`KoeMorphLossConfig`'s fields."""
+
+    def __init__(self, reduction: str = "mean", **weights):
+        if reduction != "mean":
+            raise ValueError("only reduction='mean' is supported "
+                             "(the reference default)")
+        self.config = KoeMorphLossConfig(**weights)
+
+    def __call__(self, pred_blendshapes, target_blendshapes,
+                 prev_pred=None, prev_target=None, audio_features=None):
+        return koemorph_loss(
+            pred_blendshapes, target_blendshapes, prev_pred=prev_pred,
+            prev_target=prev_target, audio_features=audio_features,
+            config=self.config)
+
+
+class PerceptualBlendshapeLoss:
+    """The reference's callable group-weighted perceptual term
+    (:func:`perceptual_loss`)."""
+
+    def __call__(self, pred, target, audio_features=None):
+        return perceptual_loss(pred, target, audio_features=audio_features)
+
+
+class LandmarkConsistencyLoss:
+    """The reference's callable approximate-landmark L2
+    (:func:`landmark_loss`, its fixed projection)."""
+
+    def __call__(self, pred, target):
+        return landmark_loss(pred, target)

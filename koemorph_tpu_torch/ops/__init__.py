@@ -18,12 +18,15 @@ Public surface, the reference's ``koemorph_tpu.ops`` names:
   :func:`functionals_multi_offset`, :func:`egemaps_functionals`,
   :func:`egemaps_concat_windows`, :func:`load_calibration`,
   :func:`apply_calibration`;
-- F0: :class:`F0Result`, :func:`yin_f0`.
+- F0: :class:`F0Result`, :func:`yin_f0`;
+- reconstruction: :func:`griffin_lim`, :func:`mel_to_linear`,
+  :func:`reconstruct_audio`, :func:`compute_reconstruction_snr`,
+  :func:`validate_mel_parameters`.
 
-Not ported yet (``ROADMAP.md`` section 1, item 9): the reference's
-``ops.reconstruct`` names (``griffin_lim``, ``mel_to_linear``,
-``reconstruct_audio``, ``compute_reconstruction_snr``,
-``validate_mel_parameters``).
+Prosody lives in :mod:`koemorph_tpu_torch.ops.prosody`, as in the JAX
+package. Importing this package registers the kernels' ``torch.library``
+operators (:mod:`koemorph_tpu_torch.ops.library`), which exported
+programs hold.
 """
 
 from koemorph_tpu_torch.ops.window import frame_signal, hann_window, num_frames
@@ -49,6 +52,11 @@ from koemorph_tpu_torch.ops.egemaps import (
     silence_lld_carry,
 )
 from koemorph_tpu_torch.ops.f0 import F0Result, yin_f0
+from koemorph_tpu_torch.ops.reconstruct import (compute_reconstruction_snr,
+                                                griffin_lim, mel_to_linear,
+                                                reconstruct_audio,
+                                                validate_mel_parameters)
+from koemorph_tpu_torch.ops import library  # noqa: F401  (registers ops)
 
 __all__ = [
     "frame_signal",
@@ -64,6 +72,11 @@ __all__ = [
     "LogMelFrontend",
     "log_mel_spectrogram",
     "mel_with_temporal_detail",
+    "griffin_lim",
+    "mel_to_linear",
+    "reconstruct_audio",
+    "compute_reconstruction_snr",
+    "validate_mel_parameters",
     "EGEMAPS_FEATURE_NAMES",
     "EgemapsConfig",
     "LldCarry",

@@ -15,7 +15,11 @@ and the graph keeps the holder for as long as it lives.
 Values are built outside ``torch.inference_mode`` even when the first call
 comes from inside it (a decode or a stream step): an inference tensor
 cannot be saved for backward, and a later train step in the same process
-reads the same cached constants.
+reads the same cached constants. While a program is being exported they
+are built outside the tracer's modes too: a value built under its fake
+tensor mode would hold no data, and every later live call would read it
+from the cache. Built as real tensors, they enter the exported program as
+constants.
 """
 
 from __future__ import annotations
@@ -31,6 +35,14 @@ __all__ = ["device_cache", "holding"]
 _HOLDERS: list[dict] = []
 
 
+def _untraced():
+    """Outside the modes of an export's tracer while one is exporting."""
+    if torch.compiler.is_exporting():
+        from torch.utils._python_dispatch import _disable_current_modes
+        return _disable_current_modes()
+    return contextlib.nullcontext()
+
+
 def device_cache(maxsize: int):
     """``functools.lru_cache(maxsize)`` whose values a capture in progress
     (:func:`holding`) also holds."""
@@ -39,7 +51,7 @@ def device_cache(maxsize: int):
 
         @functools.wraps(fn)
         def call(*args):
-            with torch.inference_mode(False):
+            with torch.inference_mode(False), _untraced():
                 value = cached(*args)
             if _HOLDERS:
                 _HOLDERS[-1][id(value)] = value

@@ -327,7 +327,10 @@ def poly_roots_plain(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
 
 def poly_roots(a: torch.Tensor) -> torch.Tensor:
     """LPC polynomial roots (see :func:`poly_roots_plain`): the CUDA kernel
-    for CUDA tensors, the plain form for CPU tensors."""
+    for CUDA tensors, the plain form for CPU tensors; the custom operator
+    ``koemorph_torch::dk_roots`` while a program is being exported."""
+    if torch.compiler.is_exporting():
+        return torch.ops.koemorph_torch.dk_roots(a)
     if a.device.type == "cuda":
         return cuda_kernels.dk_roots(a.contiguous())
     if a.device.type == "cpu":

@@ -407,7 +407,11 @@ def cycle_dsum(frames: torch.Tensor, start: torch.Tensor, tau: torch.Tensor,
                ) -> torch.Tensor:
     """Cycle-restricted difference sums (see :func:`cycle_dsum_plain`):
     the CUDA kernel for CUDA tensors (the frames read in place), the plain
-    form for CPU tensors."""
+    form for CPU tensors; the custom operator ``koemorph_torch::cycle_dsum``
+    while a program is being exported."""
+    if torch.compiler.is_exporting():
+        return torch.ops.koemorph_torch.cycle_dsum(
+            frames, start.to(torch.int32), tau, off, n_cycles, half_lag)
     if frames.device.type == "cuda":
         return cuda_kernels.cycle_dsum(
             frames, start.to(torch.int32), tau, off,

@@ -178,7 +178,13 @@ def frames_to_logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
                      n_mels: int = 80, f_min: float = 80.0,
                      f_max: float = 8000.0) -> torch.Tensor:
     """:func:`frames_to_logmel_plain`'s function: the CUDA kernel for CUDA
-    tensors (the frames read in place), the plain form for CPU tensors."""
+    tensors (the frames read in place), the plain form for CPU tensors;
+    the custom operator ``koemorph_torch::logmel`` while a program is
+    being exported."""
+    if torch.compiler.is_exporting():
+        return torch.ops.koemorph_torch.logmel(
+            frames, int(sample_rate), int(n_mels), float(f_min),
+            float(f_max))
     kw = dict(sample_rate=sample_rate, n_mels=n_mels, f_min=f_min,
               f_max=f_max)
     if frames.device.type == "cuda":

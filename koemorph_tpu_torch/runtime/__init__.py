@@ -1,8 +1,29 @@
-"""Real-time streaming runtime (PyTorch port): one session per engine, or
-many sessions in one batched step."""
+"""Real-time streaming runtime: one session per engine or many sessions in
+one batched step, the device-resident stream state and its per-frame
+step, and the host audio and output shells.
 
+The JAX package's ``HAS_PYAUDIO``, ``MicCapture`` and
+``list_audio_devices`` (microphone capture) are not ported yet
+(``ROADMAP.md`` section 1, item 9h)."""
+
+from koemorph_tpu_torch.runtime.streaming import (
+    StreamingConfig,
+    StreamingInference,
+    StreamState,
+    init_stream_state,
+    stream_frame,
+)
+from koemorph_tpu_torch.runtime.streamers import (BlendshapeStreamer,
+                                                  encode_osc_message)
+from koemorph_tpu_torch.runtime.audio import AudioFileReader
+from koemorph_tpu_torch.runtime.engine import run_realtime_loop
 from koemorph_tpu_torch.runtime.multistream import MultiStreamInference
-from koemorph_tpu_torch.runtime.streaming import (StreamingConfig,
-                                                  StreamingInference)
 
-__all__ = ["MultiStreamInference", "StreamingConfig", "StreamingInference"]
+__all__ = [
+    "StreamingConfig", "StreamState", "StreamingInference",
+    "MultiStreamInference",
+    "init_stream_state", "stream_frame",
+    "BlendshapeStreamer", "encode_osc_message",
+    "AudioFileReader",
+    "run_realtime_loop",
+]

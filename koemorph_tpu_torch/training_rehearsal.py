@@ -1,8 +1,8 @@
 """Training dress rehearsal: train the production sequential dual-stream
 model on speech-correlated synthetic data, check that it learned the
 audio -> face structure, and drive the trained checkpoint through the
-``infer`` and ``rt`` entry points. The counterpart of the JAX package's
-``scripts/training_rehearsal.py``.
+``infer``, ``rt`` and ``export_model`` entry points. The counterpart of
+the JAX package's ``scripts/training_rehearsal.py``.
 
 No mocap corpus is in the repository. The targets here are derived from
 the audio (jaw and mouth follow the energy envelope, lip shapes follow
@@ -21,8 +21,8 @@ Training is the port's eager ``fit`` (the JAX script runs device-resident
 scan epochs, ``ROADMAP.md`` item 10): the loader re-forms batch
 membership every epoch (the file order is reshuffled per epoch), where the
 JAX script re-forms it once per chunk of epochs and permutes the step order
-on the device. The export step of the JAX script waits for the port's
-``export`` (``ROADMAP.md`` item 9f).
+on the device. The export step writes a ``torch.export`` program of the
+trained frame function (the JAX script writes a TensorFlow SavedModel).
 
 Runs on the GPU (raises without CUDA) unless ``--cpu`` is given. Prints
 one JSON summary line; exits 0 when the gate passes.
@@ -316,6 +316,10 @@ def main(argv=None) -> int:
                "--output-file", str(work / "rt_out.jsonl"),
                "--no-realtime", "--d-model", str(args.d_model),
                "--fps", str(args.fps), "--max-frames", "120", *dev_args])
+    run("export", [sys.executable, "-m", "koemorph_tpu_torch.export_model",
+                   "--model", str(ckpt), "--output", str(work / "export"),
+                   "--d-model", str(args.d_model), "--fps", str(args.fps),
+                   *dev_args])
 
     empty = {"loss": float("nan"), "mae": float("nan")}
     first, last = (epochs[0], epochs[-1]) if epochs else (empty, empty)
@@ -425,8 +429,7 @@ def main(argv=None) -> int:
     for name, res in cli_log.items():
         status = "ok" if res["rc"] == 0 else f"FAILED rc={res['rc']}"
         report.append(f"- `{name}`: {status}")
-    report += ["- `export`: not run; the port's export waits for "
-               "`ROADMAP.md` item 9f", ""]
+    report.append("")
     report_path.write_text("\n".join(report))
 
     summary["report"] = str(report_path)

@@ -17,7 +17,7 @@ public framing API, against the JAX package on the same seeded audio.
   1e-4 (the frontend's bound in ``test_torch_logmel``), blendshapes within
   1e-5.
 - ``num_frames`` and ``pad_center_reflect`` equal to JAX's; the port's
-  ``ops`` exports JAX's ``ops.__all__`` less the ``reconstruct`` names.
+  ``ops`` exports JAX's ``ops.__all__``.
 """
 
 import dataclasses
@@ -42,8 +42,6 @@ from tests.test_torch_streaming import _voice
 torch.set_num_threads(2)
 
 SR = 16000
-RECONSTRUCT = {"griffin_lim", "mel_to_linear", "reconstruct_audio",
-               "compute_reconstruction_snr", "validate_mel_parameters"}
 TORCHAUDIO = dict(style="torchaudio", n_fft=512, f_min=0.0, f_max=None)
 
 
@@ -167,7 +165,7 @@ def test_num_frames_and_reflect_pad_match_jax(center):
 
 
 def test_ops_exports_match_jax():
-    assert set(tops.__all__) == set(jops.__all__) - RECONSTRUCT
+    assert set(tops.__all__) == set(jops.__all__)
     for name in tops.__all__:
         assert getattr(tops, name) is not None, name
     assert tops.EGEMAPS_FEATURE_NAMES == jops.EGEMAPS_FEATURE_NAMES

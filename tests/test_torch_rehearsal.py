@@ -137,14 +137,14 @@ def test_rehearsal_runs_end_to_end_on_cpu(tmp_path, cudnn_tf32_on):
         "--batch-size", "2", "--d-model", "32",
         "--work-dir", str(tmp_path / "work"),
         "--report-dir", str(tmp_path / "report")]))
-    assert summary["cli"] == {"infer": 0, "rt": 0}
+    assert summary["cli"] == {"infer": 0, "rt": 0, "export": 0}
     assert summary["epochs"] == 2 and summary["device"] == "cpu"
     # two steps of a random model cannot pass the gate: the failed report
     assert rc == 1
     report = Path(summary["report"])
     assert report.name == reh.REPORT_FAILED and report.exists()
     text = report.read_text()
-    assert "2 epochs x 1 steps" in text and "ROADMAP.md` item 9f" in text
+    assert "2 epochs x 1 steps" in text and "- `export`: ok" in text
     assert "reshuffled each epoch" in text
     curves = (tmp_path / "report" / "rehearsal_curves_failed.jsonl"
               ).read_text().splitlines()

@@ -237,7 +237,10 @@ def test_port_imports_no_jax():
         "for m in ('serve', 'feed_serve', 'runtime.multistream',\n"
         "          'runtime.graphs', 'train', 'train.__main__',\n"
         "          'train.optim', 'train.trainer', 'train.checkpoint',\n"
-        "          'visualization.attention_viz'):\n"
+        "          'visualization.attention_viz', 'ops.reconstruct',\n"
+        "          'ops.prosody', 'ops.library', 'features.stft',\n"
+        "          'features.sliding_window', 'features.egemaps_extractor',\n"
+        "          'export', 'export.exporter', 'export_model'):\n"
         "    assert 'koemorph_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('koemorph_tpu_torch')]))\n")
