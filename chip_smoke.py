@@ -59,7 +59,7 @@ inside ``plain_forms()``.
    passed ``cycle_dsum`` (recorded in phases 6 and 7: frame views, not
    copies) against the plain form;
 8. serving: ``MultiStreamInference`` at the flagship width, 64 sessions
-   of the voiced pattern shifted 0.25 s per lane, 105 steps, with one
+   of the voiced pattern shifted 0.25 s per lane, 36 steps, with one
    refresh clock and with 8 refresh cohorts (``multistream``: 2(G+1)
    graphs, launch counts, ``logmel`` once per step at T = 64,
    ``cycle_dsum`` twice and ``dk_roots`` once per refreshing cohort-step
@@ -93,10 +93,11 @@ inside ``plain_forms()``.
    0), and each kernel against its plain form on the arguments the train
    step passed it; ``train_resume``: 2 steps, a checkpoint, a fresh
    trainer's ``resume()`` and 2 more, bitwise equal to 4 steps at once
-   (dropout on); ``train_cli``: ``python -m koemorph_tpu_torch.train``
-   in a subprocess, then ``infer``, ``rt`` and ``serve`` with ``--model``
-   on what it wrote, each equal to the same engine run in-process on the
-   loaded state dict;
+   (dropout on); ``train_cli``: ``python -m koemorph_tpu_torch.train
+   --scan-epochs`` (its epochs device-resident) in a subprocess, then
+   ``infer``, ``rt`` and ``serve`` with ``--model`` on what it wrote,
+   each equal to the same engine run in-process on the loaded state
+   dict;
 11. times: per-frame stream times and profiles (graphed and eager; the
    eager refresh frame also with the eGeMAPS index copies put back, and
    in a profiling window without a lead-in), the
@@ -114,7 +115,8 @@ inside ``plain_forms()``.
    also on the arguments the stream and the decode passed it.
 
 12. the configurations without the LLD ring and the emotion2vec
-   backend (``slice8_phases``), each through its entry points, graphed
+   backend (``slice8_phases``; its streams, and phase 13's, over 36
+   frames), each through its entry points, graphed
    and held bitwise against eager and within 1e-4 against the plain
    forms, launch counts against the capture records: the stream with
    ``basic`` and full-ring ``egemaps`` (K1 and K2 on the arguments the
@@ -129,7 +131,7 @@ inside ``plain_forms()``.
    ``rt`` / ``serve`` CLIs with ``--emotion-backend basic``.
 13. the remaining eGeMAPS, F0, frontend and decoder options
    (``slice9_phases``): the stream and the server (64 sessions, G = 1
-   and 8, four lanes reset at step 50, graphed bitwise against eager)
+   and 8, four lanes reset at step 17, graphed bitwise against eager)
    with frame-level voice quality (``egemaps_per_period=False``: no
    ``cycle_dsum``), the frame-level decode beside the per-period one,
    the Viterbi smoother on the decode's 13,624 LLD rows and in 30-row
@@ -142,7 +144,7 @@ inside ``plain_forms()``.
    The eager stream and server runs' wrapper counts are held equal to
    the expected launches too.
 14. the legacy model family (``slice10_phases``) at flagship width:
-   ``rt_simplified`` (``run_stream`` over 105 frames of the rolling 1 s
+   ``rt_simplified`` (``run_stream`` over 36 frames of the rolling 1 s
    window, one graph; ``logmel`` at T = 31 once per frame by the profiler,
    the capture's record and the eager wrappers; graphed bitwise equal to
    eager; the plain forms within 1e-4, the mel within K3's rule; frame
@@ -195,6 +197,26 @@ inside ``plain_forms()``.
    the live frame through the operators bitwise equal to the direct
    route, the two routes timed in alternating rounds, per frame and per
    kernel call on the host.
+17. the compiled train step, the scan epochs, the profiling entry points
+   and the microphone flags (``slice13_phases``): 12 flagship steps
+   (``configs/dual_stream_config.yaml``, batch 16, span 288, dropout 0.1)
+   through ``SequentialTrainer.compiled_step`` (one CUDA graph per batch
+   shape) and 12 eager steps from one start, the parameters, moments,
+   count and every step's metrics bitwise, the replays' kernels seen by
+   the profiler against the capture's record (K1 x2, K2, K3 x2 per
+   replay), step times graphed and eager, device busy share, peak memory
+   and capture seconds; the same for ``KoeMorphTrainer``
+   (``configs/config.yaml``, batch 16, K3 once per replay at T = 5,776)
+   and the emotion2vec trainer, 4 steps each; a graphed resume bitwise
+   equal to the uninterrupted graphed run; ``train_epochs_scan`` over 2
+   epochs bitwise equal to per-epoch ``train_epoch_scan`` in the same
+   orders, with no host-to-device copy per step (the profiler's ``Memcpy
+   HtoD`` count is the stack's arrays and the scalar table; phase 10's
+   ``train_cli`` runs ``--scan-epochs``); ``training_rehearsal --smoke``
+   (trained by scan) passing its gate; ``profile_training --batches 4 8
+   16`` and ``profile_multistream --sessions 64 256``; ``rt
+   --list-devices`` and ``rt --mic`` without ``pyaudio``; each kernel
+   against its plain form on the arguments the eager twins passed.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -244,10 +266,23 @@ BUDGET_MS = 1e3 / 30                   # a 30 fps frame
 SR, HOP = 16000, 533
 DEVICE = "cuda"
 DECODE_B, DECODE_LEN, DECODE_STRIDE = 8, 512 * HOP, 4
-SERVE_S, SERVE_BIG, SERVE_STEPS, SERVE_SHIFT = 64, 256, 105, 4000
+#: the served sessions, their number for throughput, the steps of every
+#: server and of the streams of phases 12-13 (4 refreshes of each clock;
+#: cut from 105 to keep the script inside its time), the lanes' shift
+#: in samples
+SERVE_S, SERVE_BIG, SERVE_STEPS, SERVE_SHIFT = 64, 256, 36, 4000
+
+
+#: the script's start on the host clock
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the seconds since
+    the script started (a phase's own seconds are the difference from the
+    line before it)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -279,20 +314,18 @@ MEASURED = "chip_smoke.measured"
 def profiled(fn):
     """Run ``fn()`` under ``torch.profiler`` (input shapes recorded) in a
     ``MEASURED`` range, after a lead-in: a profiling window loses its
-    first few device activities, so it starts with 256 tiny kernels, a
-    synchronization and 20 ms of sleep, which ``measured_events`` leaves
-    out. ``prof.wall_s`` is the host time of ``fn()`` to a
-    synchronization."""
+    first few device activities, so it starts with
+    ``utils.trace_latency.lead_in`` (tiny kernels, a synchronization and
+    20 ms of sleep), which ``measured_events`` leaves out.
+    ``prof.wall_s`` is the host time of ``fn()`` to a synchronization."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from koemorph_tpu_torch.utils.trace_latency import lead_in
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        lead = torch.zeros(1, device="cuda")
-        for _ in range(256):
-            lead.add_(1.0)
-        torch.cuda.synchronize()
-        time.sleep(0.02)
+        lead_in("cuda")
         t0 = time.perf_counter()
         with record_function(MEASURED):
             fn()
@@ -302,39 +335,23 @@ def profiled(fn):
     return prof
 
 
-#: the device's idle time that ends the lead-in (its synchronization and
-#: 20 ms of sleep) on the device's own clock, in µs
-LEAD_GAP_US = 15000
-
-
-def _is_lead_in(name: str) -> bool:
-    """The lead-in's device activities: its fill and its adds."""
-    low = name.lower()
-    return "fill" in low or "add" in low or name.startswith("Memset")
-
-
 def measured_events(prof):
     """The profile's events of its ``MEASURED`` range. Host events: those
     that start inside it (10 ms of slack). Device activities: those after
-    the lead-in's idle gap on the device's own clock, found as the first
-    gap of ``LEAD_GAP_US`` with nothing but lead-in activities before it,
-    since the device's timestamps are aligned with the host's only to
-    milliseconds (with 1 ms of slack a run left out the first replay of a
-    window); where the gap does not show (the lead-in's activities lost),
-    those too from 10 ms before the range's start."""
+    the lead-in's idle gap on the device's own clock
+    (``utils.trace_latency.lead_in_end``), since the device's timestamps
+    are aligned with the host's only to milliseconds (with 1 ms of slack a
+    run left out the first replay of a window); where the gap does not
+    show (the lead-in's activities lost), those too from 10 ms before the
+    range's start."""
+    from koemorph_tpu_torch.utils.trace_latency import lead_in_end
     events = prof.events()
     start = min(e.time_range.start for e in events if e.name == MEASURED)
     on_device = sorted((e for e in events
                         if str(e.device_type).endswith("CUDA")),
                        key=lambda e: e.time_range.start)
-    first = None
-    for i in range(1, len(on_device)):
-        if not _is_lead_in(on_device[i - 1].name):
-            break
-        if (on_device[i].time_range.start
-                - on_device[i - 1].time_range.end) >= LEAD_GAP_US:
-            first = on_device[i].time_range.start
-            break
+    first = lead_in_end([(e.time_range.start, e.time_range.end, e.name)
+                         for e in on_device])
     out = []
     for e in events:
         if e.name == MEASURED:
@@ -413,7 +430,7 @@ def refresh_record(t: int, rows: int, refresh: bool) -> dict:
 
 
 #: steps or frames per profiling window of a main path's run: a window of
-#: all 105 server steps (~25,000 device activities) lost 1-2 replays'
+#: 105 server steps (~25,000 device activities) lost 1-2 replays'
 #: kernels from the profile in two of three runs, and a window of 21
 #: frames of the 24-layer emotion2vec stream lost 8 frames' in one run
 WINDOW = 7
@@ -496,6 +513,23 @@ def bound(nbytes: float, ops: float, rate: float = PEAK_FP32_PER_S
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def exact_roots(a):
+    """The float64 roots of the polynomials ``a (rows, 11)`` the K2
+    checks hold against: the eigenvalues of their companion matrices by
+    LAPACK on the host (about 1 s for 15,312 rows; the card's
+    ``eigvals`` takes 10-13 s there), returned on ``a``'s device."""
+    import torch
+    return torch.linalg.eigvals(companion(a.double()).cpu()).to(a.device)
+
+
+def eigvals_ms(comp) -> float:
+    """The library yardstick of K2, ``torch.linalg.eigvals`` of the
+    companion matrices, timed over one call (it takes 0.03-13 s a call at
+    the shapes here)."""
+    import torch
+    return time_ms(lambda: torch.linalg.eigvals(comp), iters=1, warmup=0)
 
 
 def voiced_audio(seconds: float, seed: int, sr: int = SR):
@@ -755,7 +789,7 @@ DK_TRAIN_UNCONVERGED = 0.01
 DK_TRAIN_DRAWS = 8
 
 
-def dk_train_agreement(a) -> dict:
+def dk_train_agreement(a, exact=None) -> dict:
     """K2 against its plain form on the training rows ``a (..., 11)``.
 
     The rows held are chosen by the plain form and float64 alone: those
@@ -765,13 +799,15 @@ def dk_train_agreement(a) -> dict:
     is decided by rounding, so the misses are held to the rate at which
     the plain form misses its own result when each coefficient is rounded
     one step up or down (DK_TRAIN_DRAWS draws, mean m): at most
-    m + 4 sqrt(m) + 2."""
+    m + 4 sqrt(m) + 2. ``exact``: the float64 roots of ``a``'s rows, when
+    the caller has them already."""
     import torch
     from koemorph_tpu_torch.ops import cuda as ck
     from koemorph_tpu_torch.ops import egemaps as eg
     a = a.reshape(-1, a.shape[-1])
     got, want = ck.dk_roots(a), eg.poly_roots_plain(a)
-    exact = torch.linalg.eigvals(companion(a.double()))
+    if exact is None:
+        exact = exact_roots(a)
     conv = hausdorff(want.to(torch.complex128), exact) < DK_MAX
     h = hausdorff(got, want)[conv]
     gen = torch.Generator(device=a.device).manual_seed(0)
@@ -901,15 +937,15 @@ def refresh_launches(cfg) -> tuple[int, int]:
 
 def drive_stream(out: dict, card: str, tag: str, model, cfg,
                  plain: bool = True):
-    """The stream of ``model`` over 3.5 s of voiced audio (105 frames):
+    """The stream of ``model`` over ``SERVE_STEPS`` frames of voiced audio:
     graphed and counted (the launch counts set to 0 just before the engine
     is built), eager (recording the kernels' arguments in ``out["rec"]``),
     plain; each check that fails raises. Returns the graphed engine and
     frames."""
     from koemorph_tpu_torch.ops import cuda as ck
     from koemorph_tpu_torch.runtime.streaming import StreamingInference
-    audio = voiced_audio(3.5, seed=1)
-    n_frames = len(audio) // HOP                                 # 105
+    audio = voiced_audio(SERVE_STEPS * HOP / SR, seed=1)
+    n_frames = len(audio) // HOP
     k = cfg.emotion_update_frames
     n_ref = -(-n_frames // k)
     profiled(lambda: None)
@@ -977,13 +1013,13 @@ def drive_stream(out: dict, card: str, tag: str, model, cfg,
 def drive_server(out: dict, card: str, tag: str, model, cfg, sessions: int,
                  cohorts_list, reset_lanes=(1,), reset_at=None) -> dict:
     """The server of ``model`` over ``sessions`` lanes of the voiced
-    pattern for 105 steps at each refresh-cohort count of
+    pattern for ``SERVE_STEPS`` steps at each refresh-cohort count of
     ``cohorts_list``: graphed and counted (the launch counts set to 0 just
     before the server is built), eager (recording the kernels' arguments),
     plain, lanes against dedicated engines, ``reset_lanes`` reset at step
-    ``reset_at`` (default 45) against fresh engines and the graphed reset
-    run bitwise against an eager one, step times. Returns the launches by
-    shape per cohort count."""
+    ``reset_at`` (default ``SERVE_STEPS * 3 // 7``) against fresh engines
+    and the graphed reset run bitwise against an eager one, step times.
+    Returns the launches by shape per cohort count."""
     import torch
     from koemorph_tpu_torch.ops import cuda as ck
     from koemorph_tpu_torch.runtime import MultiStreamInference
@@ -1556,11 +1592,17 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     wav = work / "basic.wav"
     write_wav(wav, voiced_audio(3.0, seed=6), SR)
     rt_out, srv_out = work / "rt_basic.jsonl", work / "serve_basic.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input", str(wav),
-         "--emotion-backend", "basic", "--output", "file", "--output-file",
-         str(rt_out), "--no-realtime", "--max-frames", "40"], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=600)
+    procs = run_at_once({
+        "rt": [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input",
+               str(wav), "--emotion-backend", "basic", "--output", "file",
+               "--output-file", str(rt_out), "--no-realtime",
+               "--max-frames", "40"],
+        "serve": [sys.executable, "-m", "koemorph_tpu_torch.serve",
+                  "--replay", str(wav), "--emotion-backend", "basic",
+                  "--sessions", "16", "--refresh-cohorts", "8", "--output",
+                  "file", "--output-file", str(srv_out), "--no-realtime",
+                  "--max-frames", "30"]}, env)
+    proc, proc_s = procs["rt"], procs["serve"]
     check(proc.returncode == 0, f"rt basic failed:\n{proc.stderr[-3000:]}")
     rt_rows = np.asarray([json.loads(r)["blendshapes"]
                           for r in rt_out.read_text().splitlines()])
@@ -1568,12 +1610,6 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     from koemorph_tpu_torch.data.wav import read_wav
     wav_audio, _ = read_wav(wav, mono=True)
     want = np.stack(eng.process_audio(wav_audio[:40 * HOP]))
-    proc_s = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
-         str(wav), "--emotion-backend", "basic", "--sessions", "16",
-         "--refresh-cohorts", "8", "--output", "file", "--output-file",
-         str(srv_out), "--no-realtime", "--max-frames", "30"], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=600)
     check(proc_s.returncode == 0,
           f"serve basic failed:\n{proc_s.stderr[-3000:]}")
     srv_rows = [json.loads(r) for r in srv_out.read_text().splitlines()]
@@ -1591,6 +1627,63 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
           and sorted({r["session"] for r in srv_rows}) == list(range(16)),
           "serve basic rows or emit path")
     return out
+
+
+def run_at_once(cmds: dict, env: dict, timeout: float = 600) -> dict:
+    """Run each command of ``cmds`` (name -> argv, from the repository
+    root) in its own process, all started together; returns name ->
+    ``subprocess.CompletedProcess``. Their output goes through files, so
+    no pipe fills while another process is waited for; a process past
+    ``timeout`` is killed."""
+    import tempfile
+    started = {}
+    for name, argv in cmds.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        started[name] = (subprocess.Popen(argv, cwd=ROOT, env=env,
+                                          stdout=out, stderr=err, text=True),
+                         out, err)
+    done = {}
+    for name, (proc, out, err) in started.items():
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        done[name] = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                                 out.read(), err.read())
+        out.close()
+        err.close()
+    return done
+
+
+def run_beside(argv: list, env: dict, fn, timeout: float = 600):
+    """Start ``argv`` (from the repository root) in its own process, call
+    ``fn()`` in this one meanwhile, then wait for the process; returns
+    ``(subprocess.CompletedProcess, fn's result, the process's wall
+    seconds)``. The process's output goes through files; past ``timeout``
+    it is killed."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                            stderr=err, text=True)
+    try:
+        result = fn()
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    done = subprocess.CompletedProcess(argv, proc.returncode, out.read(),
+                                       err.read())
+    out.close()
+    err.close()
+    return done, result, seconds
 
 
 def _event_ms(fn, n: int) -> list:
@@ -1613,13 +1706,15 @@ def _event_ms(fn, n: int) -> list:
 ROOT_KEYS = ("formant_freq", "formant_bw", "formant_rel", "h1_a3")
 
 
-def dk_converged(a):
+def dk_converged(a, exact=None):
     """Rows of the polynomials ``a (..., 11)`` on which the plain form's
-    roots lie within DK_MAX of the float64 roots, shaped ``a``'s rows."""
+    roots lie within DK_MAX of the float64 roots (``exact``, computed
+    when not given), shaped ``a``'s rows."""
     import torch
     from koemorph_tpu_torch.ops import egemaps as eg
     flat = a.reshape(-1, a.shape[-1])
-    exact = torch.linalg.eigvals(companion(flat.double()))
+    if exact is None:
+        exact = exact_roots(flat)
     plain = eg.poly_roots_plain(flat).to(torch.complex128)
     return (hausdorff(plain, exact) < DK_MAX).reshape(a.shape[:-1])
 
@@ -1824,7 +1919,8 @@ def slice9_phases(card: str) -> dict:
     rows_v = int(lld_v["voiced"].numel())
     (a_v,), _ = out["rec"][("dk_roots", "viterbi", rows_v)]
     with torch.inference_mode():
-        conv_v = dk_converged(a_v).reshape(lld_v["voiced"].shape)
+        exact_v = exact_roots(a_v.reshape(-1, a_v.shape[-1]))
+        conv_v = dk_converged(a_v, exact_v).reshape(lld_v["voiced"].shape)
     agree = _lld_agreement(lld_v, lld_p, conv_v)
     agree_b = _lld_agreement(blk_v, blk_p)
     k1_held = {}
@@ -1838,7 +1934,7 @@ def slice9_phases(card: str) -> dict:
         k1_held[n] = {"max_abs_err": float(err.max()), "ok": bool(
             (err <= K1_ATOL + K1_RTOL * want_k.abs()).all()
             and torch.equal(got.isnan(), want_k.isnan()))}
-    r_v = dk_train_agreement(a_v)
+    r_v = dk_train_agreement(a_v, exact_v)
     med_t = {k: float(np.median(v)) for k, v in times.items()}
     picks_differ = float((core_v.pick != core_n.pick).float().mean())
     emit({"phase": "viterbi", "card": card, "lld_rows": rows_v,
@@ -2026,6 +2122,7 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     before; ``train_plain`` holds one step's loss and gradients against the
     plain forms; ``train_resume`` holds a resumed run against an
     uninterrupted one; ``train_cli`` trains through the CLI in a subprocess
+    (``--scan-epochs``: its epochs device-resident on the compiled step)
     and serves what it wrote through ``infer``, ``rt`` and ``serve``.
     Returns the kernels' recorded arguments and launch counts of the
     ``train_step`` run, for the kernels table."""
@@ -2316,7 +2413,8 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     proc = subprocess.run(
         [sys.executable, "-m", "koemorph_tpu_torch.train", "--config",
          str(config_path), "--synthetic", "4", "--max-epochs", "1",
-         "--steps-per-epoch", "3", "--work-dir", str(cli_work)],
+         "--steps-per-epoch", "3", "--scan-epochs", "--work-dir",
+         str(cli_work)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     train_cli_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"train CLI failed:\n{proc.stderr[-3000:]}")
@@ -2333,12 +2431,27 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     write_wav(wav, voiced_audio(10.0, seed=12), SR)
     audio, _ = read_wav(wav, mono=True)
     results = {}
+    rt_frames = 40
+    sessions, ticks = 4, 24
+    outs = {name: work / f"train_cli_{name}.jsonl"
+            for name in ("infer", "rt", "serve")}
+    # the three served at once, each in its own process
+    procs = run_at_once({
+        "infer": [sys.executable, "-m", "koemorph_tpu_torch.infer",
+                  "--input", str(wav), "--output", str(outs["infer"]),
+                  "--model", str(last)],
+        "rt": [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input",
+               str(wav), "--model", str(last), "--output", "file",
+               "--output-file", str(outs["rt"]), "--no-realtime",
+               "--max-frames", str(rt_frames)],
+        "serve": [sys.executable, "-m", "koemorph_tpu_torch.serve",
+                  "--replay", str(wav), "--model", str(last),
+                  "--sessions", str(sessions), "--output", "file",
+                  "--output-file", str(outs["serve"]), "--no-realtime",
+                  "--max-frames", str(ticks)]}, env)
     # infer: the decode of the loaded model, in-process
-    out_jsonl = work / "train_cli_infer.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.infer", "--input",
-         str(wav), "--output", str(out_jsonl), "--model", str(last)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    out_jsonl = outs["infer"]
+    proc = procs["infer"]
     check(proc.returncode == 0, f"infer --model failed:\n"
           f"{proc.stderr[-3000:]}")
     check("random weights" not in proc.stderr, "infer used random weights")
@@ -2352,13 +2465,8 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     results["infer"] = (got.shape, float(np.abs(got - want).max())
                         if got.shape == want.shape else float("inf"))
     # rt: the stream of the loaded model, in-process
-    rt_frames = 40
-    out_jsonl = work / "train_cli_rt.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.rt", "--input", str(wav),
-         "--model", str(last), "--output", "file", "--output-file",
-         str(out_jsonl), "--no-realtime", "--max-frames", str(rt_frames)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    out_jsonl = outs["rt"]
+    proc = procs["rt"]
     check(proc.returncode == 0, f"rt --model failed:\n{proc.stderr[-3000:]}")
     got = np.asarray([json.loads(r)["blendshapes"]
                       for r in out_jsonl.read_text().splitlines()])
@@ -2369,14 +2477,8 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     results["rt"] = (got.shape, float(np.abs(got - want).max())
                      if got.shape == want.shape else float("inf"))
     # serve: the server of the loaded model over the same lanes, in-process
-    sessions, ticks = 4, 24
-    out_jsonl = work / "train_cli_serve.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
-         str(wav), "--model", str(last), "--sessions", str(sessions),
-         "--output", "file", "--output-file", str(out_jsonl),
-         "--no-realtime", "--max-frames", str(ticks)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
+    out_jsonl = outs["serve"]
+    proc = procs["serve"]
     check(proc.returncode == 0,
           f"serve --model failed:\n{proc.stderr[-3000:]}")
     rows = [json.loads(r) for r in out_jsonl.read_text().splitlines()]
@@ -2398,13 +2500,14 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
         check(d <= (EMIT_MAX if k == "serve" else 0.0),
               f"{k} --model differs from the in-process run: {shape}, {d}")
     return {"rec": train_rec, "shapes": shapes, "lld_rows": lld_rows,
+            "dk_held": kernel_err[f"dk_roots x{lld_rows}"],
             "t_global": t_global, "t_edges": t_edges, "synth": synth}
 
 
 #: the legacy family (phase 14): the frames of rt_simplified, the CLI
 #: training run (32 synthetic 12 s files, batch 16: 2 steps an epoch), the
 #: in-process KoeMorphTrainer steps and the KoeMorphModel's carried steps
-RT_FRAMES, LEGACY_FILES, LEGACY_EPOCHS, KOEMORPH_STEPS = 105, 32, 6, 30
+RT_FRAMES, LEGACY_FILES, LEGACY_EPOCHS, KOEMORPH_STEPS = 36, 32, 6, 30
 LEGACY_PLAIN_MAX = 1e-4                # blendshapes, kernels vs plain
 #: test_model's metrics in its subprocess against the same batch in process
 SEQ_EVAL_ATOL = 1e-5
@@ -2415,14 +2518,15 @@ def k3_rule(got, want) -> bool:
     return bool(((got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
 
 
-def hold_recorded(rec: dict, tags) -> dict:
+def hold_recorded(rec: dict, tags, known=None) -> dict:
     """Every launch shape :func:`recording_kernels` recorded under one of
     ``tags``: the kernel against its plain form on the recorded arguments,
     by the kernel's rule (K1 within K1_RTOL / K1_ATOL, K2 by
     :func:`dk_train_agreement` and :func:`dk_train_ok`, K3 by
     :func:`k3_rule`). Returns ``{(name, tag, shape): {"ok": bool,
     "max_abs_err": float, ...}}``; K2's error is the Hausdorff distance
-    on the rows held."""
+    on the rows held. ``known``: ``(args, result)`` of a K2 hold made
+    already, reused for recorded arguments equal to its own."""
     import torch
     from koemorph_tpu_torch.ops import cuda as ck
     from koemorph_tpu_torch.ops import f0 as f0_ops
@@ -2433,7 +2537,10 @@ def hold_recorded(rec: dict, tags) -> dict:
         for key in sorted(k for k in rec if k[1] in tags):
             args, kw = rec[key]
             if key[0] == "dk_roots":
-                r = dk_train_agreement(args[0])
+                same = (known is not None
+                        and known[0][0].shape == args[0].shape
+                        and torch.equal(known[0][0], args[0]))
+                r = known[1] if same else dk_train_agreement(args[0])
                 held[key] = {"ok": dk_train_ok(r),
                              "max_abs_err": r["hausdorff_max_held"], **r}
                 continue
@@ -2455,7 +2562,7 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
     """Phase 14: the legacy model family at flagship width (d_model 256, 8
     heads, 80 mels, 30 fps), each through its entry points with the launch
     counts set to 0 just before: ``rt_simplified`` (``FrameStep`` and
-    ``run_stream`` over 105 frames of the rolling 1 s window, graphed,
+    ``run_stream`` over 36 frames of the rolling 1 s window, graphed,
     then eager, then with the plain forms; K3 at T = 31 once per frame by
     the profiler and by the capture's record), ``legacy_cli`` (``python -m
     koemorph_tpu_torch.train --config configs/config.yaml``, then
@@ -2621,9 +2728,39 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
     synth = cli_work / "synth_data"
     rt_wav = synth / "synth_000.wav"
     rt_rows = work / "legacy_cli_rt.jsonl"
-    proc = run_cli("koemorph_tpu_torch.rt_simplified", "--input",
-                   str(rt_wav), "--model", str(last), "--no-realtime",
-                   "--output", "file", "--output-file", str(rt_rows))
+    # the sequential dual-stream model through the same test_model CLI (K1,
+    # K2 and K3 in its eGeMAPS refresh and mel frontend), random weights
+    # from a .pth; its first batch is counted in process below
+    seq_args = argparse.Namespace(
+        model_name="sequential_dual_stream", d_model=256, num_heads=8,
+        fps=30, emotion_backend="egemaps")
+    seq_model, seq_span = tm_build_model(seq_args)
+    seq_model.init_random(torch.Generator().manual_seed(0))
+    seq_pth = work / "legacy_cli_sequential.pth"
+    torch.save(seq_model.state_dict(), seq_pth)
+    # the three on what the CLI wrote, at once, each in its own process
+    t0 = time.perf_counter()
+    procs = run_at_once({
+        "rt_simplified": [
+            sys.executable, "-m", "koemorph_tpu_torch.rt_simplified",
+            "--input", str(rt_wav), "--model", str(last), "--no-realtime",
+            "--output", "file", "--output-file", str(rt_rows)],
+        "test_model": [
+            sys.executable, "-m", "koemorph_tpu_torch.test_model",
+            "--data-dir", str(synth), "--model-name", "simplified",
+            "--model", str(last)],
+        "test_model_sequential": [
+            sys.executable, "-m", "koemorph_tpu_torch.test_model",
+            "--data-dir", str(synth), "--model-name",
+            "sequential_dual_stream", "--model", str(seq_pth),
+            "--max-batches", "1"]}, env)
+    together_s = time.perf_counter() - t0
+    for key, proc in procs.items():
+        check(proc.returncode == 0,
+              f"{key} failed:\n{proc.stderr[-3000:]}")
+        check("random" not in proc.stderr, f"{key} used random weights")
+        cli[key] = {"seconds_together": together_s}
+    proc = procs["rt_simplified"]
     got = np.asarray([json.loads(r)["blendshapes"]
                       for r in rt_rows.read_text().splitlines()])
     cli_model = rts.build_model(checkpoint=str(last))
@@ -2638,28 +2775,13 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
         if got.shape == want_rt.shape else None)
     check(got.shape == want_rt.shape and np.array_equal(got, want_rt),
           "rt_simplified --model differs from the in-process frames")
-    proc = run_cli("koemorph_tpu_torch.test_model", "--data-dir",
-                   str(synth), "--model-name", "simplified", "--model",
-                   str(last))
+    proc = procs["test_model"]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     cli["test_model"].update(metrics=result)
     check(result["batches"] >= 1
           and all(np.isfinite(v) for v in result.values()),
           f"test_model: {result}")
-    # the sequential dual-stream model through the same CLI (K1, K2 and K3
-    # in its eGeMAPS refresh and mel frontend), random weights from a
-    # .pth, then its first batch in process, counted
-    seq_args = argparse.Namespace(
-        model_name="sequential_dual_stream", d_model=256, num_heads=8,
-        fps=30, emotion_backend="egemaps")
-    seq_model, seq_span = tm_build_model(seq_args)
-    seq_model.init_random(torch.Generator().manual_seed(0))
-    seq_pth = work / "legacy_cli_sequential.pth"
-    torch.save(seq_model.state_dict(), seq_pth)
-    proc = run_cli("koemorph_tpu_torch.test_model", "--data-dir",
-                   str(synth), "--model-name", "sequential_dual_stream",
-                   "--model", str(seq_pth), "--max-batches", "1",
-                   key="test_model_sequential")
+    proc = procs["test_model_sequential"]
     seq_result = json.loads(proc.stdout.strip().splitlines()[-1])
     seq_loader, _ = create_sequential_dataloader(
         synth, batch_size=4, window_frames=seq_span, stride_frames=seq_span,
@@ -3479,8 +3601,8 @@ def export_frames(dev):
     ).to(dev)
 
 
-def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path
-                   ) -> dict:
+def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
+                   alongside=None) -> dict:
     """Phase 16: the reference-named feature extractors, reconstruction,
     prosody and export, each through its entry points on the card with the
     launch counts set to 0 just before. ``sliding_window``:
@@ -3503,7 +3625,10 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path
     operators (:func:`through_operators`) bitwise equal to the direct
     route with the same launches, the two routes' frame times and each
     kernel call's host time (:func:`dispatch_host_ms`) in alternating
-    rounds. Returns the recorded kernel
+    rounds. ``alongside()``, when given, runs in this process while the
+    export CLI runs in its own (phase 17's smoke rehearsal: the CLI's
+    tracing keeps one host core busy for about a minute); its result is
+    returned under ``"alongside"``. Returns the recorded kernel
     arguments, the checks against the plain forms and the launch counts
     for the kernels table."""
     import torch
@@ -3676,13 +3801,10 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path
     check((checkpoint / "state.pth").exists(),
           f"no checkpoint at {checkpoint}")
     export_dir = work / "export"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc, beside, export_s = run_beside(
         [sys.executable, "-m", "koemorph_tpu_torch.export_model",
          "--model", str(checkpoint), "--output", str(export_dir),
-         "--benchmark"], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=600)
-    export_s = time.perf_counter() - t0
+         "--benchmark"], env, alongside or (lambda: None))
     check(proc.returncode == 0,
           f"export_model failed:\n{proc.stderr[-3000:]}")
     (report,) = json.loads(proc.stdout)
@@ -3823,7 +3945,513 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path
           "kernels vs plain forms on the phase-16 paths: "
           + str([k for k, r in held.items() if not r["ok"]]))
     out["held"] = held
+    out["alongside"] = beside
     emit({"phase": "slice12", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+#: the compiled train step's paths (phase 17), whose kernel arguments the
+#: eager twins record; their launch shapes are those of phases 10 and 14,
+#: whose rows of the kernels line count their launches too
+SLICE13_TAGS = ("train_graph", "legacy_graph", "e2v_graph")
+#: graphed and eager steps of the flagship sequential trainer, and of the
+#: legacy and emotion2vec trainers
+GRAPH_STEPS, GRAPH_STEPS_SHORT = 12, 4
+#: the legacy trainer's batch: 16 files of 12 s (192,000 samples, 361
+#: frames of K3 each)
+LEGACY_SAMPLES = 192000
+
+
+def rehearsal_smoke(work: Path) -> dict:
+    """``python -m koemorph_tpu_torch.training_rehearsal --smoke`` through
+    its ``main()`` in this process: its return code (0: the gate passed),
+    its summary line and its wall seconds."""
+    from koemorph_tpu_torch import training_rehearsal
+    t0 = time.perf_counter()
+    rc, summary = _stdout_json(lambda: training_rehearsal.main([
+        "--smoke", "--work-dir", str(work / "s13_rehearsal"),
+        "--report-dir", str(work / "s13_rehearsal_report")]))
+    return {"rc": rc, "summary": summary,
+            "wall_s": time.perf_counter() - t0}
+
+
+def host_scalar_step(opt, grads) -> None:
+    """The optimizer update as it was before the compiled step (its
+    learning rate and bias corrections Python floats, the moments and the
+    accumulator reassigned), for :func:`optimizer_scalars_phase`."""
+    import torch
+    from koemorph_tpu_torch.train.optim import global_norm
+    if opt.acc is not None:
+        n = opt.mini_step
+        for k, g in grads.items():
+            opt.acc[k] = opt.acc[k] + (g - opt.acc[k]) / (n + 1)
+        opt.mini_step = (n + 1) % opt.accumulate
+        if n != opt.accumulate - 1:
+            return
+        opt.gradient_step += 1
+        grads = opt.acc
+        opt.acc = {k: torch.zeros_like(p) for k, p in opt.params.items()}
+    if opt.clip is not None:
+        norm = global_norm(grads.values())
+        keep = norm < opt.clip
+        grads = {k: torch.where(keep, g, g / norm * opt.clip)
+                 for k, g in grads.items()}
+    lr = opt.schedule(opt.count)
+    opt.count += 1
+    if opt.name == "sgd":
+        for k, p in opt.params.items():
+            opt.trace[k] = grads[k] + opt.momentum * opt.trace[k]
+            p.add_(opt.trace[k] * -lr)
+        return
+    bc1 = 1.0 - opt.b1 ** opt.count
+    bc2 = 1.0 - opt.b2 ** opt.count
+    for k, p in opt.params.items():
+        g = grads[k]
+        opt.mu[k] = (1.0 - opt.b1) * g + opt.b1 * opt.mu[k]
+        opt.nu[k] = (1.0 - opt.b2) * (g * g) + opt.b2 * opt.nu[k]
+        update = (opt.mu[k] / bc1) / (torch.sqrt(opt.nu[k] / bc2) + opt.eps)
+        if opt.weight_decay:
+            update = update + opt.weight_decay * p
+        p.add_(update * -lr)
+
+
+def optimizer_scalars_phase(card: str) -> None:
+    """``optimizer_scalars``: on the card, the optimizer's update with its
+    per-update scalars read from device rows and its state written in
+    place, bit for bit the update with host scalars
+    (:func:`host_scalar_step`), over 10 updates that cross a warm-up ->
+    cosine boundary, with clipping triggered and not, for AdamW (with and
+    without accumulation) and SGD."""
+    import torch
+    from koemorph_tpu_torch.train.optim import create_optimizer
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    start = {"w": rng.normal(0, 1, (256, 264)).astype(np.float32),
+             "b": rng.normal(0, 1, (52,)).astype(np.float32)}
+    res = {}
+    for name, acc in (("adamw", 1), ("adamw", 2), ("sgd", 1)):
+        cfg = {"optimizer": {"name": name, "lr": 5e-4, "weight_decay": 1e-5,
+                             "betas": [0.9, 0.999]},
+               "lr_scheduler": {"name": "cosine", "t_max": 4,
+                                "warmup_steps": 3, "eta_min": 1e-6},
+               "gradient_clip_val": 1.0, "accumulate_grad_batches": acc}
+        new, old = (create_optimizer(cfg, {k: torch.from_numpy(v).to(dev)
+                                           for k, v in start.items()},
+                                     steps_per_epoch=2)
+                    for _ in range(2))
+        differ = []
+        for i in range(10 * acc):
+            scale = 3.0 if i % 3 == 0 else 0.01
+            g = {k: torch.from_numpy(rng.normal(0, scale, v.shape).astype(
+                np.float32)).to(dev) for k, v in start.items()}
+            new.step(g)
+            host_scalar_step(old, g)
+            differ += [(i, k) for k in start
+                       if not torch.equal(new.params[k], old.params[k])]
+        res[f"{name} k={acc}"] = {"updates": new.count,
+                                  "differ": differ[:4]}
+    emit({"phase": "optimizer_scalars", "card": card, **res})
+    check(all(not r["differ"] and r["updates"] == 10 for r in res.values()),
+          f"device-scalar updates != host-scalar updates: {res}")
+
+
+def _train_state(trainer) -> dict:
+    """Copies of the tensors a train step writes (the parameters and the
+    optimizer's moments, momentum and accumulator) by name."""
+    out = {f"param {k}": v.detach().clone()
+           for k, v in trainer.params.items()}
+    for name in ("mu", "nu", "trace", "acc"):
+        for k, v in (getattr(trainer.optimizer, name, None) or {}).items():
+            out[f"{name} {k}"] = v.clone()
+    return out
+
+
+def _differ(a: dict, b: dict) -> list:
+    """The names whose tensors are not bitwise equal."""
+    import torch
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def graphed_vs_eager(out: dict, card: str, tag: str, make, batches: list,
+                     n_steps: int, snapshot_at: int = 0) -> dict:
+    """One trainer's compiled step against its eager step, from one start.
+    The eager twin (``graphs=False``) runs ``n_steps`` steps first, timed
+    between CUDA events, recording the kernels' arguments under ``tag``.
+    Then, with the launch counts set to 0 just before it is built, the
+    graphed trainer runs the same steps in profiling windows: its state
+    (parameters, moments, count) and every step's metrics are held bit for
+    bit against the eager twin's, and the kernels the profiler saw in its
+    replays against what its graphs recorded. ``n_steps`` more graphed
+    steps are timed between CUDA events. Returns the record of the run
+    (and, with ``snapshot_at``, the graphed state after that step)."""
+    import torch
+    from koemorph_tpu_torch.ops import cuda as ck
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    eager = make(False, f"{tag}_eager")
+    ck.reset_launch_counts()
+    m_eager, ev_eager = [], []
+    with recording_kernels(out["rec"], tag):
+        for i in range(n_steps):
+            e0, e1 = events()
+            e0.record()
+            m_eager.append(eager.train_step(batches[i % len(batches)]))
+            e1.record()
+            ev_eager.append((e0, e1))
+    torch.cuda.synchronize()
+    eager_per_step = {k: v / n_steps for k, v in ck.LAUNCHES.items()}
+    eager_ms = np.asarray([a.elapsed_time(b) for a, b in ev_eager])
+
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    graphed = make(None, f"{tag}_graphed")
+    m_graphed, snap = [], {}
+
+    def run(lo, hi):
+        for i in range(lo, hi):
+            m_graphed.append(graphed.compiled_step(
+                batches[i % len(batches)]))
+            if i + 1 == snapshot_at:
+                snap.update(_train_state(graphed))
+
+    graphs = graphed.step_graphs
+    ks = []
+    for fn in in_windows(n_steps, run):
+        ks += device_kernels(None, profiled(fn))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wrapper, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    seen = {src: n / KERNELS_PER_LAUNCH[src]
+            for src, n in own_kernels(ks).items()}
+    check(len(graphs) == 1, f"{tag}: {len(graphs)} graphs for one shape")
+    per_replay = recorded(graphs, graphs.keys()[0])
+    total = collections.Counter(shapes)
+    for key, n in graphs.replays.items():
+        for shape_key, c in graphs.launches(key).items():
+            total[shape_key] += n * c
+    # the profiled windows ran the replays and the capture's eager warm-up
+    # step, whose launches the wrappers counted besides the capture's record
+    warm = {name: wrapper[name] - per_replay[name] for name in KERNEL_PATTERNS}
+    want = {name: sum(n * recorded(graphs, key)[name]
+                      for key, n in graphs.replays.items()) + warm[name]
+            for name in KERNEL_PATTERNS}
+    state_diff = _differ(_train_state(eager), _train_state(graphed))
+    metric_diff = [(i, k) for i, (a, b) in enumerate(zip(m_eager, m_graphed))
+                   for k in a if not torch.equal(a[k], b[k])]
+    counts = (eager.optimizer.count, graphed.optimizer.count)
+
+    # activities and device time of replays alone, then more replays
+    # timed between CUDA events, no profiler
+    ks = device_kernels(None, profiled(lambda: [
+        graphed.compiled_step(batches[i % len(batches)])
+        for i in range(WINDOW)]))
+    ev_graphed = []
+    for i in range(n_steps):
+        e0, e1 = events()
+        e0.record()
+        graphed.compiled_step(batches[i % len(batches)])
+        e1.record()
+        ev_graphed.append((e0, e1))
+    torch.cuda.synchronize()
+    graphed_ms = np.asarray([a.elapsed_time(b) for a, b in ev_graphed])
+    busy_ms = sum(us for _, us in ks) / 1e3 / WINDOW
+    res = {"phase": tag, "card": card, "steps": n_steps,
+           "batch": int(batches[0]["audio"].shape[0]),
+           "bitwise_equal": not state_diff and not metric_diff,
+           "state_diff": state_diff[:8], "metric_diff": metric_diff[:8],
+           "count": list(counts),
+           "graphed_step_ms": q(graphed_ms),
+           "eager_first_step_ms": float(eager_ms[0]),
+           "eager_step_ms": q(eager_ms[1:]),
+           "speedup_median": float(np.median(eager_ms[1:])
+                                   / np.median(graphed_ms)),
+           "activities_per_step": len(ks) / WINDOW,
+           "device_busy_ms_per_step": busy_ms,
+           "device_busy_share": busy_ms / float(np.median(graphed_ms)),
+           "peak_gb": peak_gb, "capture_s": graphs.capture_s,
+           "graphs": len(graphs),
+           "launches_per_replay": per_replay,
+           "eager_launches_per_step": eager_per_step,
+           "launches_by_shape": {f"{k[0]}{list(k[1])}": v
+                                 for k, v in total.items()},
+           "warm_and_capture_launches": wrapper,
+           "profiled_kernels": seen,
+           "recorded_x_replays_and_warm_up": want}
+    emit(res)
+    check(res["bitwise_equal"] and counts[0] == counts[1] == n_steps,
+          f"{tag}: graphed != eager: {state_diff[:8]} {metric_diff[:8]} "
+          f"{counts}")
+    check({k: float(v) for k, v in per_replay.items()} == eager_per_step,
+          f"{tag}: a replay's launches {per_replay} != an eager step's "
+          f"{eager_per_step}")
+    check(seen == {k: float(v) for k, v in want.items()},
+          f"{tag}: profiled kernels {seen} != the record x replays and "
+          f"the warm-up's {want}")
+    out["shapes"][tag] = dict(total)
+    res["snapshot"] = snap
+    res["trainer"] = graphed
+    del eager
+    return res
+
+
+def slice13_phases(card: str, work: Path, synth: Path, rehearsal=None,
+                   train_hold=None) -> dict:
+    """Phase 17: the compiled train step, the scan epochs, the profiling
+    entry points and the microphone flags. ``optimizer_scalars``: the
+    device-scalar update against the host-scalar one
+    (:func:`optimizer_scalars_phase`); ``train_graph``: 12 flagship
+    steps (``configs/dual_stream_config.yaml``, batch 16, span 288,
+    dropout 0.1) graphed and 12 eager from one start, bitwise
+    (:func:`graphed_vs_eager`); ``legacy_graph`` and ``e2v_graph``: the
+    same for ``KoeMorphTrainer`` (``configs/config.yaml``, batch 16, 12 s)
+    and the emotion2vec trainer (batch 16), 4 steps each; ``train_resume
+    _graphed``: 2 graphed steps, a checkpoint, a fresh graphed trainer's
+    ``resume()`` and 2 more, bitwise the uninterrupted graphed run;
+    ``train_scan``: ``train_epochs_scan`` over 2 epochs of phase 10's 12
+    batches, bitwise per-epoch ``train_epoch_scan`` in the same orders,
+    with the host-to-device copies the profiler saw in it and its peak
+    memory (phase 10's ``train_cli`` trains through ``--scan-epochs``
+    and serves what it wrote); ``rehearsal_scan``:
+    ``training_rehearsal --smoke``, its gate; ``profile_entry_points``:
+    ``profile_training`` and ``profile_multistream``; ``mic_flags``: ``rt
+    --list-devices`` and ``rt --mic`` without ``pyaudio`` (the entry
+    points' ``main()`` in this process; phase 10 runs the CLIs in
+    subprocesses). ``rehearsal``: :func:`rehearsal_smoke`'s result when
+    it ran already (beside phase 16's export CLI), else it runs here.
+    ``train_hold``: phase 10's K2 arguments and hold at the training rows,
+    reused where the eager twin passed the same rows. Returns the
+    kernels' recorded arguments, their launch counts per path and their
+    plain-form holds, for the kernels table."""
+    import torch
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.trainer import (KoeMorphTrainer,
+                                                  SequentialTrainer,
+                                                  scan_orders)
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {"rec": {}, "shapes": {}}
+    config_path = ROOT / "configs" / "dual_stream_config.yaml"
+    optimizer_scalars_phase(card)
+
+    def sequential(overrides=()):
+        cfg = load_config(config_path, overrides=list(overrides))
+        batch_size = int(cfg.data.batch_size)
+
+        def make(graphs, name):
+            model, kind = build_model(cfg)
+            check(kind == "sequence", f"the config's model is {kind}")
+            return SequentialTrainer(
+                model, to_dict(cfg), work_dir=work / f"s13_{name}",
+                steps_per_epoch=12, span_frames=model.window_frames + 32,
+                graphs=graphs)
+
+        loader_fn, _ = create_sequential_dataloader(
+            synth, batch_size=batch_size, window_frames=256 + 32,
+            stride_frames=int(cfg.data.stride_frames),
+            sample_rate=int(cfg.data.sample_rate),
+            target_fps=float(cfg.data.target_fps))
+        return make, loader_fn, batch_size
+
+    # ---- train_graph: the flagship sequential trainer ----
+    make_s, loader_fn, batch_size = sequential()
+    host_batches = list(loader_fn())
+    check(len(host_batches) == GRAPH_STEPS
+          and all(int(b["audio"].shape[0]) == batch_size
+                  for b in host_batches),
+          f"{len(host_batches)} flagship batches")
+    probe = make_s(False, "probe")
+    batches = [probe._prepare(b) for b in host_batches]
+    del probe
+    seq = graphed_vs_eager(out, card, "train_graph", make_s, batches,
+                           GRAPH_STEPS, snapshot_at=4)
+    check(seq["launches_per_replay"] == {"cycle_dsum": 2, "dk_roots": 1,
+                                         "logmel": 2},
+          f"a flagship replay's launches: {seq['launches_per_replay']}")
+    graphed_median = seq["graphed_step_ms"]["median_ms"]
+    trainer = seq.pop("trainer")
+    snap4 = seq.pop("snapshot")
+    del trainer
+
+    # ---- train_resume_graphed: 2 graphed steps, save, resume, 2 more ----
+    first = make_s(None, "resume")
+    for b in batches[:2]:
+        first.compiled_step(b)
+    first._save(None)
+    del first
+    resumed = make_s(None, "resume")
+    check(resumed.resume() and resumed.global_step == 2,
+          "the resumed graphed trainer did not find its checkpoint")
+    for b in batches[2:4]:
+        resumed.compiled_step(b)
+    diff = _differ(snap4, _train_state(resumed))
+    emit({"phase": "train_resume_graphed", "steps": 4, "dropout": 0.1,
+          "bitwise_equal": not diff, "differ": diff[:8],
+          "count": resumed.optimizer.count})
+    check(not diff and resumed.optimizer.count == 4,
+          f"a resumed graphed run != the uninterrupted one: {diff[:8]}")
+    del resumed, snap4
+
+    # ---- legacy_graph: KoeMorphTrainer on configs/config.yaml ----
+    lcfg = load_config(ROOT / "configs" / "config.yaml")
+    l_batch = int(lcfg.data.batch_size)
+
+    def make_l(graphs, name):
+        model, kind = build_model(lcfg)
+        check(kind == "frame", f"the legacy config's model is {kind}")
+        return KoeMorphTrainer(model, to_dict(lcfg),
+                               work_dir=work / f"s13_{name}",
+                               steps_per_epoch=12, graphs=graphs)
+
+    rng = np.random.default_rng(13)
+    # 2 batches of the voiced pattern, each row shifted 0.25 s
+    base = voiced_audio((LEGACY_SAMPLES + (2 * l_batch - 1) * SERVE_SHIFT)
+                        / SR, seed=10)
+    l_batches = []
+    for s in range(2):
+        audio = np.stack([base[(s * l_batch + i) * SERVE_SHIFT:
+                               (s * l_batch + i) * SERVE_SHIFT
+                               + LEGACY_SAMPLES] for i in range(l_batch)])
+        l_batches.append({
+            "audio": torch.from_numpy(audio).to(dev),
+            "arkit": torch.from_numpy(rng.uniform(
+                0, 0.3, (l_batch, 360, 52)).astype(np.float32)).to(dev),
+            "sample_mask": torch.ones((l_batch,), device=dev)})
+    leg = graphed_vs_eager(out, card, "legacy_graph", make_l, l_batches,
+                           GRAPH_STEPS_SHORT)
+    check(leg["launches_per_replay"] == {"cycle_dsum": 0, "dk_roots": 0,
+                                         "logmel": 1},
+          f"a legacy replay's launches: {leg['launches_per_replay']}")
+    del leg["trainer"]
+
+    # ---- e2v_graph: the emotion2vec trainer's step ----
+    make_e, _, _ = sequential(["model.emotion_config.backend=emotion2vec"])
+    e2v = graphed_vs_eager(out, card, "e2v_graph", make_e, batches[:2],
+                           GRAPH_STEPS_SHORT)
+    check(e2v["launches_per_replay"]["logmel"] == 2
+          and e2v["launches_per_replay"]["cycle_dsum"] == 0,
+          f"an emotion2vec replay's launches: {e2v['launches_per_replay']}")
+    del e2v["trainer"]
+    torch.cuda.empty_cache()
+
+    # ---- train_scan: 2 epochs at once against per-epoch scans ----
+    torch.cuda.reset_peak_memory_stats()
+    multi = make_s(None, "scan_multi")
+    t0 = time.perf_counter()
+    box = []
+    prof = profiled(lambda: box.append(multi.train_epochs_scan(
+        iter(host_batches), n_epochs=2, shuffle_seed=13)))
+    scan_wall = time.perf_counter() - t0
+    hist = box[0]
+    scan_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    acts = [e.name for e in measured_events(prof)
+            if str(e.device_type).endswith("CUDA")]
+    htod = sum(n.startswith("Memcpy HtoD") for n in acts)
+    arrays = len({k for b in host_batches for k, v in b.items()
+                  if not isinstance(v, list)}) + 1        # + sample_mask
+    per_epoch = make_s(None, "scan_per_epoch")
+    orders = scan_orders(len(host_batches), 2, 13)
+    hist_ref = [per_epoch.train_epoch_scan(iter([host_batches[i]
+                                                 for i in o]))
+                for o in orders]
+    diff = _differ(_train_state(multi), _train_state(per_epoch))
+    steps = 2 * len(host_batches)
+    emit({"phase": "train_scan", "card": card, "epochs": 2,
+          "steps": steps, "orders": orders,
+          "bitwise_equal": not diff and hist == hist_ref,
+          "differ": diff[:8], "memcpy_htod_in_scan": htod,
+          "stacked_arrays_plus_table": arrays + 1,
+          "device_activities": len(acts),
+          "wall_s": scan_wall,
+          "steps_per_wall_s": steps / scan_wall,
+          "peak_gb": scan_peak_gb,
+          "epoch_losses": [h["loss"] for h in hist]})
+    check(not diff and hist == hist_ref,
+          f"train_epochs_scan != per-epoch scans: {diff[:8]}")
+    check(htod <= arrays + 1 < steps,
+          f"{htod} host-to-device copies in a {steps}-step scan")
+    check(multi.global_step == per_epoch.global_step == steps
+          and multi.epoch == 2, "scan step counts")
+    del multi, per_epoch
+    torch.cuda.empty_cache()
+
+    from koemorph_tpu_torch import profile_multistream, profile_training
+    from koemorph_tpu_torch import rt as rt_cli
+
+    # ---- rehearsal_scan: the smoke rehearsal, trained by scan ----
+    reh = rehearsal or rehearsal_smoke(work)
+    rc, summary = reh["rc"], reh["summary"]
+    emit({"phase": "rehearsal_scan", "card": card, "rc": rc,
+          "wall_s": reh["wall_s"],
+          "beside_the_export_cli": rehearsal is not None,
+          **{k: summary.get(k) for k in (
+              "epochs", "steps_per_epoch", "correlation_last", "f1_last",
+              "range_ratio_first", "range_ratio_last", "mae_last",
+              "train_seconds", "cli")}})
+    check(rc == 0, f"training_rehearsal --smoke failed its gate: {summary}")
+
+    # ---- profile_entry_points: the training and session sweeps ----
+    t0 = time.perf_counter()
+    rc, pt = _stdout_json(lambda: profile_training.main([
+        "--batches", "4", "8", "16", "--steps", "8"]), last_line=False)
+    pt_s = time.perf_counter() - t0
+    check(rc == 0, "profile_training failed")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_multistream.main(["--sessions", "64", "256",
+                                       "--frames", "30"])
+    pm = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    pm_s = time.perf_counter() - t0
+    check(rc == 0, "profile_multistream failed")
+    b16 = next(r for r in pt["results"] if r["batch"] == 16)
+    emit({"phase": "profile_entry_points", "card": card,
+          "profile_training": pt, "profile_training_s": pt_s,
+          "profile_multistream": pm, "profile_multistream_s": pm_s,
+          "batch16_ms_per_step": b16["ms_per_step"],
+          "train_graph_median_ms": graphed_median,
+          "ratio": b16["ms_per_step"] / graphed_median})
+    check([r["batch"] for r in pt["results"]] == [4, 8, 16]
+          and all(r["ms_per_step"] > 0 for r in pt["results"]),
+          f"profile_training: {pt}")
+    check([r["sessions"] for r in pm[:2]] == [64, 256]
+          and all(r["step_ms"] > 0 for r in pm[:2]),
+          f"profile_multistream: {pm}")
+
+    # ---- mic_flags: rt without pyaudio ----
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lst_rc = rt_cli.main(["--list-devices"])
+    try:
+        rt_cli.main(["--mic", "--output", "none"])
+        mic_error = None
+    except RuntimeError as e:
+        mic_error = str(e)
+    emit({"phase": "mic_flags", "list_devices_rc": lst_rc,
+          "list_devices_stdout": buf.getvalue(), "mic_error": mic_error})
+    check(lst_rc == 0 and buf.getvalue() == "",
+          f"rt --list-devices: {lst_rc} {buf.getvalue()!r}")
+    check(mic_error is not None and "pyaudio not available" in mic_error,
+          f"rt --mic without pyaudio: {mic_error}")
+
+    # every launch shape of the three train graphs, on the arguments their
+    # eager twins passed, against the kernel's plain form
+    held = hold_recorded(out["rec"], SLICE13_TAGS, known=train_hold)
+    emit({"phase": "slice13_kernels_vs_plain", "card": card,
+          "held": {f"{name} {tag} {shape}": {
+              k: v for k, v in r.items() if k != "plain_misses_rounded"}
+              for (name, tag, shape), r in held.items()}})
+    check(held and all(r["ok"] for r in held.values()),
+          "kernels vs plain forms on the train graphs: "
+          + str([k for k, r in held.items() if not r["ok"]]))
+    out["held"] = held
+    emit({"phase": "slice13", "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -4018,7 +4646,7 @@ def main() -> int:  # noqa: C901
         # more than the max bound from the exact roots, float64 eigvals)
         # diverge chaotically in any two implementations: counted, and
         # held to no bound; at most 0.5% of the rows may be such
-        exact = torch.linalg.eigvals(companion(a.double()))
+        exact = exact_roots(a)
         conv = hausdorff(want.to(torch.complex128), exact) < DK_MAX
         n_bad = int((~conv).sum())
         ok = bool(h[conv].median() < DK_MEDIAN_MAX
@@ -4047,7 +4675,7 @@ def main() -> int:  # noqa: C901
     wild_rows = torch.arange(len(wild), device=dev) * 3 + 1
     tame = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
     tame[wild_rows] = False
-    exact = torch.linalg.eigvals(companion(a[tame].double()))
+    exact = exact_roots(a[tame])
     conv = hausdorff(want[tame].to(torch.complex128), exact) < DK_MAX
     h = hausdorff(got[tame], want[tame])[conv]
     ok = bool(torch.equal(got.isnan(), want.isnan())
@@ -4492,7 +5120,7 @@ def main() -> int:  # noqa: C901
 
     # a lane reset mid-run: a fresh session whose clock is its cohort's;
     # graphed (captured at the first step) and eager
-    half, reset_lane = SERVE_STEPS * 3 // 7, 5              # step 45
+    half, reset_lane = SERVE_STEPS * 3 // 7, 5              # step 15
     out_rs = {}
     for graphed in (True, False):
         srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=8,
@@ -4673,20 +5301,27 @@ def main() -> int:  # noqa: C901
     serve_wav = work / "serve.wav"
     write_wav(serve_wav, voiced_audio(2.0, seed=3), SR)
     serve_jsonl = work / "serve.jsonl"
+    # with it, phase 9's offline CLI, each in its own process
+    wav, jsonl = work / "speech.wav", work / "frames.jsonl"
+    write_wav(wav, voiced_audio(10.0, seed=10), SR)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
-         str(serve_wav), "--sessions", "16", "--refresh-cohorts", "8",
-         "--output", "file", "--output-file", str(serve_jsonl),
-         "--no-realtime", "--max-frames", "30"], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
+    procs = run_at_once({
+        "serve": [sys.executable, "-m", "koemorph_tpu_torch.serve",
+                  "--replay", str(serve_wav), "--sessions", "16",
+                  "--refresh-cohorts", "8", "--output", "file",
+                  "--output-file", str(serve_jsonl), "--no-realtime",
+                  "--max-frames", "30"],
+        "infer": [sys.executable, "-m", "koemorph_tpu_torch.infer",
+                  "--input", str(wav), "--output", str(jsonl)]}, env)
+    cli_s = time.perf_counter() - t0
+    proc = procs["serve"]
     check(proc.returncode == 0, f"serve CLI failed:\n{proc.stderr[-3000:]}")
     rows = [json.loads(line) for line in serve_jsonl.read_text().splitlines()]
     stats = [json.loads(ln)["performance_stats"]
              for ln in proc.stdout.splitlines() if "performance_stats" in ln]
     emit({"phase": "serve_cli", "rows": len(rows),
           "sessions": sorted({r["session"] for r in rows}),
-          "seconds": round(time.perf_counter() - t0, 2),
+          "seconds_with_infer_cli": round(cli_s, 2),
           "performance_stats": stats[-1] if stats else None})
     check(len(rows) == 30 * 16
           and sorted({r["session"] for r in rows}) == list(range(16))
@@ -4758,22 +5393,16 @@ def main() -> int:  # noqa: C901
     check(bool(stats) and stats[-1]["dropped_datagrams"] == 0,
           "listen stats line")
 
-    # ---- 9. the offline CLI ----
-    wav, jsonl = work / "speech.wav", work / "frames.jsonl"
-    write_wav(wav, voiced_audio(10.0, seed=10), SR)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "koemorph_tpu_torch.infer", "--input",
-         str(wav), "--output", str(jsonl)], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
+    # ---- 9. the offline CLI (run beside the serve CLI) ----
+    proc = procs["infer"]
     check(proc.returncode == 0, f"infer CLI failed:\n{proc.stderr[-3000:]}")
     rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
     n_cli = (160000 // HOP - 256) + 1
     stamps_ok = all(r["timestamp"] == round((255 + i) / 30, 6)
                     for i, r in enumerate(rows))
     emit({"phase": "infer_cli", "rows": len(rows), "expected": n_cli,
-          "timestamps_ok": stamps_ok, "seconds": round(cli_s, 2),
+          "timestamps_ok": stamps_ok,
+          "seconds_with_serve_cli": round(cli_s, 2),
           "log": [ln for ln in proc.stderr.splitlines() if "RTF" in ln]})
     check(len(rows) == n_cli and stamps_ok, "infer CLI output")
 
@@ -4793,7 +5422,15 @@ def main() -> int:  # noqa: C901
     s11 = slice11_phases(card, work, s10)
 
     # ---- 16. the feature shims, reconstruction, prosody and export ----
-    s12 = slice12_phases(card, work, env, work / "imported_learnable")
+    # (phase 17's smoke rehearsal trains beside phase 16's export CLI)
+    s12 = slice12_phases(card, work, env, work / "imported_learnable",
+                         alongside=lambda: rehearsal_smoke(work))
+
+    # ---- 17. the compiled train step, scan epochs, profiling, mic ----
+    s13 = slice13_phases(
+        card, work, train["synth"], rehearsal=s12["alongside"],
+        train_hold=(train["rec"][("dk_roots", "train", train["lld_rows"])][0],
+                    train["dk_held"]))
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -5038,8 +5675,7 @@ def main() -> int:  # noqa: C901
         comp = companion(a)
         library_ms = (time_ms(lambda: torch.linalg.eigvals(comp), iters=20)
                       if rows == 30 else
-                      time_ms(lambda: torch.linalg.eigvals(comp), iters=2,
-                              warmup=1))
+                      eigvals_ms(comp))
         kernels.append(entry(
             f"dk_roots[{rows} rows]",
             "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
@@ -5122,7 +5758,7 @@ def main() -> int:  # noqa: C901
             (a_s,), _ = serve_rec[("dk_roots", f"G={g}", rows)]
             a_s = a_s.reshape(rows, a_s.shape[-1])      # (lanes, 30, 11)
             got, want = ck.dk_roots(a_s), eg.poly_roots_plain(a_s)
-            exact = torch.linalg.eigvals(companion(a_s.double()))
+            exact = exact_roots(a_s)
             conv = hausdorff(want.to(torch.complex128), exact) < DK_MAX
             comp_s = companion(a_s)
             kernels.append(entry(
@@ -5135,40 +5771,65 @@ def main() -> int:  # noqa: C901
                 lambda: eg.poly_roots_plain(a_s),
                 rows * 11 * 4 + rows * 10 * 8 + 10 * 8,
                 20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows,
-                time_ms(lambda: torch.linalg.eigvals(comp_s), iters=2,
-                        warmup=1),
+                eigvals_ms(comp_s),
                 "torch.linalg.eigvals of the companion matrices"))
 
     # the training shapes, on the arguments the train step passed them
     # (phase 10): K3 on the batch's global STFT frames and window edges,
     # K1 and K2 on the eGeMAPS LLD rows of the batch's spans
     rec_t, shapes_t, rows_t = train["rec"], train["shapes"], train["lld_rows"]
+    # phase 17's train graphs launch the kernels at these shapes (the
+    # flagship and emotion2vec graphs on the same batches): their rows
+    # count those launches too (each replay's record times the replays,
+    # and the warm-up's and capture's), and their error is the larger of
+    # the two holds
+    g13 = s13["shapes"]
+    check(set(g13["train_graph"]) == {
+        ("cycle_dsum", (rows_t, 8, 17, 512)),
+        ("cycle_dsum", (rows_t, 5, 33, 1024)), ("dk_roots", (rows_t,)),
+        ("logmel", (train["t_global"],)), ("logmel", (train["t_edges"],))}
+        and set(g13["e2v_graph"]) == {("logmel", (train["t_global"],)),
+                                      ("logmel", (train["t_edges"],))}
+        and set(g13["legacy_graph"]) == {("logmel", (s10["t_train"],))},
+        f"the train graphs' launch shapes: {g13}")
+
+    def with_graphs(key, tags=("train_graph", "e2v_graph")):
+        return sum(g13[tag].get(key, 0) for tag in tags)
+
+    def held13(name, tags, shape):
+        return max(s13["held"][(name, tag, shape)]["max_abs_err"]
+                   for tag in tags)
+
     with torch.inference_mode():
         for n, n_cyc, L in ((512, 8, 17), (1024, 5, 33)):
             (frames_a, st, tau, off), kw = rec_t[("cycle_dsum", "train",
                                                   (rows_t, n))]
             got = ck.cycle_dsum(frames_a, st, tau, off, **kw)
             want = f0_ops.cycle_dsum_plain(frames_a, st, tau, off, **kw)
+            key = ("cycle_dsum", (rows_t, n_cyc, L, n))
             kernels.append(k1_entry(
-                f"train args n{n} x{rows_t}", frames_a, st, tau, off, kw,
-                shapes_t.get(("cycle_dsum", (rows_t, n_cyc, L, n)), 0),
-                float((got - want).abs().max())))
+                f"train + train graph args n{n} x{rows_t}", frames_a, st,
+                tau, off, kw, shapes_t.get(key, 0) + with_graphs(key),
+                max(float((got - want).abs().max()),
+                    held13("cycle_dsum", ("train_graph",), (rows_t, n)))))
         (a_t,), _ = rec_t[("dk_roots", "train", rows_t)]
         a_t = a_t.reshape(rows_t, a_t.shape[-1])
-        r_t = dk_train_agreement(a_t)
+        r_t = train["dk_held"]           # held on these arguments there
         check(dk_train_ok(r_t), f"dk_roots at the training rows: {r_t}")
         comp_t = companion(a_t)
         kernels.append(entry(
-            f"dk_roots[train, {rows_t} rows]",
+            f"dk_roots[train + train graph, {rows_t} rows]",
             "koemorph_tpu_torch/ops/cuda/dk_roots.cu",
             "koemorph_tpu/ops/pallas/dk_roots_kernel.py:95",
-            shapes_t.get(("dk_roots", (rows_t,)), 0),
-            r_t["hausdorff_max_held"],
+            shapes_t.get(("dk_roots", (rows_t,)), 0)
+            + with_graphs(("dk_roots", (rows_t,))),
+            max(r_t["hausdorff_max_held"],
+                held13("dk_roots", ("train_graph",), rows_t)),
             lambda: ck.dk_roots(a_t), "dk_roots_kernel",
             lambda: eg.poly_roots_plain(a_t),
             rows_t * 11 * 4 + rows_t * 10 * 8 + 10 * 8,
             20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows_t,
-            time_ms(lambda: torch.linalg.eigvals(comp_t), iters=2, warmup=1),
+            eigvals_ms(comp_t),
             "torch.linalg.eigvals of the companion matrices"))
         for t in (train["t_global"], train["t_edges"]):
             (x_t,), kw_t = rec_t[("logmel", "train", t)]
@@ -5177,10 +5838,13 @@ def main() -> int:  # noqa: C901
                           .abs().max())
             x_flat = x_t.reshape(-1, 1024)
             kernels.append(entry(
-                f"logmel[train T={t}]",
+                f"logmel[train + train graphs T={t}]",
                 "koemorph_tpu_torch/ops/cuda/logmel.cu",
                 "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
-                shapes_t.get(("logmel", (t,)), 0), err_t,
+                shapes_t.get(("logmel", (t,)), 0)
+                + with_graphs(("logmel", (t,))),
+                max(err_t, held13("logmel", ("train_graph", "e2v_graph"),
+                                  t)),
                 lambda: ck.logmel(x_t, **kw_t), "logmel_",
                 lambda: frontend.frames_to_logmel_plain(x_t, **kw_t),
                 4.0 * (t * 1024 + 2 * 1024 * live + nnz + t * 80),
@@ -5217,7 +5881,7 @@ def main() -> int:  # noqa: C901
             lambda: eg.poly_roots_plain(a_f),
             rows_f * 11 * 4 + rows_f * 10 * 8 + 10 * 8,
             20.0 * 10 * (10 * 11 + 10 * 10 + 14) * rows_f,
-            time_ms(lambda: torch.linalg.eigvals(comp_f), iters=2, warmup=1),
+            eigvals_ms(comp_f),
             "torch.linalg.eigvals of the companion matrices"))
         (x_e,), kw_e = s8["rec"][("logmel", "multistream_e2v G=8", 16)]
         err_e = float((ck.logmel(x_e, **kw_e)
@@ -5264,11 +5928,17 @@ def main() -> int:  # noqa: C901
                            - frontend.frames_to_logmel_plain(x_l, **kw_l))
                           .abs().max())
             x_flat = x_l.reshape(-1, 1024)
+            graphed = tag == "legacy_train"      # + phase 17's legacy graph
             kernels.append(entry(
-                f"logmel[{label} T={t}]",
+                f"logmel[{label}{' + legacy graph' if graphed else ''} "
+                f"T={t}]",
                 "koemorph_tpu_torch/ops/cuda/logmel.cu",
                 "koemorph_tpu/ops/pallas/frontend_kernel.py:93",
-                s10["shapes"][tag].get(("logmel", (t,)), 0), err_l,
+                s10["shapes"][tag].get(("logmel", (t,)), 0)
+                + (with_graphs(("logmel", (t,)), ("legacy_graph",))
+                   if graphed else 0),
+                max(err_l, held13("logmel", ("legacy_graph",), t)
+                    if graphed else 0.0),
                 lambda: ck.logmel(x_l, **kw_l), "logmel_",
                 lambda: frontend.frames_to_logmel_plain(x_l, **kw_l),
                 4.0 * (t * 1024 + 2 * 1024 * live + nnz + t * 80),
@@ -5320,8 +5990,7 @@ def main() -> int:  # noqa: C901
                         "dk_roots_kernel", lambda: eg.poly_roots_plain(a_p),
                         shape * 11 * 4 + shape * 10 * 8 + 10 * 8,
                         20.0 * 10 * (10 * 11 + 10 * 10 + 14) * shape,
-                        time_ms(lambda: torch.linalg.eigvals(comp_p), iters=2,
-                                warmup=1),
+                        eigvals_ms(comp_p),
                         "torch.linalg.eigvals of the companion matrices"))
                 else:
                     (x_p,) = args

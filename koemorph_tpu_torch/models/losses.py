@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.blendshapes import EXPRESSION_INDICES, MOUTH_INDICES
+from koemorph_tpu_torch.ops.device_cache import device_cache, index_constant
 
 __all__ = ["PERCEPTUAL_GROUPS", "PERCEPTUAL_GROUP_WEIGHTS",
            "KoeMorphLossConfig", "perceptual_loss", "landmark_loss",
@@ -89,9 +90,14 @@ def perceptual_loss(pred: torch.Tensor, target: torch.Tensor,
     return total
 
 
+@device_cache(8)
+def _landmark_w(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(_LANDMARK_W).to(device, dtype)
+
+
 def landmark_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """L2 on approximate landmark positions (the fixed projection)."""
-    w = torch.from_numpy(_LANDMARK_W).to(pred.device, pred.dtype)
+    w = _landmark_w(pred.device, pred.dtype)
     pl = (pred @ w.T).reshape(pred.shape[0], -1, 2)
     tl = (target @ w.T).reshape(target.shape[0], -1, 2)
     return torch.mean((pl - tl) ** 2)
@@ -242,8 +248,8 @@ def dual_stream_loss(pred: torch.Tensor, target: torch.Tensor, *,
         metrics["velocity"] = v
 
     if mel_weights is not None and emotion_weights is not None:
-        mouth = list(MOUTH_INDICES)
-        expr = list(EXPRESSION_INDICES)
+        mouth = index_constant(tuple(MOUTH_INDICES), mel_weights.device)
+        expr = index_constant(tuple(EXPRESSION_INDICES), mel_weights.device)
         sep = (torch.mean(torch.softmax(mel_weights, -1)[expr])
                + torch.mean(torch.softmax(emotion_weights, -1)[mouth]))
         losses["separation"] = separation_weight * sep

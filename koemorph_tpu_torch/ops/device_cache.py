@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-__all__ = ["device_cache", "holding"]
+__all__ = ["device_cache", "holding", "index_constant"]
 
 #: the holders of the captures in progress, innermost last
 _HOLDERS: list[dict] = []
@@ -75,3 +75,11 @@ def holding():
     finally:
         _HOLDERS.pop()
         out.extend(held.values())
+
+
+@device_cache(64)
+def index_constant(indices: tuple, device: torch.device) -> torch.Tensor:
+    """``indices`` as an int64 tensor on ``device``, built once: what a
+    captured body indexes with where a list or an array index would copy
+    from the host at every call."""
+    return torch.tensor(indices, dtype=torch.int64, device=device)

@@ -12,10 +12,11 @@ It trains the production ``SequentialDualStreamModel`` with the
 reference's recipe (``configs/training/default.yaml``: AdamW lr 1e-4,
 weight decay 1e-5, cosine T_max 100 -> eta_min 1e-6, mse 1.0 / l1 0.1 /
 perceptual 0.5, gradient clip 1.0, 100 epochs, validation every 5 epochs,
-early stop after 15 validation rounds without improvement) in eager
-epochs (the JAX script's device-resident scan epochs are ``ROADMAP.md``
-item 10), evaluates the held-out split, and writes
-``real_corpus_results.md`` under ``--report-dir`` with the best
+early stop after 15 validation rounds without improvement), training
+device-resident as the JAX script does: each round of ``--val-every``
+epochs is one ``Trainer.train_epochs_scan`` over the loader's batches of
+that round (``shuffle_seed=1000 + round``). It evaluates the held-out
+split and writes ``real_corpus_results.md`` under ``--report-dir`` with the best
 checkpoint's table beside the reference's targets.
 
 Data: ``<name>.wav`` (16 kHz mono) + ``<name>.jsonl`` ARKit frames.
@@ -170,19 +171,22 @@ def main(argv=None) -> int:
                                 steps_per_epoch=steps, span_frames=span,
                                 device=device)
 
-    # rounds of --val-every eager epochs (the batch membership reshuffled
-    # each epoch), each closed by a validation; the best round is saved
+    # rounds of --val-every device-resident epochs (the batch membership
+    # formed once per round, the step order permuted per epoch), each
+    # closed by a validation; the best round is saved
     t0 = time.time()
     history, val_history = [], []
     best = (float("inf"), -1, {})
     bad_rounds = 0
     done_epochs = 0
+    chunk = 0
     while done_epochs < args.epochs:
-        for _ in range(min(val_every, args.epochs - done_epochs)):
-            dataset.set_epoch(done_epochs)
-            trainer.epoch = done_epochs
-            history.append(trainer.train_epoch(loader_fn()))
-            done_epochs += 1
+        n_ep = min(val_every, args.epochs - done_epochs)
+        dataset.set_epoch(chunk)
+        history += trainer.train_epochs_scan(loader_fn(), n_epochs=n_ep,
+                                             shuffle_seed=1000 + chunk)
+        chunk += 1
+        done_epochs += n_ep
         val = trainer.validate(val_loader_fn())
         val["epoch"] = done_epochs
         val_history.append(val)

@@ -15,7 +15,9 @@ the GPU (``--device cuda``, the default) and fails when there is none;
 ``--device cpu`` runs the step on the CPU. ``--model`` loads a checkpoint
 the trainer wrote for ``model.name: simplified``
 (``<work>/checkpoints/last``) or a ``.pth`` state dict; without it the
-weights are random, drawn from ``--seed``.
+weights are random, drawn from ``--seed``. ``--mic`` streams from a
+microphone through the optional ``pyaudio`` (without it the run fails
+naming it).
 """
 
 from __future__ import annotations
@@ -135,7 +137,9 @@ def run_stream(step: FrameStep, source, streamer=None, *, fps: int = 30,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--input", required=True, help="WAV file to stream")
+    p.add_argument("--input", help="WAV file to stream (omit for --mic)")
+    p.add_argument("--mic", action="store_true",
+                   help="capture the microphone (needs pyaudio)")
     p.add_argument("--model", help="checkpoint directory (with state.pth) "
                    "or .pth state dict; default: random weights")
     p.add_argument("--output", default="file",
@@ -162,9 +166,11 @@ def main(argv=None) -> int:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
-    from koemorph_tpu_torch.runtime.audio import AudioFileReader
+    from koemorph_tpu_torch.runtime.audio import AudioFileReader, MicCapture
     from koemorph_tpu_torch.runtime.streamers import BlendshapeStreamer
 
+    if not (args.mic or args.input):
+        p.error("--input or --mic required")
     model = build_model(d_model=args.d_model, num_heads=args.num_heads,
                         fps=args.fps, checkpoint=args.model,
                         device=args.device, seed=args.seed)
@@ -174,16 +180,19 @@ def main(argv=None) -> int:
     step.warmup()
     logger.info("Frame step ready (%s); starting stream",
                 "CUDA graph" if step.step_graphs.enabled else "eager")
-    source = AudioFileReader(args.input, args.sample_rate,
-                             int(args.sample_rate / args.fps),
-                             realtime=not args.no_realtime)
+    hop = int(args.sample_rate / args.fps)
+    if args.mic:
+        source = MicCapture(args.sample_rate, hop)
+    else:
+        source = AudioFileReader(args.input, args.sample_rate, hop,
+                                 realtime=not args.no_realtime)
+        source.start()
     streamer = None
     if args.output != "none":
         streamer = BlendshapeStreamer(
             args.output, host=args.host, port=args.port,
             osc_address=args.osc_address,
             output_file=args.output_file if args.output == "file" else None)
-    source.start()
     try:
         stats = run_stream(step, source, streamer, fps=args.fps,
                            max_frames=args.max_frames)

@@ -1,10 +1,7 @@
 """Real-time streaming runtime: one session per engine or many sessions in
 one batched step, the device-resident stream state and its per-frame
-step, and the host audio and output shells.
-
-The JAX package's ``HAS_PYAUDIO``, ``MicCapture`` and
-``list_audio_devices`` (microphone capture) are not ported yet
-(``ROADMAP.md`` section 1, item 9h)."""
+step, and the host audio sources (WAV replay, microphone capture through
+the optional ``pyaudio``) and output shells."""
 
 from koemorph_tpu_torch.runtime.streaming import (
     StreamingConfig,
@@ -15,7 +12,8 @@ from koemorph_tpu_torch.runtime.streaming import (
 )
 from koemorph_tpu_torch.runtime.streamers import (BlendshapeStreamer,
                                                   encode_osc_message)
-from koemorph_tpu_torch.runtime.audio import AudioFileReader
+from koemorph_tpu_torch.runtime.audio import (HAS_PYAUDIO, AudioFileReader,
+                                              MicCapture, list_audio_devices)
 from koemorph_tpu_torch.runtime.engine import run_realtime_loop
 from koemorph_tpu_torch.runtime.multistream import MultiStreamInference
 
@@ -24,6 +22,6 @@ __all__ = [
     "MultiStreamInference",
     "init_stream_state", "stream_frame",
     "BlendshapeStreamer", "encode_osc_message",
-    "AudioFileReader",
+    "AudioFileReader", "MicCapture", "HAS_PYAUDIO", "list_audio_devices",
     "run_realtime_loop",
 ]

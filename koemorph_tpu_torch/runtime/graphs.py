@@ -87,10 +87,14 @@ class StepGraphs:
         del self._graphs[key]
 
     def capture(self, key: Hashable, body: Callable,
-                warm: Optional[Callable] = None) -> None:
+                warm: Optional[Callable] = None,
+                generators: tuple = ()) -> None:
         """Run ``warm()`` (unless None) eagerly on the capture stream, then
         capture ``body()`` as the graph of ``key``; ``body``'s return
-        value (a tensor or a tuple of tensors) is the graph's output."""
+        value (a tensor or a tuple of tensors) is the graph's output.
+        ``generators`` are the CUDA generators ``body`` draws from: each
+        replay reads its seed and offset as they stand when it starts (a
+        train step's dropout masks, reseeded before each replay)."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -101,6 +105,8 @@ class StepGraphs:
             with torch.cuda.stream(stream):
                 warm()
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         with holding() as held, cuda_kernels.capturing() as launches:
             with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 out = body()

@@ -163,7 +163,13 @@ def main(argv=None) -> int:
     p.add_argument("--resume", action="store_true",
                    help="resume from the work dir's last checkpoint")
     p.add_argument("--scan-epochs", action="store_true",
-                   help="not ported (device-resident scan epochs)")
+                   help="run each epoch device-resident "
+                        "(Trainer.train_epoch_scan): the epoch's batches "
+                        "stacked on the device once, the compiled step (a "
+                        "CUDA graph on the card) over them; same math as "
+                        "the step loop, no host work per step; the "
+                        "per-step hooks (attention images, sequence stats) "
+                        "don't run")
     p.add_argument("--cpu", action="store_true",
                    help="train on the CPU (default: the GPU)")
     p.add_argument("overrides", nargs="*", metavar="key=value",
@@ -175,15 +181,11 @@ def main(argv=None) -> int:
     from koemorph_tpu_torch.data.sequential import (
         create_sequential_dataloader)
     from koemorph_tpu_torch.device import resolve_device
-    from koemorph_tpu_torch.train.trainer import (SCAN_ITEM,
-                                                  DualStreamTrainer,
+    from koemorph_tpu_torch.train.trainer import (DualStreamTrainer,
                                                   KoeMorphTrainer,
                                                   SequentialTrainer)
     from koemorph_tpu_torch.utils.config import load_config, to_dict
 
-    if args.scan_epochs:
-        raise NotImplementedError(
-            f"--scan-epochs is not ported: {SCAN_ITEM}")
     device = resolve_device("cpu" if args.cpu else "cuda")
     # the port trains in full fp32: cuDNN's convolutions (the emotion2vec
     # encoder's) too, which PyTorch runs in TF32 by default
@@ -230,7 +232,7 @@ def main(argv=None) -> int:
         history = trainer.fit(
             train_loader,
             (lambda: iter(dm.val_dataloader())) if dm.val_dataset else None,
-            max_epochs=max_epochs)
+            max_epochs=max_epochs, use_scan=args.scan_epochs)
     else:
         # window samples per training example: the model window for the
         # single-frame trainer, model window + extra output span for the
@@ -257,7 +259,8 @@ def main(argv=None) -> int:
             dataset.set_epoch(epoch)     # stride schedule + file reshuffle
             return loader_fn()
 
-        history = trainer.fit(train_loader, None, max_epochs=max_epochs)
+        history = trainer.fit(train_loader, None, max_epochs=max_epochs,
+                              use_scan=args.scan_epochs)
 
     final = history["train"][-1] if history["train"] else {}
     logger.info("training done: %s",

@@ -13,6 +13,11 @@ The step follows optax's arithmetic, not ``torch.optim``'s:
 - with ``accumulate_grad_batches`` k > 1 (``optax.MultiSteps``) the
   gradients of k calls are averaged, and only the k-th call updates the
   parameters and advances the schedule.
+
+Every state tensor is written in place and the per-update scalars (the
+learning rate, the bias corrections) are read from device tensors, so a
+CUDA graph of a train step replays the update (:meth:`Optimizer.update`)
+while the host keeps the counts (:meth:`Optimizer.advance`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 __all__ = ["create_lr_schedule", "create_optimizer", "Optimizer",
@@ -147,51 +153,118 @@ class Optimizer:
         else:
             self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if self.accumulate > 1 else None
+        first = next(iter(self.params.values()), None)
+        self._device = (first.device if first is not None
+                        else torch.device("cpu"))
+        self._reciprocal = self._device.type == "cuda"
+        #: (first update count, rows) of the device scalars' table
+        self._table: tuple = (0, None)
 
     @property
     def lr(self) -> float:
         """The learning rate the next update applies."""
         return self.schedule(self.count)
 
+    def applies_next(self) -> bool:
+        """Whether the next call's gradients update the parameters (always,
+        unless it is an accumulating call)."""
+        return self.acc is None or self.mini_step == self.accumulate - 1
+
+    def scalars(self, count: int, n: int = 1) -> torch.Tensor:
+        """The device scalars of updates ``count .. count + n - 1``, one
+        float32 row each: the negated learning rate ``schedule(count)``
+        and the two bias corrections ``1 - b ** (count + 1)``, computed in
+        float64 on the host as the update always has. On CUDA a row holds
+        the corrections' reciprocals, since a CUDA kernel divides by a host
+        scalar as a product with its reciprocal (taken in float64, then
+        rounded); on the CPU it holds the corrections, which the CPU
+        divides by. Each value is rounded to float32 once, as a kernel
+        rounds a host scalar, so the update is bit for bit the one with
+        host scalars. Rows are built in
+        chunks of at least 256, one host-to-device copy per chunk."""
+        base, table = self._table
+        if table is None or count < base or count + n > base + len(table):
+            rows = []
+            for c in range(count, count + max(n, 256)):
+                bc1 = 1.0 - self.b1 ** (c + 1)
+                bc2 = 1.0 - self.b2 ** (c + 1)
+                if self._reciprocal:
+                    bc1, bc2 = 1.0 / bc1, 1.0 / bc2
+                rows.append((-self.schedule(c), bc1, bc2))
+            table = torch.from_numpy(np.asarray(rows, np.float32)).to(
+                self._device)
+            base = count
+            self._table = (base, table)
+        return table[count - base:count - base + n]
+
+    def _div(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """``x`` divided by the bias correction whose :meth:`scalars`
+        entry is ``s``."""
+        return x * s if self._reciprocal else x / s
+
     @torch.no_grad()
     def step(self, grads: dict[str, torch.Tensor]) -> bool:
         """Apply one call's gradients (by parameter name); returns whether
         the parameters changed (always, unless accumulating)."""
+        applies = self.applies_next()
+        self.update(grads, self.mini_step,
+                    self.scalars(self.count)[0] if applies else None)
+        self.advance()
+        return applies
+
+    @torch.no_grad()
+    def update(self, grads: dict[str, torch.Tensor], mini_step: int,
+               scalars: Optional[torch.Tensor]) -> None:
+        """The device half of :meth:`step`: every tensor of the state is
+        written in place (a CUDA graph of a train step replays this; each
+        product and sum rounds as in the update that reassigned them), and
+        nothing on the host changes. ``mini_step`` is the call's place in
+        an accumulation, ``scalars`` the update's row of :meth:`scalars`
+        (read only when the call updates); :meth:`advance` then moves the
+        host counts."""
         if self.acc is not None:
-            n = self.mini_step
+            n = mini_step
             for k, g in grads.items():
-                self.acc[k] = self.acc[k] + (g - self.acc[k]) / (n + 1)
-            self.mini_step = (n + 1) % self.accumulate
+                self.acc[k].add_((g - self.acc[k]) / (n + 1))
             if n != self.accumulate - 1:
-                return False
-            self.gradient_step += 1
+                return
             grads = self.acc
-            self.acc = {k: torch.zeros_like(p)
-                        for k, p in self.params.items()}
         if self.clip is not None:
             norm = global_norm(grads.values())
             keep = norm < self.clip
             grads = {k: torch.where(keep, g, g / norm * self.clip)
                      for k, g in grads.items()}
-        lr = self.schedule(self.count)
-        self.count += 1
+        neg_lr = scalars[0]
         if self.name == "sgd":
             for k, p in self.params.items():
-                self.trace[k] = grads[k] + self.momentum * self.trace[k]
-                p.add_(self.trace[k] * -lr)
-            return True
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
-        for k, p in self.params.items():
-            g = grads[k]
-            self.mu[k] = (1.0 - self.b1) * g + self.b1 * self.mu[k]
-            self.nu[k] = (1.0 - self.b2) * (g * g) + self.b2 * self.nu[k]
-            update = (self.mu[k] / bc1) / (torch.sqrt(self.nu[k] / bc2)
-                                          + self.eps)
-            if self.weight_decay:
-                update = update + self.weight_decay * p
-            p.add_(update * -lr)
-        return True
+                self.trace[k].mul_(self.momentum).add_(grads[k])
+                p.add_(self.trace[k] * neg_lr)
+        else:
+            for k, p in self.params.items():
+                g = grads[k]
+                # the products and sums of optax's update, each rounded
+                # once as before, written into the moments
+                self.mu[k].mul_(self.b1).add_(g * (1.0 - self.b1))
+                self.nu[k].mul_(self.b2).add_((g * g) * (1.0 - self.b2))
+                update = self._div(self.mu[k], scalars[1]) / (
+                    torch.sqrt(self._div(self.nu[k], scalars[2])) + self.eps)
+                if self.weight_decay:
+                    update = update + self.weight_decay * p
+                p.add_(update * neg_lr)
+        if self.acc is not None:
+            for a in self.acc.values():
+                a.zero_()
+
+    def advance(self) -> None:
+        """The host half of :meth:`step`: the accumulation's mini step,
+        and on an update the update count (and the gradient step)."""
+        applies = self.applies_next()
+        if self.acc is not None:
+            self.mini_step = (self.mini_step + 1) % self.accumulate
+            if applies:
+                self.gradient_step += 1
+        if applies:
+            self.count += 1
 
     def fast_forward(self, step: int) -> None:
         """Set the update count to ``step`` (moments stay as they are): the
@@ -232,8 +305,11 @@ class Optimizer:
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
         self.gradient_step = int(state.get("gradient_step", 0))
+        # in place: a captured train step reads these tensors' memory
         for key, value in loaded.items():
-            setattr(self, key, value)
+            held = getattr(self, key)
+            for k, t in value.items():
+                held[k].copy_(t)
 
 
 def _moments(name) -> str:

@@ -13,13 +13,27 @@ writer, every ``log_images_every_n_steps`` steps the attention weights of
 the batch's first utterance go to ``attention/mel`` and
 ``attention/emotion`` as images (:meth:`Trainer._log_attention_images`).
 
-Not ported (each raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): the device-resident scan epochs (``train_epoch_scan``) and tensor
-parallelism.
+The compiled step (:meth:`Trainer.compiled_step`), the counterpart of
+the jitted ``Trainer._train_step``, is one CUDA graph of the same step
+(``runtime/graphs.py``), captured per batch shape: it reads the batch from
+static buffers, writes the parameters and the optimizer state in place
+(the port's ``donate_argnums``), reads the update's learning rate and
+bias corrections from a device row (``Optimizer.scalars``) and draws its
+dropout masks from one generator reseeded from ``(seed, step)`` before
+each replay, so it is bit for bit the eager step. On the CPU, or with
+``graphs=False``, it is the eager step. The scan epochs
+(:meth:`Trainer.train_epoch_scan`, :meth:`Trainer.train_epochs_scan`,
+``fit(use_scan=True)``) stack an epoch's batches on the device once and
+run the compiled step over them with no host-to-device copy and no host
+synchronization per step; the per-step hooks do not run.
+
+Not ported (raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item): meshes and tensor parallelism.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import inspect
 import logging
@@ -36,6 +50,10 @@ from koemorph_tpu_torch.models.losses import (KoeMorphLossConfig,
                                               dual_stream_loss,
                                               koemorph_loss,
                                               sequence_koemorph_loss)
+from koemorph_tpu_torch.ops.device_cache import device_cache, index_constant
+from koemorph_tpu_torch.parallel.mesh import (batch_leading_size,
+                                              pad_batch_to_size)
+from koemorph_tpu_torch.runtime.graphs import StepGraphs
 from koemorph_tpu_torch.train.checkpoint import CheckpointManager
 from koemorph_tpu_torch.train.optim import (create_lr_schedule,
                                             create_optimizer, global_norm)
@@ -46,10 +64,10 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["Trainer", "KoeMorphTrainer", "DualStreamTrainer",
            "SequentialTrainer",
-           "loss_config_from", "sequence_targets", "dropout_generator"]
+           "loss_config_from", "sequence_targets", "dropout_generator",
+           "dropout_seed", "scan_orders"]
 
-#: where the features that are not ported are queued
-SCAN_ITEM = "ROADMAP.md section 1, item 10 (the compiled train step)"
+#: where the feature that is not ported is queued
 TP_ITEM = "ROADMAP.md section 1, item 8 (several GPUs)"
 
 
@@ -64,21 +82,50 @@ def sequence_targets(blendshapes: torch.Tensor, window_frames: int,
                      stride_frames: int, n_out: int) -> torch.Tensor:
     """Target frames aligned with the sequential model's output frames:
     output ``i`` is input frame ``window_frames - 1 + i * stride``."""
+    return blendshapes[:, _target_index(window_frames, stride_frames, n_out,
+                                        blendshapes.shape[1],
+                                        blendshapes.device), :]
+
+
+@device_cache(16)
+def _target_index(window_frames: int, stride_frames: int, n_out: int,
+                  frames: int, device: torch.device) -> torch.Tensor:
     idx = window_frames - 1 + np.arange(n_out) * stride_frames
-    idx = np.clip(idx, 0, blendshapes.shape[1] - 1)
-    return blendshapes[:, torch.from_numpy(idx).to(blendshapes.device), :]
+    return torch.from_numpy(np.clip(idx, 0, frames - 1)).to(device)
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The seed of train step ``step``'s dropout masks, from ``(seed,
+    step)`` alone, so a resumed run draws the masks an uninterrupted one
+    draws."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        2, np.uint32)
+    return int(state[0]) << 31 | int(state[1]) >> 1
 
 
 def dropout_generator(seed: int, step: int,
                       device: torch.device) -> torch.Generator:
-    """The dropout masks' generator of train step ``step``: seeded from
-    ``(seed, step)`` alone, so a resumed run draws the masks an
-    uninterrupted one draws."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
-        2, np.uint32)
+    """The dropout masks' generator of train step ``step``, seeded with
+    :func:`dropout_seed`."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
+    g.manual_seed(dropout_seed(seed, step))
     return g
+
+
+def scan_orders(n_steps: int, n_epochs: int,
+                shuffle_seed: int) -> list[list[int]]:
+    """The step order of each epoch of :meth:`Trainer.train_epochs_scan`:
+    a permutation of ``range(n_steps)`` per epoch, the order that sorts
+    ``n_steps`` uniform draws of a CPU ``torch.Generator`` seeded with
+    ``shuffle_seed`` (not the JAX package's threefry permutation, so the
+    orders differ from its). ``torch.randperm`` is not used: at a few
+    steps it left a CPU generator's state as it was, so every epoch got
+    the same order."""
+    g = torch.Generator().manual_seed(int(shuffle_seed))
+    return [torch.argsort(torch.rand(n_steps, generator=g,
+                                     dtype=torch.float64),
+                          stable=True).tolist()
+            for _ in range(n_epochs)]
 
 
 def _mask_padded(pred: torch.Tensor, target: torch.Tensor,
@@ -103,10 +150,11 @@ def _stream_weight_metrics(mel_w, emo_w) -> dict:
         return {}
     sm_mel = torch.softmax(mel_w.detach(), -1)
     sm_emo = torch.softmax(emo_w.detach(), -1)
+    mouth = index_constant(tuple(MOUTH_INDICES), mel_w.device)
+    expr = index_constant(tuple(EXPRESSION_INDICES), emo_w.device)
     return {
-        "stream/mel_on_mouth": torch.sum(sm_mel[list(MOUTH_INDICES)]),
-        "stream/emotion_on_expression": torch.sum(
-            sm_emo[list(EXPRESSION_INDICES)]),
+        "stream/mel_on_mouth": torch.sum(sm_mel[mouth]),
+        "stream/emotion_on_expression": torch.sum(sm_emo[expr]),
     }
 
 
@@ -150,13 +198,19 @@ class Trainer:
     unless the caller asks for another; raises when CUDA is absent).
     Subclasses define :meth:`loss_fn` ``(batch, generator) -> (loss,
     metrics)``; a ``None`` generator is the deterministic (eval) forward.
+    ``graphs`` selects the compiled step's CUDA graphs: ``None`` means
+    graphs on a CUDA device and none elsewhere, ``False`` the eager step
+    on the card too.
     """
+
+    #: batch shapes whose graphs are kept, the least recently used dropped
+    max_graphs = 4
 
     def __init__(self, model, config: dict, *,
                  work_dir: str | Path = "outputs/run", mesh=None,
                  steps_per_epoch: int = 100, seed: int = 42,
                  tensor_parallel: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None):
         if tensor_parallel or mesh is not None:
             raise NotImplementedError(
                 f"meshes and tensor parallelism are not ported: {TP_ITEM}")
@@ -188,6 +242,12 @@ class Trainer:
         self._attention_images = True
         self.epoch = 0
         self.global_step = 0
+        self.step_graphs = StepGraphs(self.device, graphs)
+        #: static batch buffers by batch-shape key, the most recent last
+        self._static: collections.OrderedDict = collections.OrderedDict()
+        self._static_scalars = torch.zeros(3, device=self.device)
+        self._graph_gen: Optional[torch.Generator] = None
+        self._metric_keys: dict = {}
 
     # -- subclass surface --------------------------------------------------
 
@@ -197,11 +257,26 @@ class Trainer:
     # -- steps -------------------------------------------------------------
 
     def train_step(self, batch: dict) -> dict:
-        """One update on a prepared batch; returns the step's metrics as
-        device scalars (``loss``, ``grad_norm`` and the loss terms)."""
+        """One update on a prepared batch, eagerly; returns the step's
+        metrics as device scalars (``loss``, ``grad_norm`` and the loss
+        terms)."""
+        opt = self.optimizer
+        metrics = self._step_body(
+            batch, dropout_generator(self.dropout_seed, self.global_step,
+                                     self.device),
+            opt.mini_step,
+            opt.scalars(opt.count)[0] if opt.applies_next() else None)
+        opt.advance()
+        self.global_step += 1
+        return metrics
+
+    def _step_body(self, batch: dict, gen: torch.Generator, mini_step: int,
+                   scalars: Optional[torch.Tensor]) -> dict:
+        """The device work of a train step: the forward in training mode,
+        the gradients, their global norm and the optimizer's in-place
+        update (``Optimizer.update``). It changes nothing on the host, so
+        a CUDA graph of it replays the whole step."""
         self.model.train()
-        gen = dropout_generator(self.dropout_seed, self.global_step,
-                                self.device)
         # the backward picks its convolution algorithms (the emotion2vec
         # encoder's) here, outside the encoder's own scoped flags:
         # deterministic ones, no autotuning, no TF32, so a resumed run is
@@ -215,12 +290,97 @@ class Trainer:
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(self.params.items(), grads)}
         norm = global_norm(grads.values())
-        self.optimizer.step(grads)
+        self.optimizer.update(grads, mini_step, scalars)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = norm
-        self.global_step += 1
         return metrics
+
+    def compiled_step(self, batch: dict) -> dict:
+        """The train step as one CUDA graph replay (the counterpart of the
+        jitted ``_train_step``): bit for bit :meth:`train_step`, which it
+        is on the CPU or with ``graphs=False``. A batch shape seen for the
+        first time is captured first (a warm-up step that leaves the
+        parameters and the optimizer state as it found them, then the
+        capture); a capture or replay failure raises."""
+        if not self.step_graphs.enabled:
+            return self.train_step(batch)
+        # one graph per batch shape and accumulation phase; the batch is
+        # copied into the graph's static buffers
+        opt = self.optimizer
+        shape_key = tuple(sorted((k, tuple(v.shape), v.dtype)
+                                 for k, v in batch.items()))
+        key = (shape_key, opt.mini_step if opt.acc is not None else 0)
+        static = self._static.pop(shape_key, None)
+        if static is None:
+            if len(self._static) >= self.max_graphs:
+                old = next(iter(self._static))
+                del self._static[old]
+                for k in [k for k in self.step_graphs.keys() if k[0] == old]:
+                    self.step_graphs.drop(k)
+                    del self._metric_keys[k]
+            static = {k: v.clone() for k, v in batch.items()}
+        else:
+            for k, v in batch.items():
+                static[k].copy_(v)
+        self._static[shape_key] = static
+        if opt.applies_next():
+            self._static_scalars.copy_(opt.scalars(opt.count)[0])
+        if key not in self.step_graphs:
+            self._capture(key, static)
+        self._graph_gen.manual_seed(dropout_seed(self.dropout_seed,
+                                                 self.global_step))
+        row = self.step_graphs.run(key, None)
+        opt.advance()
+        self.global_step += 1
+        return dict(zip(self._metric_keys[key], row.unbind(0)))
+
+    def _capture(self, key: tuple, static: dict) -> None:
+        """Capture the step graph of ``key`` over ``static``. Its warm-up
+        runs the step eagerly, between a snapshot of the parameters and
+        the optimizer's tensors and their restore, so the first replay
+        starts from the state the caller left."""
+        if self._graph_gen is None:
+            self._graph_gen = torch.Generator(device=self.device)
+        gen, mini_step = self._graph_gen, key[1]
+        scalars = self._static_scalars
+        keys: list = []
+
+        def body():
+            metrics = self._step_body(static, gen, mini_step, scalars)
+            keys[:] = list(metrics)
+            return torch.stack(list(metrics.values()))
+
+        def warm():
+            state = self._state_tensors()
+            saved = [t.clone() for t in state]
+            body()
+            with torch.no_grad():
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+
+        logger.info("capturing the train step's CUDA graph for %s",
+                    [(k, s) for k, s, _ in key[0]])
+        self.step_graphs.capture(key, body, warm, generators=(gen,))
+        self._metric_keys[key] = list(keys)
+
+    def _state_tensors(self) -> list:
+        """The tensors a train step writes: the parameters and the
+        optimizer's moments (or momentum) and accumulator."""
+        opt = self.optimizer
+        out = list(self.params.values())
+        for name in ("mu", "nu", "trace", "acc"):
+            held = getattr(opt, name, None)
+            if held is not None:
+                out += list(held.values())
+        return out
+
+    def drop_graphs(self) -> None:
+        """Free the compiled step's graphs and static buffers."""
+        for k in self.step_graphs.keys():
+            self.step_graphs.drop(k)
+        self._static.clear()
+        self._metric_keys.clear()
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
@@ -271,9 +431,117 @@ class Trainer:
         return {k: float(torch.stack([m[k] for m in collected]).mean())
                 for k in collected[0]}
 
+    def _stack_epoch(self, loader: Iterable[dict]) -> tuple[dict, int]:
+        """Stack an epoch's batches into ``(S, B, ...)`` tensors on the
+        device, one host-to-device copy per array. Every batch is padded
+        to the epoch's largest size by repeating its last row
+        (:func:`~koemorph_tpu_torch.parallel.mesh.pad_batch_to_size`),
+        with ``sample_mask`` 0 on the padding, so the loss leaves the
+        padding out. Raises ``ValueError`` naming the size when the stack
+        would not fit in the card's free memory."""
+        raw = [{k: np.asarray(v) for k, v in b.items()
+                if not isinstance(v, list)} for b in loader]
+        if not raw:
+            return {}, 0
+        target = max(batch_leading_size(b) for b in raw)
+        shapes = {(k, np.shape(v)[1:], np.asarray(v).dtype)
+                  for b in raw for k, v in b.items()}
+        if len(shapes) != len(raw[0]):
+            raise ValueError(
+                "the scan epochs stack an epoch's batches, which must "
+                "differ in their leading size at most: "
+                f"{sorted(map(str, shapes))}")
+        prepared = []
+        for b in raw:
+            padded, real = pad_batch_to_size(b, target)
+            mask = np.zeros((target,), np.float32)
+            mask[:real] = 1.0
+            prepared.append({**padded, "sample_mask": mask})
+        stacked = {k: np.stack([p[k] for p in prepared]) for k in prepared[0]}
+        nbytes = sum(v.nbytes for v in stacked.values())
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if nbytes > 0.9 * free:
+                raise ValueError(
+                    f"the epoch's {len(prepared)} batches take "
+                    f"{nbytes / 1e9:.2f} GB on the device, more than 90% of "
+                    f"the {free / 1e9:.2f} GB free; train on fewer batches "
+                    "per call or with train_epoch")
+        return ({k: torch.from_numpy(v).to(self.device)
+                 for k, v in stacked.items()}, len(prepared))
+
+    def _scan(self, stacked: dict, order: list[int]) -> dict[str, np.ndarray]:
+        """The compiled step over batches ``order`` of the stack: each
+        batch is a view of the stack, copied on the device into the
+        graph's static buffers; the metric rows stay on the device and
+        are fetched once, as ``{name: (len(order),) array}``."""
+        opt = self.optimizer
+        opt.scalars(opt.count, len(order))       # one table for the run
+        rows = []
+        for i in order:
+            metrics = self.compiled_step({k: v[i] for k, v in stacked.items()})
+            rows.append(torch.stack(list(metrics.values())))
+        host = torch.stack(rows).cpu().numpy()
+        return {k: host[:, j] for j, k in enumerate(metrics)}
+
     def train_epoch_scan(self, loader: Iterable[dict]) -> dict[str, float]:
-        raise NotImplementedError(
-            f"device-resident scan epochs are not ported: {SCAN_ITEM}")
+        """One epoch device-resident: the epoch's batches are stacked on
+        the device once and the compiled step runs over them with no
+        host-to-device copy and no host synchronization per step; the
+        per-step metrics are fetched once and replayed into TensorBoard
+        with the step loop's tags and step numbers. The math is
+        :meth:`train_epoch`'s; the per-step hooks (sequence statistics,
+        attention images) do not run: use :meth:`train_epoch` when they
+        matter."""
+        stacked, n_steps = self._stack_epoch(loader)
+        if not n_steps:
+            return {}
+        t0 = time.time()
+        start = self.global_step
+        host = self._scan(stacked, list(range(n_steps)))
+        self._replay_scan_metrics(host, n_steps, start)
+        logger.info("epoch %d (scan): %d steps in %.1fs", self.epoch,
+                    n_steps, time.time() - t0)
+        return {k: float(v.mean()) for k, v in host.items()}
+
+    def train_epochs_scan(self, loader: Iterable[dict], n_epochs: int,
+                          shuffle_seed: int = 0) -> list[dict[str, float]]:
+        """``n_epochs`` epochs over one upload of the loader's batches:
+        each epoch runs the compiled step over the stack in a new order
+        (:func:`scan_orders` of ``shuffle_seed``; a permutation from a
+        ``torch.Generator``, not the JAX package's threefry one). The
+        order of the steps changes per epoch, the batches' membership is
+        fixed at the upload. The caller checkpoints. Returns each epoch's
+        mean metrics; TensorBoard scalars are replayed at the configured
+        cadence."""
+        stacked, n_steps = self._stack_epoch(loader)
+        if not n_steps or n_epochs <= 0:
+            return []
+        t0 = time.time()
+        start = self.global_step
+        orders = scan_orders(n_steps, n_epochs, shuffle_seed)
+        host = self._scan(stacked, [i for o in orders for i in o])
+        self._replay_scan_metrics(host, n_epochs * n_steps, start)
+        self.epoch += n_epochs
+        logger.info("%d epochs x %d steps (device-resident) in %.1fs",
+                    n_epochs, n_steps, time.time() - t0)
+        return [{k: float(v[e * n_steps:(e + 1) * n_steps].mean())
+                 for k, v in host.items()} for e in range(n_epochs)]
+
+    def _replay_scan_metrics(self, host: dict, n_steps: int,
+                             start: int) -> None:
+        """Per-step metrics of a scan that began after step ``start`` into
+        TensorBoard, with the step loop's tags and step numbers."""
+        log_every = int(self.train_cfg.get("logging", {})
+                        .get("log_every_n_steps", 50))
+        if not log_every:
+            return
+        for i in range(n_steps):
+            step = start + i + 1
+            if step % log_every == 0:
+                scalars = {k: float(v[i]) for k, v in host.items()}
+                scalars["lr"] = float(self._schedule(step))
+                self._log_scalars("train", scalars, step)
 
     def validate(self, loader: Iterable[dict]) -> dict[str, float]:
         sums: dict[str, float] = {}
@@ -329,10 +597,8 @@ class Trainer:
         checkpoint every ``checkpoint.every_n_epochs``, on the last epoch
         and on every improvement, and stop early after ``patience``
         epochs without one. A loader factory that takes an argument gets
-        the epoch."""
-        if use_scan:
-            raise NotImplementedError(
-                f"device-resident scan epochs are not ported: {SCAN_ITEM}")
+        the epoch. ``use_scan`` runs each epoch through
+        :meth:`train_epoch_scan`."""
         max_epochs = max_epochs or int(self.train_cfg.get("max_epochs", 1))
         check_every = int(self.train_cfg.get("check_val_every_n_epoch", 1))
         ckpt_every = int(self.train_cfg.get("checkpoint", {})
@@ -347,7 +613,8 @@ class Trainer:
         for self.epoch in range(self.epoch, max_epochs):
             loader = (train_loader_fn(self.epoch) if takes_epoch
                       else train_loader_fn())
-            history["train"].append(self.train_epoch(loader))
+            history["train"].append(self.train_epoch_scan(loader) if use_scan
+                                    else self.train_epoch(loader))
             val_loss = None
             if val_loader_fn is not None and \
                     (self.epoch + 1) % check_every == 0:

@@ -15,14 +15,27 @@ exiting 0. A run that fails the gate writes ``training_report_failed.md``;
 one shorter than the report already there writes
 ``training_report_smoke.md`` (``--force-report`` overrides); otherwise
 ``training_report.md``. Each goes under ``--report-dir`` with the
-per-epoch curves as JSON lines (and PNGs where matplotlib imports).
+per-epoch curves as JSON lines (and PNGs where matplotlib imports). The
+entry points (``infer``, ``rt``, ``export_model``) run at once, each in
+its own process.
 
-Training is the port's eager ``fit`` (the JAX script runs device-resident
-scan epochs, ``ROADMAP.md`` item 10): the loader re-forms batch
-membership every epoch (the file order is reshuffled per epoch), where the
-JAX script re-forms it once per chunk of epochs and permutes the step order
-on the device. The export step writes a ``torch.export`` program of the
-trained frame function (the JAX script writes a TensorFlow SavedModel).
+Training runs device-resident, as the JAX script's: at most 10 chunks of
+epochs, each one ``Trainer.train_epochs_scan`` over the loader's batches
+of that chunk (``set_epoch(c)``, ``shuffle_seed=100 + c``), so the batch
+membership is re-formed once per chunk and the step order permuted per
+epoch; the step order is a ``torch.Generator``'s permutation, not JAX's.
+One checkpoint is written after the last chunk. The export step writes a
+``torch.export`` program of the trained frame function (the JAX script
+writes a TensorFlow SavedModel).
+
+``--smoke`` (a port flag) is the quickest rehearsal known to pass the
+gate, the check of the training path on the card: the values of
+:data:`SMOKE` (the JAX package's committed report's 8 files, 880 epochs
+and active weight 4, without the recall diagnosis) replace the
+corresponding flags, and the checkpoint goes through ``infer`` and
+``rt`` only (``export_model`` takes longer than the training). Shorter runs fail the gate's range ratio (4 files x
+880 epochs: 0.35; 8 x 500: 0.44; ``port_runs/rehearsal_gate_probe.py``),
+and on the card the scan epochs train the 8,800 steps in about a minute.
 
 Runs on the GPU (raises without CUDA) unless ``--cpu`` is given. Prints
 one JSON summary line; exits 0 when the gate passes.
@@ -131,6 +144,29 @@ def recall_diagnosis(model, data_dir: Path) -> tuple[list, dict]:
     return sweep, stats
 
 
+def run_entry_points(cmds: dict, work: Path, timeout: float = 900) -> dict:
+    """Run each command of ``cmds`` (name -> argv) in its own process, all
+    at once (each reads the checkpoint and writes its own output), their
+    output to ``<work>/<name>.log``; returns name -> ``{"rc", "tail"}``
+    (the last 400 characters of its output)."""
+    procs = {}
+    for name, cmd in cmds.items():
+        log = open(work / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), log)
+    out = {}
+    for name, (proc, log) in procs.items():
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        out[name] = {"rc": rc, "tail": (work / f"{name}.log").read_text()
+                     [-400:]}
+    return out
+
+
 def passes_gate(summary: dict, min_range_ratio: float) -> bool:
     """The model tracks the audio (correlation), its threshold F1 is not
     degenerate, its amplitude range neither collapsed against the first
@@ -190,6 +226,11 @@ def _plot_curves(epochs: list, report_dir: Path, suffix: str) -> list:
     return out
 
 
+#: the flags ``--smoke`` sets
+SMOKE = {"files": 8, "epochs": 880, "active_weight": 4.0,
+         "no_diagnose_recall": True}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__,
@@ -224,7 +265,14 @@ def main(argv=None) -> int:
                          "already there")
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (default: the GPU)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the quickest rehearsal known to pass the gate: "
+                         + ", ".join(f"{k}={v}" for k, v in SMOKE.items())
+                         + ", no export step")
     args = ap.parse_args(argv)
+    if args.smoke:
+        for k, v in SMOKE.items():
+            setattr(args, k, v)
     # the port trains in full fp32: cuDNN's convolutions too, which
     # PyTorch runs in TF32 by default (the trainer refuses them)
     torch.backends.cudnn.allow_tf32 = False
@@ -283,43 +331,46 @@ def main(argv=None) -> int:
                                 steps_per_epoch=steps, span_frames=span,
                                 device=device)
 
-    def epoch_loader(epoch):
-        dataset.set_epoch(epoch)
-        return loader_fn()
-
     t0 = time.time()
-    epochs = trainer.fit(epoch_loader, max_epochs=args.epochs)["train"]
+    n_chunks = min(10, max(args.epochs, 0))
+    per_chunk = args.epochs // n_chunks if n_chunks else 0
+    epochs = []
+    for c in range(n_chunks):
+        dataset.set_epoch(c)
+        n_ep = per_chunk if c < n_chunks - 1 else (
+            args.epochs - per_chunk * (n_chunks - 1))
+        epochs += trainer.train_epochs_scan(loader_fn(), n_epochs=n_ep,
+                                            shuffle_seed=100 + c)
+    trainer.checkpoints.save(
+        trainer.model.state_dict(), epoch=args.epochs - 1,
+        global_step=trainer.global_step, val_loss=None,
+        opt_state=trainer.opt_state())
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_s = time.time() - t0
 
     # ---- the checkpoint through the entry points ----
     ckpt = work / "checkpoints" / "last"
-    cli_log = {}
     wav = next(Path(data_dir).glob("*.wav"))
     dev_args = ["--device", "cpu"] if args.cpu else []
 
-    def run(name, cmd):
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=900)
-        cli_log[name] = {"rc": r.returncode,
-                         "tail": (r.stdout + r.stderr)[-400:]}
-
-    run("infer", [sys.executable, "-m", "koemorph_tpu_torch.infer",
+    cli_log = run_entry_points({
+        "infer": [sys.executable, "-m", "koemorph_tpu_torch.infer",
                   "--model", str(ckpt), "--input", str(wav),
                   "--output", str(work / "infer_out.jsonl"),
                   "--fps", str(args.fps), "--d-model", str(args.d_model),
-                  *dev_args])
-    run("rt", [sys.executable, "-m", "koemorph_tpu_torch.rt",
+                  *dev_args],
+        "rt": [sys.executable, "-m", "koemorph_tpu_torch.rt",
                "--model", str(ckpt), "--input", str(wav),
                "--output", "file",
                "--output-file", str(work / "rt_out.jsonl"),
                "--no-realtime", "--d-model", str(args.d_model),
-               "--fps", str(args.fps), "--max-frames", "120", *dev_args])
-    run("export", [sys.executable, "-m", "koemorph_tpu_torch.export_model",
-                   "--model", str(ckpt), "--output", str(work / "export"),
-                   "--d-model", str(args.d_model), "--fps", str(args.fps),
-                   *dev_args])
+               "--fps", str(args.fps), "--max-frames", "120", *dev_args],
+        **({} if args.smoke else {"export": [
+            sys.executable, "-m", "koemorph_tpu_torch.export_model",
+            "--model", str(ckpt), "--output", str(work / "export"),
+            "--d-model", str(args.d_model), "--fps", str(args.fps),
+            *dev_args]})}, work)
 
     empty = {"loss": float("nan"), "mae": float("nan")}
     first, last = (epochs[0], epochs[-1]) if epochs else (empty, empty)
@@ -374,8 +425,9 @@ def main(argv=None) -> int:
         f"SequentialDualStreamModel d={args.d_model}, window {window}, "
         f"stride 4, {args.fps} fps, {args.epochs} epochs x {steps} steps, "
         f"batch {args.batch_size}, lr {args.lr:g}, active_weight "
-        f"{args.active_weight:g}, eager `fit` (batch membership "
-        f"reshuffled each epoch), {train_s:.1f} s of training wall.",
+        f"{args.active_weight:g}, device-resident scan epochs "
+        f"(`train_epochs_scan` in {n_chunks} chunks, batch membership "
+        f"re-formed per chunk), {train_s:.1f} s of training wall.",
         "",
         "The JAX package's committed report (`docs/training_report.md`, "
         "a TPU run of 880 epochs x 10 steps at active_weight 4 through "

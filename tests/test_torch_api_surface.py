@@ -68,20 +68,27 @@ SURFACE = {
     "koemorph_tpu_torch.train": [
         "KoeMorphTrainer", "DualStreamTrainer", "SequentialTrainer",
     ],
+    "koemorph_tpu_torch.utils.profiling": [
+        "FrameTimer", "benchmark", "trace", "rtf_report", "fetch_scalar",
+        "measure_rtt", "scan_timed",
+    ],
+    "koemorph_tpu_torch.utils.trace_latency": [
+        "parse_device_durations", "capture_step_trace", "summarize_ms",
+    ],
+    "koemorph_tpu_torch.parallel.mesh": [
+        "batch_leading_size", "pad_batch_to_size", "pad_batch_to_multiple",
+    ],
 }
 
 #: JAX names the port does not export yet, and why
 NOT_YET = {
-    # microphone capture: ROADMAP.md section 1, item 9h
-    "koemorph_tpu.runtime": {"HAS_PYAUDIO", "MicCapture",
-                             "list_audio_devices"},
     # Flax train state: ROADMAP.md "Not to port"
     "koemorph_tpu.train": {"TrainState", "create_train_state"},
     # the mesh and tensor-parallel helpers: item 8 (several GPUs)
     "koemorph_tpu.parallel": {
         "DATA_AXIS", "make_mesh", "batch_sharding", "replicated_sharding",
-        "shard_batch", "replicate", "pad_batch_to_multiple",
-        "local_batch_size", "MODEL_AXIS", "TP_RULES", "make_mesh_2d",
+        "shard_batch", "replicate", "local_batch_size", "MODEL_AXIS",
+        "TP_RULES", "make_mesh_2d",
         "partition_spec_for", "shard_tree", "tree_partition_specs",
         "tree_shardings"},
 }

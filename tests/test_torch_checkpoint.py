@@ -512,5 +512,14 @@ def test_trainer_cli_needs_cuda_unless_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--config", str(REPO / "configs" / "config.yaml"),
                   "--work-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["--cpu", "--scan-epochs", "--work-dir", str(tmp_path)])
+    # --scan-epochs trains (device-resident epochs; eager on the CPU)
+    work = tmp_path / "scan"
+    assert cli.main([
+        "--cpu", "--scan-epochs", "--synthetic", "1", "--max-epochs", "1",
+        "--work-dir", str(work), "model.d_model=32", "model.num_heads=2",
+        "data.batch_size=8", "model.emotion_config.backend=basic",
+        "model.emotion_config.use_concatenation=false",
+        "training.logging.tensorboard=false"]) == 0
+    meta = json.loads((work / "checkpoints" / "last" / "meta.json")
+                      .read_text())
+    assert meta["global_step"] >= 1 and meta["epoch"] == 0

@@ -145,7 +145,8 @@ def test_rehearsal_runs_end_to_end_on_cpu(tmp_path, cudnn_tf32_on):
     assert report.name == reh.REPORT_FAILED and report.exists()
     text = report.read_text()
     assert "2 epochs x 1 steps" in text and "- `export`: ok" in text
-    assert "reshuffled each epoch" in text
+    # trained through the scan epochs, in chunks as the JAX script does
+    assert "device-resident scan epochs" in text and "2 chunks" in text
     curves = (tmp_path / "report" / "rehearsal_curves_failed.jsonl"
               ).read_text().splitlines()
     assert len(curves) == 2 and "correlation" in json.loads(curves[0])
