@@ -217,6 +217,25 @@ inside ``plain_forms()``.
    16`` and ``profile_multistream --sessions 64 256``; ``rt
    --list-devices`` and ``rt --mic`` without ``pyaudio``; each kernel
    against its plain form on the arguments the eager twins passed.
+18. several devices, on the one card (``slice14_phases``): the 64-session
+   server (8 cohorts) as a mesh of two ``cuda:0`` entries for 36 steps,
+   graphed and counted (K3 at T = 32, K1 and K2 at 120 rows per entry),
+   within 1e-5 of the one-engine server and bitwise its eager twin, the
+   replays' kernels against the captures' records, step times beside the
+   one engine's; ``serve --mesh-devices 1`` and ``--device cuda:0
+   --mesh-devices 2`` against the one-device CLI's rows; phase 7's decode
+   and one utterance's ``decode_sequence_parallel`` over two entries
+   against the one-device decode, call times beside it; a world-1 NCCL
+   process group in this process, the data-parallel
+   ``SequentialTrainer.compiled_step`` at the ranks' batch block (8) bit
+   for bit the single-process compiled step (its all-reduces issued at
+   the capture, none at the replays), step times beside it; the train
+   CLI under ``torch.distributed.run``: one NCCL rank with
+   ``--scan-epochs`` bitwise the single-process CLI, two gloo ranks on
+   the card within the sharded-step bounds of the single-process CLI
+   (loss rtol 1e-5, parameters rtol 2e-4 / atol 2e-6), a two-rank resume
+   bitwise the uninterrupted two-rank run; each kernel against its plain
+   form on the arguments the eager twins passed.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -447,17 +466,20 @@ def replayed_launches(graphs, fns) -> tuple[dict, dict]:
     """Run each of ``fns`` in its own profiling window. Returns the
     launches of each hand-written kernel the profiler saw, from the kernel
     names, and those the graphs the calls replayed recorded at capture
-    (each graph's record times its replays in the run)."""
-    before = collections.Counter(graphs.replays)
+    (each graph's record times its replays in the run). ``graphs``: one
+    engine's ``StepGraphs``, or a list (a mesh's entries)."""
+    many = graphs if isinstance(graphs, list) else [graphs]
+    before = [collections.Counter(g.replays) for g in many]
     seen = dict.fromkeys(KERNEL_PATTERNS, 0.0)
     for fn in fns:
         ks = device_kernels(None, profiled(fn))
         for src, n in own_kernels(ks).items():
             seen[src] += n / KERNELS_PER_LAUNCH[src]
     want = dict.fromkeys(KERNEL_PATTERNS, 0)
-    for key, n in graphs.replays.items():
-        for name, c in recorded(graphs, key).items():
-            want[name] += (n - before[key]) * c
+    for g, b in zip(many, before):
+        for key, n in g.replays.items():
+            for name, c in recorded(g, key).items():
+                want[name] += (n - b[key]) * c
     return seen, want
 
 
@@ -4455,6 +4477,402 @@ def slice13_phases(card: str, work: Path, synth: Path, rehearsal=None,
     return out
 
 
+#: the paths of phase 18, named in the kernels table
+SLICE14_PATHS = {"mesh_server": "mesh server entry",
+                 "mesh_decode": "mesh decode entry",
+                 "mesh_sequence_parallel": "sequence-parallel entry",
+                 "dp_train": "data-parallel rank"}
+#: a mesh path (two entries of one card) against its one-device path
+MESH_MAX = 1e-5
+#: the data-parallel steps at world 2 against the single-process steps
+#: (tests/parallel/'s bounds for a sharded step)
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 2e-4, 2e-6
+#: the batch block of each data-parallel rank (batch 16 over 2 ranks)
+DP_BLOCK = 8
+DP_STEPS = 4
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def wall_ms(fn, n: int = 5) -> dict:
+    """Host ms of ``n`` calls of ``fn``, each waited for, after one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return q(np.asarray(t))
+
+
+def epoch_step_ms(stderr: str) -> list:
+    """ms per step of each epoch the train CLI logged (its own wall clock
+    over the epoch, the loader's batches included)."""
+    return [1e3 * float(s) / int(n) for n, s in re.findall(
+        r"epoch \d+(?: \(scan\))?: (\d+) steps in ([0-9.]+)s", stderr)]
+
+
+def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
+                   audio_b, synth: Path) -> dict:
+    """Phase 18: several devices, driven on one card.
+
+    ``mesh_server``: the 64-session flagship server (8 cohorts) as a mesh
+    of two ``cuda:0`` entries for ``SERVE_STEPS`` steps, graphed and
+    counted (the counts set to 0 just before it is built), against the
+    one-engine server within ``MESH_MAX`` and its eager twin bit for bit;
+    ``serve_mesh_cli``: ``serve --mesh-devices 1`` and a two-entry replay
+    (``--device cuda:0 --mesh-devices 2``) against the one-device CLI's
+    rows; ``mesh_decode``: phase 7's 8 x 17.06 s decode and one
+    utterance's ``decode_sequence_parallel`` over two entries against the
+    one-device decode; ``dp_nccl``: a world-1 NCCL process group in this
+    process, ``SequentialTrainer(mesh=make_mesh())`` through
+    ``compiled_step`` (the all-reduces issued at the capture, none at a
+    replay) bit for bit the single-process compiled step, at the ranks'
+    batch block; ``dp_cli``: the train CLI under ``torch.distributed.run``
+    with one NCCL rank and ``--scan-epochs`` bit for bit the
+    single-process CLI, with two gloo ranks on the one card within the
+    sharded-step bounds of it, and a two-rank resume bit for bit the
+    uninterrupted two-rank run. Returns the kernels' recorded arguments
+    and launch counts by path, for the kernels table."""
+    import torch
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.data.wav import write_wav
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.parallel import (BatchedSequentialDecoder,
+                                             distributed, make_mesh)
+    from koemorph_tpu_torch.runtime import MultiStreamInference
+    from koemorph_tpu_torch.runtime.engine import build_streaming_model
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.checkpoint import load_opt_state
+    from koemorph_tpu_torch.train.trainer import SequentialTrainer
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+    from koemorph_tpu_torch.utils.params import read_state_dict
+
+    out: dict = {"rec": {}, "shapes": {}}
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev, dev])
+    check(mesh.size == 2 and not mesh.distributed, "a one-process mesh")
+
+    # ---- mesh_server: 64 sessions over two entries of the card ----
+    model, cfg = build_streaming_model(device=dev)
+    lanes = lane_audio(SERVE_S, SERVE_STEPS)
+    g, k = 8, cfg.emotion_update_frames
+
+    def steps(srv, lo=0, hi=SERVE_STEPS):
+        return torch.stack([srv.step(lanes[:, i * HOP:(i + 1) * HOP])
+                            for i in range(lo, hi)])
+
+    one = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g)
+    one.warmup()
+    want = steps(one).cpu().numpy()
+    ck.reset_launch_counts()
+    srv = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g,
+                               mesh=mesh)
+    srv.warmup()
+    box = []
+    seen, replayed = replayed_launches(
+        [e.step_graphs for e in srv.entries], in_windows(
+            SERVE_STEPS, lambda lo, hi: box.append(steps(srv, lo, hi))))
+    launches = dict(ck.LAUNCHES)
+    out["shapes"]["mesh_server"] = shapes = dict(ck.SHAPE_LAUNCHES)
+    got = torch.cat(box).cpu().numpy()
+    eager = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g,
+                                 mesh=mesh, graphs=False)
+    with recording_kernels(out["rec"], "mesh_server"):
+        eager_o = steps(eager).cpu().numpy()
+    per = SERVE_S // 2
+    rows = per // g * cfg.lld_block_rows
+    refreshing = sum(len(range(-p % k, SERVE_STEPS, k)) for p in srv.phases)
+    want_shapes = {("logmel", (per,)), ("dk_roots", (rows,)),
+                   ("cycle_dsum", (rows, 8, 17, 512)),
+                   ("cycle_dsum", (rows, 5, 33, 1024))}
+    d_srv = float(np.abs(got - want).max())
+    times = {"one_engine": wall_ms(lambda: one.step(lanes[:, :HOP]), 18),
+             "mesh_2_entries": wall_ms(lambda: srv.step(lanes[:, :HOP]), 18)}
+    emit({"phase": "mesh_server", "card": card, "sessions": SERVE_S,
+          "entries": srv.num_devices, "lanes_per_entry": per,
+          "refresh_cohorts": g, "steps": SERVE_STEPS,
+          "max_abs_diff_vs_one_engine": d_srv, "bound": MESH_MAX,
+          "bitwise_vs_eager": bool(np.array_equal(got, eager_o)),
+          "launches": launches,
+          "launches_by_shape": {f"{a}{list(b)}": v
+                                for (a, b), v in shapes.items()},
+          "replays_ran": seen, "replays_recorded": replayed,
+          "graphs_per_entry": [len(e.step_graphs) for e in srv.entries],
+          "step_ms_host_to_sync": times,
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    check(d_srv <= MESH_MAX, f"mesh server vs one engine: {d_srv}")
+    check(np.array_equal(got, eager_o), "graphed mesh server != eager")
+    check(set(shapes) == want_shapes and all(
+        launches.get(n, 0) > 0 for n in KERNEL_PATTERNS),
+          f"mesh server launched {shapes}, expected {want_shapes}")
+    check(seen == replayed == {"cycle_dsum": 4 * refreshing,
+                               "dk_roots": 2 * refreshing,
+                               "logmel": 2 * SERVE_STEPS},
+          f"mesh server replays ran {seen}, recorded {replayed}")
+    del one, srv, eager
+
+    # ---- serve_mesh_cli: the CLI over one and two entries ----
+    wav = work / "mesh_serve.wav"
+    write_wav(wav, voiced_audio(2.0, seed=5), SR)
+    cli = [sys.executable, "-m", "koemorph_tpu_torch.serve", "--replay",
+           str(wav), "--sessions", "16", "--refresh-cohorts", "8",
+           "--output", "file", "--no-realtime", "--max-frames", "18"]
+    flags = {"one": [], "mesh1": ["--mesh-devices", "1"],
+             "mesh2": ["--device", "cuda:0", "--mesh-devices", "2"]}
+    files = {n: work / f"mesh_serve_{n}.jsonl" for n in flags}
+    procs = run_at_once({n: cli + ["--output-file", str(files[n])] + f
+                         for n, f in flags.items()}, env)
+    for n, p in procs.items():
+        check(p.returncode == 0, f"serve {n} failed:\n{p.stderr[-3000:]}")
+    served = {n: [json.loads(ln) for ln in f.read_text().splitlines()]
+              for n, f in files.items()}
+    stats = {n: json.loads([ln for ln in p.stdout.splitlines()
+                            if "performance_stats" in ln][-1])[
+                                "performance_stats"]
+             for n, p in procs.items()}
+    base = np.asarray([r["blendshapes"] for r in served["one"]])
+    d_cli = {n: float(np.abs(np.asarray([r["blendshapes"] for r in rows_])
+                             - base).max())
+             for n, rows_ in served.items() if n != "one"}
+    emit({"phase": "serve_mesh_cli", "card": card, "rows": len(base),
+          "max_abs_diff_vs_one_device": d_cli, "bound": MESH_MAX,
+          "devices": {n: s["devices"] for n, s in stats.items()},
+          "step_p50_ms": {n: s["step"]["p50_step_ms"]
+                          for n, s in stats.items()}})
+    check(len(base) == 16 * 18 and all(
+        [r["session"] for r in rows_] == [r["session"]
+                                          for r in served["one"]]
+        for rows_ in served.values()), "serve mesh rows")
+    check(max(d_cli.values()) <= MESH_MAX, f"serve mesh rows: {d_cli}")
+    check({n: s["devices"] for n, s in stats.items()}
+          == {"one": 1, "mesh1": 1, "mesh2": 2}, f"serve devices {stats}")
+
+    # ---- mesh_decode: phase 7's decode over two entries ----
+    audio_dev = torch.from_numpy(audio_b).to(dev)
+    ck.reset_launch_counts()
+    mdec = BatchedSequentialDecoder(decoder.model, mesh=mesh)
+    m_out = mdec(audio_b).cpu().numpy()
+    dec_launches = dict(ck.LAUNCHES)
+    out["shapes"]["mesh_decode"] = dict(ck.SHAPE_LAUNCHES)
+    ck.reset_launch_counts()
+    m_seq = mdec.decode_sequence_parallel(audio_b[0]).cpu().numpy()
+    seq_launches = dict(ck.LAUNCHES)
+    out["shapes"]["mesh_sequence_parallel"] = dict(ck.SHAPE_LAUNCHES)
+    edec = BatchedSequentialDecoder(decoder.model, mesh=mesh, graphs=False)
+    with recording_kernels(out["rec"], "mesh_decode"):
+        e_out = edec(audio_b).cpu().numpy()
+    with recording_kernels(out["rec"], "mesh_sequence_parallel"):
+        e_seq = edec.decode_sequence_parallel(audio_b[0]).cpu().numpy()
+    d_dec = float(np.abs(m_out - dec_out).max())
+    d_seq = float(np.abs(m_seq - dec_out[0]).max())
+    dec_t = {"one_device": wall_ms(lambda: decoder(audio_dev)),
+             "mesh_2_entries": wall_ms(lambda: mdec(audio_dev)),
+             "sequence_parallel_one_device": wall_ms(
+                 lambda: decoder.decode_sequence_parallel(audio_b[0])),
+             "sequence_parallel_2_entries": wall_ms(
+                 lambda: mdec.decode_sequence_parallel(audio_b[0]))}
+    emit({"phase": "mesh_decode", "card": card, "batch": DECODE_B,
+          "entries": mdec.num_devices, "shape": list(m_out.shape),
+          "max_abs_diff_vs_one_device": d_dec,
+          "sequence_parallel_max_abs_diff": d_seq, "bound": MESH_MAX,
+          "bitwise_vs_eager": bool(np.array_equal(m_out, e_out)),
+          "sequence_parallel_bitwise_vs_eager": bool(
+              np.array_equal(m_seq, e_seq)),
+          "launches": dec_launches, "sequence_parallel_launches":
+          seq_launches, "call_ms_host_to_sync": dec_t,
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    check(m_out.shape == dec_out.shape and d_dec <= MESH_MAX,
+          f"mesh decode vs one device: {d_dec}")
+    check(d_seq <= MESH_MAX, f"sequence-parallel decode: {d_seq}")
+    check(np.array_equal(m_out, e_out) and np.array_equal(m_seq, e_seq),
+          "graphed mesh decode != eager")
+    check(all(dec_launches.get(n, 0) > 0 and seq_launches.get(n, 0) > 0
+              for n in KERNEL_PATTERNS),
+          f"mesh decode launches {dec_launches}, {seq_launches}")
+    del mdec, edec
+
+    # ---- dp_nccl: a world-1 NCCL group in this process ----
+    config_path = ROOT / "configs" / "dual_stream_config.yaml"
+    tcfg_c = load_config(config_path)
+    tcfg = to_dict(tcfg_c)
+
+    def trainer(tag, mesh_=None, graphs=None):
+        m, kind = build_model(tcfg_c)
+        return SequentialTrainer(
+            m, tcfg, work_dir=work / f"dp_{tag}", steps_per_epoch=DP_STEPS,
+            span_frames=m.window_frames + 32, mesh=mesh_, graphs=graphs)
+
+    loader_fn, _ = create_sequential_dataloader(
+        synth, batch_size=DP_BLOCK, window_frames=288,
+        stride_frames=int(tcfg_c.data.stride_frames),
+        sample_rate=int(tcfg_c.data.sample_rate),
+        target_fps=float(tcfg_c.data.target_fps))
+    batches = [b for _, b in zip(range(DP_STEPS), loader_fn())]
+    pg_env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+              "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(pg_env)
+    try:
+        distributed.init_process_group()
+        single = trainer("single")
+        dp = trainer("nccl", make_mesh())
+        check(single.mesh is None and dp.mesh is not None and dp.world == 1
+              and distributed.backend() == "nccl",
+              f"trainers: {single.mesh}, {dp.mesh}, {distributed.backend()}")
+        prep_s = [single._prepare(b) for b in batches]
+        prep_d = [dp._prepare(b) for b in batches]
+        ck.reset_launch_counts()
+        before = dict(distributed.COLLECTIVES)
+        m_dp = [dp.compiled_step(prep_d[0])]
+        at_capture = distributed.COLLECTIVES["all_reduce"] \
+            - before.get("all_reduce", 0)
+        prof = profiled(lambda: m_dp.extend(dp.compiled_step(p)
+                                            for p in prep_d[1:]))
+        at_replays = distributed.COLLECTIVES["all_reduce"] \
+            - before.get("all_reduce", 0) - at_capture
+        out["shapes"]["dp_train"] = dict(ck.SHAPE_LAUNCHES)
+        dp_launches = dict(ck.LAUNCHES)
+        ks = device_kernels(None, prof)
+        nccl = sorted({n for n, _ in ks if "nccl" in n.lower()})
+        m_single = [single.compiled_step(p) for p in prep_s]
+        twin = trainer("eager", make_mesh(), graphs=False)
+        with recording_kernels(out["rec"], "dp_train"):
+            m_twin = [twin.train_step(p) for p in prep_d]
+        diff = {k: float((dp.params[k] - v).abs().max())
+                for k, v in single.params.items()
+                if not torch.equal(dp.params[k], v)}
+        twin_diff = [k for k, v in twin.params.items()
+                     if not torch.equal(dp.params[k], v)]
+        loss = [[float(m["loss"]) for m in ms]
+                for ms in (m_dp, m_single, m_twin)]
+        ms_dp = _event_ms(lambda: dp.compiled_step(prep_d[0]), 6)
+        ms_single = _event_ms(lambda: single.compiled_step(prep_s[0]), 6)
+    finally:
+        distributed.destroy_process_group()
+        for key in pg_env:
+            os.environ.pop(key, None)
+    emit({"phase": "dp_nccl", "card": card, "world": 1, "backend": "nccl",
+          "batch": DP_BLOCK, "steps": DP_STEPS, "losses": loss[0],
+          "params_bitwise_vs_single_process": not diff,
+          "params_differing": diff, "eager_twin_differing": twin_diff,
+          "losses_equal": loss[0] == loss[1] == loss[2],
+          "all_reduces_at_capture": at_capture,
+          "all_reduces_at_replays": at_replays,
+          "nccl_kernels_in_replays": nccl, "launches": dp_launches,
+          "own_kernels_in_replays": own_kernels(ks),
+          "step_ms_events": {"data_parallel_nccl_world_1": q(ms_dp),
+                             "single_process": q(ms_single)},
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    # the step's collectives: the three gathers (predictions, targets,
+    # mask), the predictions' gradient and the flat gradient reduce, in
+    # the warm-up run and in the capture
+    check(at_capture == 2 * 5 and at_replays == 0,
+          f"all-reduces issued: {at_capture} at the capture, {at_replays} "
+          "at the replays")
+    check(not diff and not twin_diff and loss[0] == loss[1] == loss[2],
+          f"NCCL world-1 step != single process: {diff} {twin_diff}")
+    check(all(dp_launches.get(n, 0) > 0 for n in KERNEL_PATTERNS),
+          f"dp launches {dp_launches}")
+    del single, dp, twin
+
+    # ---- dp_cli: the train CLI under torch.distributed.run ----
+    def train_cli(work_dir, epochs, *extra, ranks=0, backend=None):
+        args = ["--config", str(config_path), "--synthetic", "2",
+                "--max-epochs", str(epochs), "--work-dir", str(work_dir),
+                *extra, "data.stride_frames=4"]
+        if backend:
+            args = ["--dist-backend", backend] + args
+        if not ranks:
+            return [sys.executable, "-m", "koemorph_tpu_torch.train", *args]
+        return [sys.executable, "-m", "torch.distributed.run",
+                "--nproc-per-node", str(ranks), "--master-port",
+                str(free_port()), "-m", "koemorph_tpu_torch.train", *args]
+
+    runs = {"single": train_cli(work / "dp_cli_single", 2, "--scan-epochs"),
+            "single_eager": train_cli(work / "dp_cli_single_eager", 2),
+            "nccl1": train_cli(work / "dp_cli_nccl1", 2, "--scan-epochs",
+                               ranks=1),
+            "gloo2": train_cli(work / "dp_cli_gloo2", 2, ranks=2,
+                               backend="gloo"),
+            "gloo2_first": train_cli(work / "dp_cli_gloo2r", 1, ranks=2,
+                                     backend="gloo")}
+    t0 = time.perf_counter()
+    done = run_at_once(runs, env, timeout=600)
+    done.update(run_at_once({"gloo2_resumed": train_cli(
+        work / "dp_cli_gloo2r", 2, "--resume", ranks=2, backend="gloo")},
+        env, timeout=600))
+    cli_s = time.perf_counter() - t0
+    for n, p in done.items():
+        check(p.returncode == 0, f"train CLI {n} failed:\n{p.stderr[-3000:]}")
+    finals = {n: json.loads(p.stdout.strip().splitlines()[-1])
+              for n, p in done.items()}
+    ckpt = {n: work / d / "checkpoints" / "last" for n, d in (
+        ("single", "dp_cli_single"), ("nccl1", "dp_cli_nccl1"),
+        ("gloo2", "dp_cli_gloo2"), ("gloo2_resumed", "dp_cli_gloo2r"))}
+    sds = {n: read_state_dict(c) for n, c in ckpt.items()}
+    counts = {n: load_opt_state(c)["optimizer"]["count"]
+              for n, c in ckpt.items()}
+
+    def differing(a, b):
+        return [k for k in a if not torch.equal(a[k], b[k])]
+
+    nccl_diff = differing(sds["nccl1"], sds["single"])
+    resume_diff = differing(sds["gloo2_resumed"], sds["gloo2"])
+    outside = {}
+    for k, v in sds["single"].items():
+        bad = ~torch.isclose(sds["gloo2"][k], v, rtol=DP_PARAM_RTOL,
+                             atol=DP_PARAM_ATOL)
+        if bad.any():
+            outside[k] = [int(bad.sum()), v.numel(), float(
+                (sds["gloo2"][k] - v).abs().max())]
+    loss_rel = abs(finals["gloo2"]["final_train_metrics"]["loss"]
+                   / finals["single"]["final_train_metrics"]["loss"] - 1)
+    step_ms = {n: epoch_step_ms(done[n].stderr) for n in
+               ("single", "nccl1", "single_eager", "gloo2")}
+    emit({"phase": "dp_cli", "card": card, "batch": 16,
+          "steps": counts, "nccl_world_1_bitwise_vs_single": not nccl_diff,
+          "nccl_differing": nccl_diff,
+          "gloo_world_2_loss_rel_diff": loss_rel,
+          "gloo_world_2_params_outside_bounds": outside,
+          "bounds": {"loss_rtol": DP_LOSS_RTOL, "param_rtol": DP_PARAM_RTOL,
+                     "param_atol": DP_PARAM_ATOL},
+          "gloo_world_2_resume_bitwise": not resume_diff,
+          "resume_differing": resume_diff,
+          "final_loss": {n: f["final_train_metrics"]["loss"]
+                         for n, f in finals.items()},
+          "epoch_ms_per_step_cli_log": step_ms,
+          "note": "the five first runs shared the card and the host at "
+                  "once; an epoch's wall holds its batches' loading",
+          "cli_s": round(cli_s, 1),
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    check(set(counts.values()) == {2 * 2}, f"train CLI steps: {counts}")
+    check(not nccl_diff, f"NCCL world-1 CLI != single CLI: {nccl_diff}")
+    check(not resume_diff, f"world-2 resume != uninterrupted: {resume_diff}")
+    check(loss_rel <= DP_LOSS_RTOL and not outside,
+          f"gloo world-2 CLI vs single: loss {loss_rel}, {outside}")
+
+    held = hold_recorded(out["rec"], SLICE14_PATHS)
+    emit({"phase": "slice14_held", "held": {
+        f"{name} {tag} {shape}": {
+            k: v for k, v in r.items() if not isinstance(v, list)}
+        for (name, tag, shape), r in held.items()},
+        "seconds": round(time.perf_counter() - t_phase, 1)})
+    check(held and all(r["ok"] for r in held.values()),
+          "a kernel disagrees with its plain form on phase 18's arguments: "
+          + str([k for k, r in held.items() if not r["ok"]]))
+    out["held"] = held
+    return out
+
+
 def main() -> int:  # noqa: C901
     import torch
 
@@ -5431,6 +5849,8 @@ def main() -> int:  # noqa: C901
         card, work, train["synth"], rehearsal=s12["alongside"],
         train_hold=(train["rec"][("dk_roots", "train", train["lld_rows"])][0],
                     train["dk_held"]))
+    s14 = slice14_phases(card, work, env, decoder, out_np, audio_b,
+                         train["synth"])
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -5957,7 +6377,8 @@ def main() -> int:  # noqa: C901
     # extractor (K1 and K2 on a 20 s window's 1,997 LLD rows) and the
     # exported program's frames (its launches counted in the process that
     # ran it, the arguments recorded from the live module's frame)
-    for s_, paths in ((s11, SLICE11_PATHS), (s12, SLICE12_PATHS)):
+    for s_, paths in ((s11, SLICE11_PATHS), (s12, SLICE12_PATHS),
+                      (s14, SLICE14_PATHS)):
         rows_: dict = {}
         for (kname, tag, shape), r in sorted(s_["held"].items()):
             row = rows_.setdefault((kname, paths[tag], shape),

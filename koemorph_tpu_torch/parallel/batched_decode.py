@@ -1,12 +1,22 @@
-"""Batched multi-utterance sequential decoding on one GPU.
+"""Batched multi-utterance sequential decoding, on one GPU or over a mesh.
 
-The counterpart of ``koemorph_tpu.parallel.batched_decode`` on a single
-device: a batch of equal-length utterances through
+The counterpart of ``koemorph_tpu.parallel.batched_decode``: a batch of
+equal-length utterances through
 :class:`~koemorph_tpu_torch.models.dual_stream_model.SequentialDualStreamModel`,
 with per-utterance window strides (:meth:`decode_scheduled`) and the
 sequence-parallel decode's window split and EMA replay
 (:meth:`decode_sequence_parallel`), which on one device is the plain decode
-bit for bit. Decoding over several GPUs is not ported.
+bit for bit.
+
+Over a mesh (``mesh=`` or ``devices=``; one process drives every entry)
+the decoder keeps one model replica and one decoder per entry
+(:attr:`BatchedSequentialDecoder.entries`). A batch splits into one
+contiguous block of utterances per entry, each decoded on its entry, and
+the blocks are concatenated in order on the first entry's device: no
+collectives, as in JAX. The sequence-parallel decode gives each entry one
+contiguous chunk of the utterance's windows, decoded raw (before the EMA
+smoothing); the raw rows are copied to the first entry, where the EMA
+recurrence is replayed over the stitched sequence.
 
 On the card every decode (:meth:`BatchedSequentialDecoder.__call__`,
 :meth:`~BatchedSequentialDecoder.decode_scheduled`,
@@ -34,6 +44,8 @@ import torch
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.dual_stream_model import (
     SequentialDualStreamModel, _ema_smooth)
+from koemorph_tpu_torch.parallel.mesh import (Mesh, block_rows, make_mesh,
+                                              replicate)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
 
 logger = logging.getLogger(__name__)
@@ -52,13 +64,38 @@ class BatchedSequentialDecoder:
     ``torch.inference_mode``. On the card a call replays a CUDA graph of
     the decode; ``graphs=False`` runs it eagerly, and the CPU has no
     graphs (``graphs=True`` there raises ``ValueError``).
+
+    ``mesh`` (or ``devices``, a list of entries for
+    :func:`~koemorph_tpu_torch.parallel.make_mesh`) decodes over the
+    mesh's entries, one decoder each (:attr:`entries`); a batch must divide
+    over them.
     """
 
     #: graphs kept, one per key, the least recently used dropped
     max_graphs = 4
 
     def __init__(self, model: SequentialDualStreamModel,
-                 device: DeviceLike = None, graphs: Optional[bool] = None):
+                 device: DeviceLike = None, graphs: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None,
+                 devices: Optional[list] = None):
+        #: the decoder of each mesh entry (None without a mesh)
+        self.entries: Optional[list[BatchedSequentialDecoder]] = None
+        if mesh is None and devices is not None:
+            mesh = make_mesh(devices=devices)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("one process drives every entry of a "
+                                 "decode mesh; got a process group's mesh")
+            if device is not None:
+                raise ValueError("pass the mesh or a device, not both")
+            self.entries = [
+                BatchedSequentialDecoder(m, device=d, graphs=graphs)
+                for m, d in zip(replicate(model.eval(), mesh),
+                                mesh.devices)]
+            self.device = self.entries[0].device
+            self.model = self.entries[0].model
+            return
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.step_graphs = StepGraphs(self.device, graphs)
@@ -68,7 +105,25 @@ class BatchedSequentialDecoder:
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return 1 if self.entries is None else len(self.entries)
+
+    def _blocks(self, audio_batch) -> list:
+        """The entries' blocks of a batch (host or device), each on its
+        entry's device; raises on a batch that does not divide."""
+        audio = (audio_batch if isinstance(audio_batch, torch.Tensor)
+                 else torch.from_numpy(np.array(audio_batch, np.float32)))
+        n = len(self.entries)
+        if audio.shape[0] % n:
+            raise ValueError(f"batch {audio.shape[0]} not divisible by {n} "
+                             "devices; pad upstream")
+        return [e._audio(audio[block_rows(audio.shape[0], n, i)])
+                for i, e in enumerate(self.entries)]
+
+    def _stitch(self, parts: list) -> torch.Tensor:
+        """The entries' outputs concatenated in order on the first
+        entry's device."""
+        return torch.cat([p.to(self.device, non_blocking=True)
+                          for p in parts])
 
     def _audio(self, audio_batch) -> torch.Tensor:
         """A tensor on the decoder's device (numpy input is copied)."""
@@ -118,6 +173,14 @@ class BatchedSequentialDecoder:
         ``return_attention`` the model's dict (``blendshapes`` and the
         per-window ``mel_attention_weights`` / ``emotion_attention_weights``),
         computed eagerly."""
+        if self.entries is not None:
+            outs = [e(block, return_attention)
+                    for e, block in zip(self.entries,
+                                        self._blocks(audio_batch))]
+            if return_attention:
+                return {k: self._stitch([o[k] for o in outs])
+                        for k in outs[0]}
+            return self._stitch(outs)
         audio = self._audio(audio_batch)
         if return_attention:
             out = self.model(audio, return_attention=True)
@@ -146,27 +209,48 @@ class BatchedSequentialDecoder:
         to the densest stride's window count with the final valid start.
         Returns ``(B, n_max, 52)`` blendshapes and the ``(B, n_max)``
         validity mask. One graph per (audio shape, ``n_max``)."""
-        audio = self._audio(audio_batch)
-        bsz = audio.shape[0]
+        if self.entries is not None:
+            blocks = self._blocks(audio_batch)
+            bsz = sum(b.shape[0] for b in blocks)
+        else:
+            audio = self._audio(audio_batch)
+            bsz = audio.shape[0]
         strides = np.broadcast_to(np.asarray(strides, np.int64),
                                   (bsz,)).astype(np.int64)
         if (strides < 1).any():
             raise ValueError("strides must be >= 1")
-        span = self._span(audio.shape[1])
+        length = (blocks[0] if self.entries is not None else audio).shape[1]
+        span = self._span(length)
         n_per = span // strides + 1
         n_max = int(n_per.max())
         grid = np.arange(n_max)[None, :] * strides[:, None]
-        starts = torch.from_numpy(np.minimum(grid, span)).to(self.device)
+        starts = torch.from_numpy(np.minimum(grid, span))
         mask = np.arange(n_max)[None, :] < n_per[:, None]
-        out = self._graphed(("scheduled", tuple(audio.shape), n_max),
-                            (audio, starts), self._decode_at)
-        return out, mask
+        if self.entries is None:
+            return self._scheduled(audio, starts, n_max), mask
+        n = len(self.entries)
+        return self._stitch([
+            e._scheduled(block, starts[block_rows(bsz, n, i)], n_max)
+            for i, (e, block) in enumerate(zip(self.entries, blocks))]), mask
+
+    def _scheduled(self, audio: torch.Tensor, starts: torch.Tensor,
+                   n_max: int) -> torch.Tensor:
+        """The scheduled decode of ``audio`` at ``starts`` (host or device)
+        on this decoder's device."""
+        return self._graphed(("scheduled", tuple(audio.shape), n_max),
+                             (audio, starts.to(self.device)), self._decode_at)
+
+    def _decode_raw(self, tiled: torch.Tensor,
+                    starts: torch.Tensor) -> torch.Tensor:
+        """Pre-smoothing windows ``(n_dev * per, 52)`` of ``tiled`` at
+        ``starts``, in window order."""
+        raw = self.model(tiled, window_starts=starts,
+                         return_raw=True)["raw_blendshapes"]
+        return raw.reshape(-1, raw.shape[-1])
 
     def _decode_sequence(self, tiled: torch.Tensor, starts: torch.Tensor,
                          n_out: int) -> torch.Tensor:
-        raw = self.model(tiled, window_starts=starts,
-                         return_raw=True)["raw_blendshapes"]
-        raw_flat = raw.reshape(-1, raw.shape[-1])[:n_out]
+        raw_flat = self._decode_raw(tiled, starts)[:n_out]
         return _ema_smooth(raw_flat, self.model.alpha())
 
     @torch.inference_mode()
@@ -188,6 +272,14 @@ class BatchedSequentialDecoder:
         per = -(-n_out // n_dev)
         starts = np.minimum(np.arange(n_dev * per) * stride, span).reshape(
             n_dev, per)
+        if self.entries is not None:
+            raws = [e._graphed(("sequence_raw", audio.shape, per),
+                               (e._audio(audio[None]),
+                                torch.from_numpy(starts[i:i + 1]).to(
+                                    e.device)),
+                               e._decode_raw)
+                    for i, e in enumerate(self.entries)]
+            return _ema_smooth(self._stitch(raws)[:n_out], self.model.alpha())
         tiled = np.broadcast_to(audio, (n_dev, audio.shape[0]))
         return self._graphed(
             ("sequence_parallel", tiled.shape, n_out),
@@ -212,5 +304,6 @@ class BatchedSequentialDecoder:
                 "devices": self.num_devices, "device": str(self.device)}
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for e in self.entries or [self]:
+            if e.device.type == "cuda":
+                torch.cuda.synchronize(e.device)

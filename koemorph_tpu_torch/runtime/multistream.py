@@ -29,6 +29,18 @@ buffer parity and input dtype, 2(G+1) per dtype, captured by
 :meth:`MultiStreamInference.warmup` or at the first step with that dtype,
 in one memory pool. The host keeps the clocks and picks the graph; no
 step reads anything back from the device.
+
+With ``mesh`` (:func:`~koemorph_tpu_torch.parallel.make_mesh`, one process
+driving every entry) the lanes split into one contiguous block of ``S/D``
+per entry, each served by an engine of its own (its model replica, state
+and graphs on that entry's device), the counterpart of the JAX server's
+``PartitionSpec(axis)`` on every per-session leaf. Inference has no
+collectives: a step copies every entry's block of the hops in, launches
+every entry's step, and stitches the outputs in lane order on the first
+entry's device. Cohort membership stays ``lane % G``; each block holds
+``S/(D*G)`` lanes of every cohort, its local lanes ``c::G`` being cohort
+``c``, so a due cohort refreshes on every entry at the same step (JAX's
+device-local cohort layout). The one refresh clock lives on the host.
 """
 
 from __future__ import annotations
@@ -46,9 +58,11 @@ from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.dual_stream_model import (
     StreamingDualStreamModel)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.parallel.mesh import Mesh, block_rows, replicate
 from koemorph_tpu_torch.runtime.streaming import (StaticStream,
                                                   StreamingConfig,
                                                   StreamState,
+                                                  TemporalState,
                                                   init_stream_state,
                                                   stream_step_)
 
@@ -72,12 +86,17 @@ class MultiStreamInference:
     and the CPU has no graphs (``graphs=True`` there raises
     ``ValueError``). Each returned frame is a fresh tensor that no later
     step writes.
+
+    ``mesh`` serves the lanes over the mesh's entries, one engine each
+    (:attr:`entries`); ``n_sessions`` and each cohort must divide over
+    them, and ``device`` is the mesh's.
     """
 
     def __init__(self, model: StreamingDualStreamModel,
                  cfg: StreamingConfig, n_sessions: int,
                  device: DeviceLike = None, refresh_cohorts: int = 1,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         if n_sessions < 1:
             raise ValueError("n_sessions must be >= 1")
         k = cfg.emotion_update_frames
@@ -93,32 +112,82 @@ class MultiStreamInference:
         self.cfg = cfg
         self.n_sessions = n_sessions
         self.refresh_cohorts = refresh_cohorts
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
         #: each cohort's clock at ``states.frame_count == 0``
         self.phases = tuple((c * k) // refresh_cohorts
                             for c in range(refresh_cohorts))
+        self.frames_emitted = 0
+        # bounded: a long-running server must not grow host memory one
+        # float per frame
+        self.step_times: deque[float] = deque(maxlen=300)
+        self.mesh = mesh
+        #: the engine of each mesh entry (None without a mesh)
+        self.entries: Optional[list[MultiStreamInference]] = None
+        if mesh is not None:
+            self._init_entries(model, mesh, device, graphs)
+            return
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
         self.step_graphs = StepGraphs(self.device, graphs)
         with torch.inference_mode():
             self._static = StaticStream(
                 init_stream_state(cfg, self.device, n_sessions))
         #: the static input buffer of each input dtype in use
         self._inputs: dict[torch.dtype, torch.Tensor] = {}
-        self.frames_emitted = 0
-        # bounded: a long-running server must not grow host memory one
-        # float per frame
-        self.step_times: deque[float] = deque(maxlen=300)
+
+    def _init_entries(self, model, mesh: Mesh, device: DeviceLike,
+                      graphs: Optional[bool]) -> None:
+        """One engine per mesh entry, each with its block of the lanes and
+        the server's cohorts (their phases are the server's)."""
+        if mesh.distributed:
+            raise ValueError("one process drives every entry of a serving "
+                             "mesh; got a process group's mesh")
+        if device is not None:
+            raise ValueError("pass the mesh or a device, not both")
+        n, g, d = self.n_sessions, self.refresh_cohorts, mesh.size
+        axis = mesh.axis_names[0]
+        if n % d:
+            raise ValueError(
+                f"n_sessions {n} must divide over the mesh's {d}-device "
+                f"'{axis}' axis")
+        if (n // g) % d:
+            raise ValueError(
+                f"each cohort ({n // g} sessions) must divide over the "
+                f"mesh's {d} devices")
+        self.entries = [
+            MultiStreamInference(m, self.cfg, n // d, device=dev,
+                                 refresh_cohorts=g, graphs=graphs)
+            for m, dev in zip(replicate(model.eval(), mesh), mesh.devices)]
+        self.device = self.entries[0].device
+        self.model = self.entries[0].model
+        #: the one refresh clock of the entries (frames stepped)
+        self._frames = 0
+
+    @property
+    def num_devices(self) -> int:
+        """Mesh entries the lanes are served on (1 without a mesh)."""
+        return 1 if self.entries is None else len(self.entries)
+
+    @property
+    def frame_count(self) -> int:
+        """Frames stepped since the start (the refresh clock)."""
+        if self.entries is None:
+            return self._static.state.frame_count
+        return self._frames
 
     @property
     def states(self) -> StreamState:
         """The current lane-batched state (static buffers, ``frame_count``
-        on the host)."""
-        return self._static.state
+        on the host). With a mesh: the entries' states stitched in lane
+        order on the first entry's device, a copy."""
+        if self.entries is None:
+            return self._static.state
+        return _cat_states([e.states for e in self.entries], self.device,
+                           self._frames)
 
     @property
     def clocks(self) -> list[int]:
         """Each cohort's refresh clock (frames since its phase 0)."""
-        return [p + self.states.frame_count for p in self.phases]
+        return [p + self.frame_count for p in self.phases]
 
     def due_cohorts(self) -> list[int]:
         """The cohorts that refresh in the next step."""
@@ -161,8 +230,35 @@ class MultiStreamInference:
         return self._input(hops.dtype).copy_(hops)
 
     def _step(self, hops) -> torch.Tensor:
-        dtype = self._put_hops(hops).dtype
+        if self.entries is not None:
+            return self._mesh_step(hops)
+        return self._run(self._put_hops(hops).dtype,
+                         tuple(self.due_cohorts()))
+
+    def _mesh_step(self, hops) -> torch.Tensor:
+        """Every entry's block of ``hops`` copied in first, then every
+        entry's step launched, then the outputs stitched in lane order."""
+        if not isinstance(hops, torch.Tensor):
+            hops = np.asarray(hops)
+            if hops.dtype != np.int16:
+                hops = np.asarray(hops, np.float32)
+            hops = torch.from_numpy(np.ascontiguousarray(hops))
+        if tuple(hops.shape) != (self.n_sessions, self.cfg.hop_length):
+            raise ValueError(
+                f"expected ({self.n_sessions}, {self.cfg.hop_length}) "
+                f"audio, got {tuple(hops.shape)}")
+        d = len(self.entries)
+        dtypes = [e._put_hops(hops[block_rows(self.n_sessions, d, i)]).dtype
+                  for i, e in enumerate(self.entries)]
         due = tuple(self.due_cohorts())
+        outs = [e._run(dt, due) for e, dt in zip(self.entries, dtypes)]
+        self._frames += 1
+        return torch.cat([o.to(self.device, non_blocking=True)
+                          for o in outs])
+
+    def _run(self, dtype: torch.dtype, due: tuple) -> torch.Tensor:
+        """The step of the loaded input of ``dtype`` with the cohorts in
+        ``due`` refreshing."""
         key = (due, self._static.parity, dtype)
         graphs = self.step_graphs
         if graphs.enabled and key not in graphs:
@@ -195,6 +291,10 @@ class MultiStreamInference:
         run each due set's step once (eagerly). The warm-up runs write a
         scratch copy of the state, so kernel builds and first-call costs
         land before the real-time loop and the state stays as it was."""
+        if self.entries is not None:
+            for e in self.entries:
+                e.warmup(dtype)
+            return
         self._input(dtype)
         g = self.refresh_cohorts
         for due in [()] + [(c,) for c in range(g)]:
@@ -228,6 +328,12 @@ class MultiStreamInference:
             return
         if idx[0] < 0 or idx[-1] >= self.n_sessions:
             raise ValueError(f"session index out of range: {idx}")
+        if self.entries is not None:
+            per = self.n_sessions // len(self.entries)
+            for i, e in enumerate(self.entries):
+                e.reset_sessions([j - i * per for j in idx
+                                  if j // per == i])
+            return
         self._static.write_fresh(init_stream_state(self.cfg, self.device, 1),
                                  torch.tensor(idx, device=self.device))
 
@@ -301,3 +407,27 @@ class MultiStreamInference:
             "max_step_ms": float(times.max() * 1e3),
             "rtf": float(times.mean() / budget),
         }
+
+
+def _cat_states(states: list[StreamState], device: torch.device,
+                frame_count: int) -> StreamState:
+    """The lane-batched states of a mesh's entries as one, in lane order,
+    on ``device`` (a copy)."""
+    def cat(*parts):
+        return torch.cat([p.to(device) for p in parts])
+
+    first = states[0]
+    ring = None if first.lld_ring is None else {
+        k: cat(*(s.lld_ring[k] for s in states)) for k in first.lld_ring}
+    carry = None if first.lld_carry is None else type(first.lld_carry)(*(
+        None if f is None else cat(*(s.lld_carry[i] for s in states))
+        for i, f in enumerate(first.lld_carry)))
+    return StreamState(
+        audio_ring=cat(*(s.audio_ring for s in states)),
+        mel_db=cat(*(s.mel_db for s in states)),
+        emotion_raw=cat(*(s.emotion_raw for s in states)),
+        frame_count=frame_count,
+        temporal=TemporalState(
+            prev=cat(*(s.temporal.prev for s in states)),
+            initialized=cat(*(s.temporal.initialized for s in states))),
+        lld_ring=ring, lld_carry=carry)

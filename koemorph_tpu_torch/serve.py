@@ -34,7 +34,9 @@ Usage:
         --sessions 16 --output udp --port 9200
 
 Runs on the GPU (``--device cuda``, the default) and fails when there is
-none; ``--device cpu`` runs the same step on the CPU. ``--model`` loads a
+none; ``--device cpu`` runs the same step on the CPU. ``--mesh-devices N``
+serves the sessions over N mesh entries from this one process (one engine
+per entry; the stats line's ``devices``). ``--model`` loads a
 checkpoint the trainer wrote (``<work>/checkpoints/last``) or a ``.pth``
 state dict; without it the weights are random, drawn from ``--seed``.
 """
@@ -245,9 +247,26 @@ def build_server(args):
         d_model=args.d_model, num_heads=args.num_heads, fps=args.fps,
         emotion_backend=args.emotion_backend, sample_rate=args.sample_rate,
         checkpoint=args.model, device=args.device, seed=args.seed)
+    mesh = mesh_for(args.device, args.mesh_devices)
     return MultiStreamInference(model, cfg, n_sessions=args.sessions,
-                                device=args.device,
+                                device=None if mesh else args.device,
+                                mesh=mesh,
                                 refresh_cohorts=args.refresh_cohorts)
+
+
+def mesh_for(device: str, n: int):
+    """The serving mesh of ``--mesh-devices n``: None for 0 (one device);
+    the first ``n`` visible cards for ``--device cuda``; ``n`` entries of
+    the one device ``--device`` names otherwise (``cpu``, ``cuda:0``)."""
+    if not n:
+        return None
+    from koemorph_tpu_torch.device import resolve_device
+    from koemorph_tpu_torch.parallel import make_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return make_mesh(num_devices=n)
+    return make_mesh(devices=[dev] * n)
 
 
 def _load_replay_lanes(paths: list[str], sessions: int, sample_rate: int,
@@ -297,6 +316,7 @@ def _emit_stats(server, sender, *, mode: str, ticks: int, elapsed: float,
         "frames_sent": sender.frames_sent,
         "emit_path": sender.emit_path,
         "emit_mode": "pipelined" if pipelined else "sync",
+        "devices": server.num_devices,
         "step": {k: round(v, 3) if isinstance(v, float) else v
                  for k, v in server.performance_stats().items()},
     }
@@ -499,7 +519,15 @@ def main(argv=None) -> int:
     p.add_argument("--python-emit", action="store_true",
                    help="emit udp / file rows through json.dumps, one per "
                         "session, instead of the native batch emitter")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default), cuda:K or cpu")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="serve the sessions over this many mesh entries, "
+                        "one engine each, all driven by this process (0: "
+                        "one device; sessions and each cohort must divide "
+                        "over them; no collectives): the first N visible "
+                        "cards with --device cuda, N entries of the named "
+                        "device with --device cpu or cuda:K")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--verbose", action="store_true")

@@ -11,6 +11,13 @@ trains on them. Trains on the GPU and fails when there is none; ``--cpu``
 trains on the CPU. The last line of standard output is one JSON object
 with the work directory and the final epoch's mean train metrics.
 
+Data-parallel over several cards: ``python -m torch.distributed.run
+--nproc-per-node N -m koemorph_tpu_torch.train ...`` runs one process per
+card (NCCL; ``--dist-backend gloo`` for gloo, the CPU's backend with
+``--cpu``), each rank training on its block of every global batch
+(``Trainer(mesh=...)``); rank 0 writes the synthetic data, the
+checkpoints and the final JSON line.
+
 Resume a run with ``--resume`` (the work directory's ``checkpoints/last``);
 serve what it wrote with ``--model <work>/checkpoints/last`` on
 ``koemorph_tpu_torch.infer``, ``.rt`` or ``.serve`` (the dual-stream
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -172,21 +180,48 @@ def main(argv=None) -> int:
                         "don't run")
     p.add_argument("--cpu", action="store_true",
                    help="train on the CPU (default: the GPU)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="under torch.distributed.run: the process group's "
+                        "backend (default nccl on the GPU, gloo with --cpu)")
     p.add_argument("overrides", nargs="*", metavar="key=value",
                    help="dot-notation config overrides")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
+    from koemorph_tpu_torch.parallel import distributed
+
+    launched = distributed.launched()
+    logging.basicConfig(
+        level=logging.INFO if not launched or os.environ.get("RANK") == "0"
+        else logging.WARNING,
+        format="%(asctime)s %(name)s %(message)s")
+    if not launched:
+        return _train(args)
+    distributed.init_process_group(args.dist_backend,
+                                   "cpu" if args.cpu else None)
+    try:
+        return _train(args)
+    finally:
+        distributed.destroy_process_group()
+
+
+def _train(args) -> int:
+    """Train as ``args`` says: on one device, or as this rank of the
+    process group when there is one."""
 
     from koemorph_tpu_torch.data.sequential import (
         create_sequential_dataloader)
     from koemorph_tpu_torch.device import resolve_device
+    from koemorph_tpu_torch.parallel import distributed, make_mesh
     from koemorph_tpu_torch.train.trainer import (DualStreamTrainer,
                                                   KoeMorphTrainer,
                                                   SequentialTrainer)
     from koemorph_tpu_torch.utils.config import load_config, to_dict
 
     device = resolve_device("cpu" if args.cpu else "cuda")
+    mesh = None
+    if distributed.is_initialized():
+        mesh = make_mesh(devices=["cpu"] * distributed.world_size()
+                         if args.cpu else None)
+        device = mesh.local_device
     # the port trains in full fp32: cuDNN's convolutions (the emotion2vec
     # encoder's) too, which PyTorch runs in TF32 by default
     torch.backends.cudnn.allow_tf32 = False
@@ -197,10 +232,12 @@ def main(argv=None) -> int:
     work_dir.mkdir(parents=True, exist_ok=True)
 
     if args.synthetic:
-        synth = write_synthetic_dataset(
-            work_dir / "synth_data", args.synthetic,
-            sample_rate=int(cfg.data.sample_rate),
-            fps=float(cfg.data.target_fps))
+        synth = work_dir / "synth_data"
+        if distributed.rank() == 0:
+            write_synthetic_dataset(synth, args.synthetic,
+                                    sample_rate=int(cfg.data.sample_rate),
+                                    fps=float(cfg.data.target_fps))
+        distributed.barrier()
         cfg.data.train_data_dir = str(synth)
         cfg.data.val_data_dir = str(synth)
 
@@ -220,7 +257,7 @@ def main(argv=None) -> int:
         steps = args.steps_per_epoch or max(1, len(dm.train_dataloader()))
         trainer = KoeMorphTrainer(
             model, tcfg, work_dir=work_dir, steps_per_epoch=steps,
-            device=device)
+            device=device, mesh=mesh)
         if args.resume:
             trainer.resume()
 
@@ -251,7 +288,7 @@ def main(argv=None) -> int:
         cls = SequentialTrainer if kind == "sequence" else DualStreamTrainer
         kwargs = {"span_frames": window} if kind == "sequence" else {}
         trainer = cls(model, tcfg, work_dir=work_dir, steps_per_epoch=steps,
-                      device=device, **kwargs)
+                      device=device, mesh=mesh, **kwargs)
         if args.resume:
             trainer.resume()
 
@@ -265,9 +302,11 @@ def main(argv=None) -> int:
     final = history["train"][-1] if history["train"] else {}
     logger.info("training done: %s",
                 {k: round(float(v), 5) for k, v in final.items()})
-    print(json.dumps({"work_dir": str(work_dir),
-                      "final_train_metrics":
-                          {k: float(v) for k, v in final.items()}}))
+    if distributed.rank() == 0:
+        print(json.dumps({"work_dir": str(work_dir),
+                          "final_train_metrics":
+                              {k: float(v) for k, v in final.items()}}),
+              flush=True)
     return 0
 
 

@@ -12,7 +12,10 @@ Each directory holds
   (which sets the schedule) and the dropout seed, for an exact resume;
 - ``meta.json``: epoch, global_step, best_val_loss and the config.
 
-Files are read back with ``torch.load(..., weights_only=True)``.
+Files are read back with ``torch.load(..., weights_only=True)``. In a
+data-parallel process group only rank 0 writes, and
+:meth:`CheckpointManager.save` returns on every rank after a barrier, so
+no rank reads a checkpoint before it is whole.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Union
 
 import torch
 
+from koemorph_tpu_torch.parallel import distributed
 from koemorph_tpu_torch.utils.params import STATE_FILE, read_state_dict
 
 __all__ = ["CheckpointManager", "save_checkpoint", "load_checkpoint",
@@ -102,6 +106,12 @@ class CheckpointManager:
         kwargs = dict(epoch=epoch, global_step=global_step,
                       best_val_loss=self.best_val_loss, config=self.config,
                       opt_state=opt_state)
+        if distributed.rank() == 0:
+            self._write(state, improved, epoch, kwargs)
+        distributed.barrier()
+
+    def _write(self, state: dict, improved: bool, epoch: int,
+               kwargs: dict) -> None:
         save_checkpoint(self.ckpt_dir / "last", state, **kwargs)
         if improved:
             save_checkpoint(self.ckpt_dir / "best", state, **kwargs)

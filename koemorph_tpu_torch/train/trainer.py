@@ -1,6 +1,6 @@
 """Trainers: the legacy frame trainer, the dual-stream window trainer and
-the sequential trainer, the counterpart of ``koemorph_tpu.train.trainer``
-on one device.
+the sequential trainer, the counterpart of ``koemorph_tpu.train.trainer``,
+on one device or data-parallel over a ``torch.distributed`` group.
 
 A train step runs eagerly in full fp32: the model's forward (in training
 mode, dropout masks drawn from a generator seeded from ``(seed, step)``),
@@ -27,8 +27,34 @@ each replay, so it is bit for bit the eager step. On the CPU, or with
 run the compiled step over them with no host-to-device copy and no host
 synchronization per step; the per-step hooks do not run.
 
+Data parallelism (``Trainer(mesh=...)`` with a process group's mesh, or
+``mesh=None`` inside a group of world > 1): one process per card, launched
+by ``python -m torch.distributed.run``. Every rank builds the same global
+batch from the same loader, pads it to a multiple of the world (repeating
+the last row, ``sample_mask`` 0 on the padding) and keeps its block of
+rows. The loss is the global batch's, not a mean of per-rank losses (the
+batch mask's scale, the weighted loss's ``w / mean(w)`` and the perceptual
+term's cosine all normalize over the batch): each rank runs the model on
+its block, gathers the predictions, targets and mask of the whole batch
+(``distributed.gather_rows``, a differentiable sum of zero-filled
+buffers; adding zeros is exact) and computes the one global loss. Every
+rank backpropagates that same loss, so the backward of the gather sums
+``world`` copies of each row's gradient: the parameters' gradients are
+summed over the ranks in one flat all-reduce and divided by the world size
+(exact for a power of two; at world 1 the step is the single-process step
+bit for bit). The gradient norm, the clip and the update then run on the
+same reduced gradients on every rank, so the replicas stay identical (rank
+0's parameters are broadcast at the start). Dropout masks are the global
+batch's, drawn from the ``(seed, step)`` generator, each rank keeping its
+rows (``models.dropout.BatchBlock``). Under NCCL the compiled step captures
+the collectives in its CUDA graph; gloo's cannot be captured, so under
+gloo on the card the compiled step and the scan epochs raise (pass
+``graphs=False``). Only rank 0 writes checkpoints and TensorBoard
+scalars; every rank reads a checkpoint on ``resume``.
+
 Not ported (raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): meshes and tensor parallelism.
+item): tensor parallelism. A mesh of several entries in one process
+raises ``ValueError``: training over several cards runs one process each.
 """
 
 from __future__ import annotations
@@ -45,14 +71,19 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.blendshapes import EXPRESSION_INDICES, MOUTH_INDICES
-from koemorph_tpu_torch.device import DeviceLike, resolve_device
+from koemorph_tpu_torch.device import DeviceLike, resolve_device, scalar_like
 from koemorph_tpu_torch.models.losses import (KoeMorphLossConfig,
                                               dual_stream_loss,
                                               koemorph_loss,
                                               sequence_koemorph_loss)
+from koemorph_tpu_torch.models.dropout import BatchBlock
 from koemorph_tpu_torch.ops.device_cache import device_cache, index_constant
-from koemorph_tpu_torch.parallel.mesh import (batch_leading_size,
-                                              pad_batch_to_size)
+from koemorph_tpu_torch.parallel import distributed
+from koemorph_tpu_torch.parallel.mesh import (Mesh, batch_leading_size,
+                                              block_rows, make_mesh,
+                                              pad_batch_to_multiple,
+                                              pad_batch_to_size, replicate,
+                                              shard_batch)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
 from koemorph_tpu_torch.train.checkpoint import CheckpointManager
 from koemorph_tpu_torch.train.optim import (create_lr_schedule,
@@ -68,7 +99,7 @@ __all__ = ["Trainer", "KoeMorphTrainer", "DualStreamTrainer",
            "dropout_seed", "scan_orders"]
 
 #: where the feature that is not ported is queued
-TP_ITEM = "ROADMAP.md section 1, item 8 (several GPUs)"
+TP_ITEM = "ROADMAP.md section 1, item 8 (several GPUs: tensor parallelism)"
 
 
 def loss_config_from(cfg: dict) -> KoeMorphLossConfig:
@@ -129,11 +160,11 @@ def scan_orders(n_steps: int, n_epochs: int,
 
 
 def _mask_padded(pred: torch.Tensor, target: torch.Tensor,
-                 batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Neutralize padding rows (``sample_mask`` 0): a padded row's
-    prediction becomes its detached target, so its error terms and
-    gradients are zero; the returned scale keeps the real rows' weight."""
-    mask = batch.get("sample_mask")
+                 mask: Optional[torch.Tensor]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Neutralize padding rows (``mask`` 0): a padded row's prediction
+    becomes its detached target, so its error terms and gradients are
+    zero; the returned scale keeps the real rows' weight."""
     if mask is None:
         return pred, torch.ones((), device=pred.device)
     m = mask.reshape((pred.shape[0],) + (1,) * (pred.dim() - 1))
@@ -175,6 +206,34 @@ def _check_full_fp32(device: torch.device) -> None:
             "False)")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _placement(mesh: Optional[Mesh], device: DeviceLike
+               ) -> tuple[torch.device, Optional[Mesh]]:
+    """The trainer's device, and its mesh when it trains data-parallel:
+    a process group's mesh (``mesh=None`` inside a group of world > 1
+    means every rank, on ``device`` when given). A one-entry mesh in one
+    process is that entry's device."""
+    if mesh is None and distributed.world_size() > 1:
+        mesh = make_mesh(devices=None if device is None
+                         else [device] * distributed.world_size())
+    if mesh is None:
+        return resolve_device(device), None
+    if not mesh.distributed and mesh.size > 1:
+        raise ValueError(
+            f"a mesh of {mesh.size} entries in one process: training over "
+            "several devices runs one process per device (python -m "
+            "torch.distributed.run --nproc-per-node N ...)")
+    dev = resolve_device(mesh.local_device)
+    if device is not None and not _same_device(resolve_device(device), dev):
+        raise ValueError(f"device {device} is not the mesh entry {dev} of "
+                         "this process")
+    return dev, mesh if mesh.distributed else None
+
+
 def _make_trainable(model: torch.nn.Module) -> None:
     """Replace any inference tensor among the model's parameters and
     buffers (a model built or moved under ``torch.inference_mode``) with a
@@ -196,11 +255,16 @@ class Trainer:
     The model's weights are drawn from the training seed
     (``model.init_random``) and the model moves to ``device`` (``cuda``
     unless the caller asks for another; raises when CUDA is absent).
-    Subclasses define :meth:`loss_fn` ``(batch, generator) -> (loss,
-    metrics)``; a ``None`` generator is the deterministic (eval) forward.
+    Subclasses define :meth:`predict` ``(batch, generator) -> (pred,
+    target)``, the per-row part (a ``None`` generator is the deterministic
+    eval forward), and :meth:`loss_from` ``(pred, target, mask) -> (loss,
+    metrics)``, the batch's loss; :meth:`loss_fn` is the two in turn.
     ``graphs`` selects the compiled step's CUDA graphs: ``None`` means
     graphs on a CUDA device and none elsewhere, ``False`` the eager step
-    on the card too.
+    on the card too. ``mesh`` (a process group's, from
+    :func:`~koemorph_tpu_torch.parallel.make_mesh`) trains data-parallel
+    (the module's docstring); so does ``mesh=None`` inside a process group
+    of world > 1.
     """
 
     #: batch shapes whose graphs are kept, the least recently used dropped
@@ -211,21 +275,27 @@ class Trainer:
                  steps_per_epoch: int = 100, seed: int = 42,
                  tensor_parallel: bool = False,
                  device: DeviceLike = None, graphs: Optional[bool] = None):
-        if tensor_parallel or mesh is not None:
+        if tensor_parallel:
             raise NotImplementedError(
-                f"meshes and tensor parallelism are not ported: {TP_ITEM}")
+                f"tensor parallelism is not ported: {TP_ITEM}")
+        self.device, self.mesh = _placement(mesh, device)
+        #: data-parallel world size and this process's rank (1 and 0 on
+        #: one device)
+        self.world = self.mesh.size if self.mesh is not None else 1
+        self.rank = self.mesh.rank if self.mesh is not None else 0
         self.config = config or {}
         self.train_cfg = self.config.get("training", self.config)
         self.work_dir = Path(work_dir)
         self.work_dir.mkdir(parents=True, exist_ok=True)
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
         _check_full_fp32(self.device)
 
         self.seed = int(self.train_cfg.get("seed", seed))
         _make_trainable(model)
         model.init_random(torch.Generator().manual_seed(self.seed))
         self.model = model.to(self.device)
+        if self.mesh is not None:           # every replica is rank 0's
+            replicate(self.model, self.mesh)
         self.params = dict(self.model.named_parameters())
         self._schedule = create_lr_schedule(self.train_cfg, steps_per_epoch)
         self.optimizer = create_optimizer(self.train_cfg, self.params,
@@ -251,8 +321,51 @@ class Trainer:
 
     # -- subclass surface --------------------------------------------------
 
-    def loss_fn(self, batch: dict, generator: Optional[torch.Generator]):
+    def predict(self, batch: dict, generator) -> tuple:
+        """``(pred, target)`` of the batch's rows: the model's output (its
+        dropout masks from ``generator``, None for the eval forward) and
+        the rows' targets."""
         raise NotImplementedError
+
+    def loss_from(self, pred: torch.Tensor, target: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> tuple:
+        """``(loss, metrics)`` of a batch's predictions and targets, the
+        rows of ``mask`` 0 left out."""
+        raise NotImplementedError
+
+    def loss_fn(self, batch: dict, generator: Optional[torch.Generator]):
+        pred, target = self.predict(batch, generator)
+        # contiguous, as the data-parallel gather gives them: the loss's
+        # reductions then sum in one order on both paths
+        return self.loss_from(pred.contiguous(), target.contiguous(),
+                              batch.get("sample_mask"))
+
+    def _loss(self, batch: dict, generator: Optional[torch.Generator]):
+        """:meth:`loss_fn`; data-parallel, the global batch's loss from
+        this rank's block: the model on the block (the global batch's
+        dropout masks, the block's rows kept), then the predictions,
+        targets and mask of every rank gathered and one loss over them."""
+        if self.mesh is None:
+            return self.loss_fn(batch, generator)
+        rows = batch["sample_mask"].shape[0]
+        start, total = self.rank * rows, self.world * rows
+        if generator is not None:
+            generator = BatchBlock(generator, start, start + rows, total)
+        pred, target = self.predict(batch, generator)
+        return self.loss_from(
+            distributed.gather_rows(pred, start, total),
+            distributed.gather_rows(target.detach(), start, total),
+            distributed.gather_rows(batch["sample_mask"], start, total))
+
+    def _reduce_grads(self, grads: dict) -> dict:
+        """The ranks' gradients summed in one flat all-reduce and divided
+        by the world size: every rank backpropagated the same global loss,
+        so the sum holds ``world`` copies of each row's gradient."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        distributed.all_reduce_(flat)
+        flat = flat / scalar_like(float(self.world), flat)
+        parts = torch.split(flat, [g.numel() for g in grads.values()])
+        return {k: p.view_as(g) for (k, g), p in zip(grads.items(), parts)}
 
     # -- steps -------------------------------------------------------------
 
@@ -284,11 +397,13 @@ class Trainer:
         with torch.backends.cudnn.flags(
                 enabled=True, benchmark=False,
                 deterministic=True, allow_tf32=False):
-            loss, metrics = self.loss_fn(batch, gen)
+            loss, metrics = self._loss(batch, gen)
             grads = torch.autograd.grad(loss, list(self.params.values()),
                                         allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(self.params.items(), grads)}
+        if self.mesh is not None:
+            grads = self._reduce_grads(grads)
         norm = global_norm(grads.values())
         self.optimizer.update(grads, mini_step, scalars)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -302,9 +417,16 @@ class Trainer:
         is on the CPU or with ``graphs=False``. A batch shape seen for the
         first time is captured first (a warm-up step that leaves the
         parameters and the optimizer state as it found them, then the
-        capture); a capture or replay failure raises."""
+        capture); a capture or replay failure raises. Data-parallel under
+        gloo on the card it raises: gloo's collectives cannot be captured
+        (pass ``graphs=False``)."""
         if not self.step_graphs.enabled:
             return self.train_step(batch)
+        if self.mesh is not None and distributed.backend() != "nccl":
+            raise RuntimeError(
+                f"the {distributed.backend()} backend's collectives cannot "
+                "be captured in a CUDA graph: train with graphs=False (the "
+                "eager step) or under NCCL")
         # one graph per batch shape and accumulation phase; the batch is
         # copied into the graph's static buffers
         opt = self.optimizer
@@ -385,7 +507,7 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
         self.model.eval()
-        loss, metrics = self.loss_fn(batch, None)
+        loss, metrics = self._loss(batch, None)
         metrics = dict(metrics)
         metrics["loss"] = loss
         return metrics
@@ -394,7 +516,16 @@ class Trainer:
 
     def _prepare(self, batch: dict) -> dict:
         """Arrays of a host batch on the device (lists dropped), with an
-        all-ones ``sample_mask``: one device pads nothing."""
+        all-ones ``sample_mask``: one device pads nothing. Data-parallel:
+        the batch padded to a multiple of the world, masked, and this
+        rank's block of it."""
+        if self.mesh is not None:
+            host = {k: np.asarray(v) for k, v in batch.items()
+                    if not isinstance(v, list)}
+            padded, real = pad_batch_to_multiple(host, self.world)
+            mask = np.zeros((batch_leading_size(padded),), np.float32)
+            mask[:real] = 1.0
+            return shard_batch({**padded, "sample_mask": mask}, self.mesh)
         out = {}
         for k, v in batch.items():
             if isinstance(v, list):
@@ -426,7 +557,7 @@ class Trainer:
         self._on_epoch_end()
         if not collected:
             return {}
-        logger.info("epoch %d: %d steps in %.1fs", self.epoch,
+        logger.info("epoch %d: %d steps in %.3fs", self.epoch,
                     len(collected), time.time() - t0)
         return {k: float(torch.stack([m[k] for m in collected]).mean())
                 for k in collected[0]}
@@ -434,16 +565,19 @@ class Trainer:
     def _stack_epoch(self, loader: Iterable[dict]) -> tuple[dict, int]:
         """Stack an epoch's batches into ``(S, B, ...)`` tensors on the
         device, one host-to-device copy per array. Every batch is padded
-        to the epoch's largest size by repeating its last row
+        to the epoch's largest size (data-parallel: rounded up to a
+        multiple of the world) by repeating its last row
         (:func:`~koemorph_tpu_torch.parallel.mesh.pad_batch_to_size`),
         with ``sample_mask`` 0 on the padding, so the loss leaves the
-        padding out. Raises ``ValueError`` naming the size when the stack
-        would not fit in the card's free memory."""
+        padding out; data-parallel, the rank keeps its block of axis 1.
+        Raises ``ValueError`` naming the size when the stack would not fit
+        in the card's free memory."""
         raw = [{k: np.asarray(v) for k, v in b.items()
                 if not isinstance(v, list)} for b in loader]
         if not raw:
             return {}, 0
-        target = max(batch_leading_size(b) for b in raw)
+        target = -(-max(batch_leading_size(b) for b in raw)
+                   // self.world) * self.world
         shapes = {(k, np.shape(v)[1:], np.asarray(v).dtype)
                   for b in raw for k, v in b.items()}
         if len(shapes) != len(raw[0]):
@@ -458,6 +592,10 @@ class Trainer:
             mask[:real] = 1.0
             prepared.append({**padded, "sample_mask": mask})
         stacked = {k: np.stack([p[k] for p in prepared]) for k in prepared[0]}
+        if self.mesh is not None:
+            rows = block_rows(target, self.world, self.rank)
+            stacked = {k: np.ascontiguousarray(v[:, rows])
+                       for k, v in stacked.items()}
         nbytes = sum(v.nbytes for v in stacked.values())
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
@@ -500,7 +638,7 @@ class Trainer:
         start = self.global_step
         host = self._scan(stacked, list(range(n_steps)))
         self._replay_scan_metrics(host, n_steps, start)
-        logger.info("epoch %d (scan): %d steps in %.1fs", self.epoch,
+        logger.info("epoch %d (scan): %d steps in %.3fs", self.epoch,
                     n_steps, time.time() - t0)
         return {k: float(v.mean()) for k, v in host.items()}
 
@@ -643,7 +781,8 @@ class Trainer:
     # -- logging -----------------------------------------------------------
 
     def _make_writer(self):
-        if not self.train_cfg.get("logging", {}).get("tensorboard", True):
+        if self.rank != 0 or not self.train_cfg.get("logging", {}).get(
+                "tensorboard", True):
             return None
         try:
             from tensorboardX import SummaryWriter
@@ -715,10 +854,12 @@ class KoeMorphTrainer(Trainer):
             (config or {}).get("training", config or {}))
         super().__init__(model, config, **kw)
 
-    def loss_fn(self, batch, generator):
-        pred = self.model(batch["audio"], generator=generator)
-        target = batch["arkit"][:, 0, :]
-        pred, scale = _mask_padded(pred, target, batch)
+    def predict(self, batch, generator):
+        return (self.model(batch["audio"], generator=generator),
+                batch["arkit"][:, 0, :])
+
+    def loss_from(self, pred, target, mask):
+        pred, scale = _mask_padded(pred, target, mask)
         loss, metrics = koemorph_loss(pred, target, config=self.loss_config)
         return loss * scale, metrics
 
@@ -738,12 +879,15 @@ class DualStreamTrainer(Trainer):
             tcfg.get("stream_separation_weight", 0.01))
         super().__init__(model, config, **kw)
 
-    def loss_fn(self, batch, generator):
+    def predict(self, batch, generator):
         pred = self.model(batch["audio"], generator=generator)["blendshapes"]
         target = batch["blendshapes"]
         if target.dim() == 3:   # (B, W, 52) window -> its last frame
             target = target[:, -1, :]
-        pred, scale = _mask_padded(pred, target, batch)
+        return pred, target
+
+    def loss_from(self, pred, target, mask):
+        pred, scale = _mask_padded(pred, target, mask)
         att = self.model.dual_stream_attention
         mel_w, emo_w = _learned(att, "mel_weights"), _learned(
             att, "emotion_weights")
@@ -787,13 +931,15 @@ class SequentialTrainer(Trainer):
         self._seq_file: int = -1
         super().__init__(model, config, **kw)
 
-    def loss_fn(self, batch, generator):
+    def predict(self, batch, generator):
         out = self.model(batch["audio"], generator=generator)
         pred_seq = out["blendshapes"]                  # (B, T_out, 52)
-        target_seq = sequence_targets(
+        return pred_seq, sequence_targets(
             batch["blendshapes"], self.model.window_frames,
             self.model.stride_frames, pred_seq.shape[1])
-        pred_seq, scale = _mask_padded(pred_seq, target_seq, batch)
+
+    def loss_from(self, pred_seq, target_seq, mask):
+        pred_seq, scale = _mask_padded(pred_seq, target_seq, mask)
         loss, metrics = sequence_koemorph_loss(pred_seq, target_seq,
                                                config=self.loss_config)
         att = self.model.dual_stream_attention

@@ -77,6 +77,8 @@ SURFACE = {
     ],
     "koemorph_tpu_torch.parallel.mesh": [
         "batch_leading_size", "pad_batch_to_size", "pad_batch_to_multiple",
+        "DATA_AXIS", "make_mesh", "batch_sharding", "replicated_sharding",
+        "shard_batch", "replicate", "local_batch_size",
     ],
 }
 
@@ -84,11 +86,10 @@ SURFACE = {
 NOT_YET = {
     # Flax train state: ROADMAP.md "Not to port"
     "koemorph_tpu.train": {"TrainState", "create_train_state"},
-    # the mesh and tensor-parallel helpers: item 8 (several GPUs)
+    # the tensor-parallel helpers (parallel/tp.py): ROADMAP.md section 1,
+    # the tensor-parallel trainer, queued
     "koemorph_tpu.parallel": {
-        "DATA_AXIS", "make_mesh", "batch_sharding", "replicated_sharding",
-        "shard_batch", "replicate", "local_batch_size", "MODEL_AXIS",
-        "TP_RULES", "make_mesh_2d",
+        "MODEL_AXIS", "TP_RULES", "make_mesh_2d",
         "partition_spec_for", "shard_tree", "tree_partition_specs",
         "tree_shardings"},
 }
