@@ -236,6 +236,22 @@ inside ``plain_forms()``.
    (loss rtol 1e-5, parameters rtol 2e-4 / atol 2e-6), a two-rank resume
    bitwise the uninterrupted two-rank run; each kernel against its plain
    form on the arguments the eager twins passed.
+19. tensor-parallel training, on the one card (``slice15_phases``): the
+   flagship ``SequentialTrainer`` (batch 16, span 288) with
+   ``tensor_parallel=True`` as gloo ranks sharing ``cuda:0`` on grids
+   (1, 2) and (2, 2), relaunching this script as the rank program
+   (``--tp-rank``) under ``torch.distributed.run``: 4 eager steps against
+   the single-process eager steps (losses rtol 1e-5; the first whole
+   gradients against the single process's float64 gradient after the
+   features by the CPU tests' rule, and in float64 within 1e-9 of it; the
+   parameters within the sharded-step bounds after the first step and
+   JAX's tensor-parallel run bounds after the fourth), the split leaves'
+   and their moments' bytes per rank, the collectives per step by name,
+   step times beside the single process's and two data-parallel gloo
+   ranks'; the grid
+   (1, 1) of a world-1 NCCL group through ``compiled_step`` bit for bit
+   the single-process compiled step; K1-K3's launches counted on the
+   ranks and held against their plain forms on a rank's arguments.
 
 Every check that fails raises, so the script exits non-zero; no phase
 catches its own failure. Among the checks: the graphed single-session
@@ -257,6 +273,7 @@ import io
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -4873,9 +4890,506 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
     return out
 
 
+#: phase 19's runs, named in the kernels table
+SLICE15_PATHS = {"tp 1x2": "tensor-parallel rank (1, 2)",
+                 "tp 2x2": "tensor-parallel rank (2, 2)"}
+#: the grids phase 19 trains on (gloo ranks sharing the card)
+TP_GRIDS = ((1, 2), (2, 2))
+TP_STEPS = 4
+TP_BATCH = 16
+#: a tensor-parallel gradient leaf against the single process's float64
+#: gradient after the features: within this share of the leaf's largest
+#: element, or within twice the distance of a float32 evaluation of the
+#: same gradient where that is larger (tests/test_torch_train.py's rule,
+#: the single process in JAX's place: the larger distance of its gradient
+#: and of the two data-parallel ranks'); a leaf past that (one that sums terms far larger
+#: than itself, as smoothing_alpha) is held within the rule's loosest
+#: bound, 20 x TP_GRAD_TOL, where the tensor-parallel gradient in float64
+#: is, within TP_GRAD64_TOL, that of the run with the same data blocks and
+#: no split layer (the single process, or the data-parallel ranks): the
+#: same function, rounded otherwise
+TP_GRAD_TOL = 1e-4
+TP_GRAD64_TOL = 1e-9
+#: the parameters after TP_STEPS steps: the bounds JAX's own
+#: tensor-parallel trainer test holds a two-step run to
+#: (tests/parallel/test_tp_sp.py), since Adam amplifies reduction-order
+#: noise wherever a moment nears zero; after the first step the
+#: sharded-step bounds (DP_PARAM_RTOL / DP_PARAM_ATOL) hold
+TP_RUN_RTOL, TP_RUN_ATOL = 1e-3, 1e-5
+
+
+def _phase19_trainer(work_dir: Path, mesh=None, tp: bool = False,
+                     graphs=None):
+    """The flagship ``SequentialTrainer`` (``configs/dual_stream_config.
+    yaml``, span 288) of phase 19."""
+    from koemorph_tpu_torch.train.__main__ import build_model
+    from koemorph_tpu_torch.train.trainer import SequentialTrainer
+    from koemorph_tpu_torch.utils.config import load_config, to_dict
+    cfg = load_config(ROOT / "configs" / "dual_stream_config.yaml")
+    model, _ = build_model(cfg)
+    return SequentialTrainer(
+        model, to_dict(cfg), work_dir=work_dir, steps_per_epoch=TP_STEPS,
+        span_frames=model.window_frames + 32, mesh=mesh,
+        tensor_parallel=tp, graphs=graphs)
+
+
+def _whole_grads(trainer, prepared: dict) -> dict:
+    """The whole reduced gradients of the trainer's next step, its dropout
+    masks included (nothing updated): tensor-parallel, gathered over the
+    model group."""
+    import torch
+    from koemorph_tpu_torch.parallel.tp import gather_shards
+    from koemorph_tpu_torch.train.trainer import dropout_generator
+    trainer.model.train()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        loss, _ = trainer._loss(prepared, dropout_generator(
+            trainer.dropout_seed, trainer.global_step, trainer.device))
+        grads = torch.autograd.grad(loss, list(trainer.params.values()),
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(trainer.params.items(), grads)}
+    if trainer.mesh is not None:
+        grads = trainer._reduce_grads(grads)
+    return {k: v.detach() for k, v in gather_shards(
+        grads, trainer.tp_specs, trainer.mesh).items()} \
+        if trainer.tp_specs else {k: v.detach() for k, v in grads.items()}
+
+
+@contextlib.contextmanager
+def _float64_after_features(model):
+    """``model`` in float64 after its features, in place: its log-mel
+    frames (K3) and emotion features (K1, K2) are computed in float32 by
+    the kernels and cast up, everything after them runs in float64, as
+    the CPU tests take JAX's float64 gradient; the dropout masks are drawn
+    in float32, so they are the float32 step's. The float32 parameters
+    round-trip exactly."""
+    import torch
+    from koemorph_tpu_torch.ops import frontend
+    real_logmel, real_emotion = frontend.frames_to_logmel, model.emotion_raw
+    real_rand = torch.rand
+    frontend.frames_to_logmel = \
+        lambda frames, **kw: real_logmel(frames.float(), **kw).double()
+    model.emotion_raw = lambda audio: real_emotion(audio.float()).double()
+    torch.rand = lambda *a, dtype=None, **kw: real_rand(
+        *a, dtype=torch.float32 if dtype == torch.float64 else dtype, **kw)
+    model.double()
+    try:
+        yield
+    finally:
+        model.float()
+        del model.emotion_raw
+        torch.rand = real_rand
+        frontend.frames_to_logmel = real_logmel
+
+
+def _adam_first_spread(g, bound: float, lr: float, eps: float):
+    """How far Adam's first update ``lr * g / (|g| + eps)`` moves over the
+    gradients within ``bound`` of ``g``: the parameters of two steps whose
+    gradients both pass the gradient check differ by at most this."""
+    a = g.abs()
+
+    def f(x):
+        return x / (x.abs() + eps)
+
+    return lr * (f(a + bound) - f(a - bound))
+
+
+def _tp_batches(path: Path) -> list:
+    data = np.load(path)
+    return [{k.split("/", 1)[1]: data[k] for k in data.files
+             if k.startswith(f"{i}/")} for i in range(TP_STEPS)]
+
+
+def tp_rank_main(spec_path: str) -> int:
+    """One gloo rank of phase 19, started by ``python -m
+    torch.distributed.run ... chip_smoke.py --tp-rank <spec.json>`` on the
+    card: the flagship trainer on a ``(data, model)`` grid
+    (tensor-parallel) or a row of ranks (data-parallel), the whole first
+    gradients, ``TP_STEPS`` eager steps with the launch counts set to 0
+    just before them, the collectives and the step times, the whole
+    parameters after them; rank 0 writes them and the kernels' recorded
+    arguments under the spec's ``out``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.parallel import (distributed, make_mesh,
+                                             make_mesh_2d)
+    from koemorph_tpu_torch.parallel.tp import gather_shards
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.init_process_group(backend="gloo")
+    try:
+        me = distributed.rank()
+        mesh = make_mesh_2d(*spec["grid"]) if spec["tp"] else make_mesh()
+        t = _phase19_trainer(out / f"work{me}", mesh, spec["tp"],
+                             graphs=False)
+        prep = [t._prepare(b) for b in _tp_batches(Path(spec["batches"]))]
+        rec: dict = {}
+        with recording_kernels(rec, spec["tag"]):
+            grads = _whole_grads(t, prep[0])
+        with _float64_after_features(t.model):
+            grads64 = _whole_grads(t, prep[0])
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        before = collections.Counter(distributed.COLLECTIVES)
+        losses, ms = [], []
+        for i, p in enumerate(prep):
+            t0 = time.perf_counter()
+            m = t.train_step(p)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:              # (its gathers are not the step's)
+                held = collections.Counter(distributed.COLLECTIVES)
+                first = {k: v.detach().cpu().clone() for k, v in
+                         gather_shards(dict(t.params), t.tp_specs,
+                                       mesh).items()}
+                before.update(distributed.COLLECTIVES)
+                before.subtract(held)
+        launches = dict(ck.LAUNCHES)
+        shapes = [[n, list(s), c] for (n, s), c in ck.SHAPE_LAUNCHES.items()]
+        per_step = {k: (v - before[k]) / TP_STEPS
+                    for k, v in distributed.COLLECTIVES.items()
+                    if v != before[k]}
+        params = gather_shards(dict(t.params), t.tp_specs, mesh)
+        opt = t.optimizer
+        split = sorted(t.tp_specs)
+
+        def nbytes(ts):
+            return int(sum(v.numel() * v.element_size() for v in ts))
+
+        res = {"rank": me, "coords": [mesh.data_rank, mesh.model_rank],
+               "block_rows": int(prep[0]["sample_mask"].shape[0]),
+               "losses": losses, "step_ms_host_to_sync": ms,
+               "collectives_per_step": per_step, "launches": launches,
+               "launches_by_shape": shapes, "split_leaves": len(split),
+               "bytes": {
+                   "split_params_local": nbytes(t.params[k] for k in split),
+                   "split_params_whole": nbytes(params[k] for k in split),
+                   "split_moments_local": nbytes(
+                       [opt.mu[k] for k in split]
+                       + [opt.nu[k] for k in split]),
+                   "params_local": nbytes(t.params.values()),
+                   "params_whole": nbytes(params.values())}}
+        if me == 0:
+            torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                        "grads64": {k: v.cpu() for k, v in grads64.items()},
+                        "first": first,
+                        "params": {k: v.detach().cpu()
+                                   for k, v in params.items()}},
+                       out / "result.pt")
+            torch.save(rec, out / "rec.pt")
+        (out / f"rank{me}.json").write_text(json.dumps(res))
+    finally:
+        distributed.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(name: str, work: Path, env: dict, world: int, spec: dict,
+                  timeout: float = 300) -> tuple[list, float]:
+    """Phase 19's ``world`` gloo ranks of ``spec`` under
+    ``torch.distributed.run``, in a session of their own (killed whole
+    past ``timeout``); returns each rank's result and the wall seconds."""
+    import signal
+    out = work / f"tp_{name}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    spec = dict(spec, out=str(out))
+    (out / "spec.json").write_text(json.dumps(spec))
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+            str(world), "--master-port", str(free_port()),
+            str(ROOT / "chip_smoke.py"), "--tp-rank", str(out / "spec.json")]
+    t0 = time.perf_counter()
+    with open(out / "log.txt", "w") as log:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"tensor-parallel ranks {name} failed ({rc}):\n"
+          + (out / "log.txt").read_text()[-4000:])
+    return ([json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)], wall)
+
+
+def slice15_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
+    """Phase 19: tensor-parallel training on the one card.
+
+    ``tp``: the flagship ``SequentialTrainer`` (``configs/dual_stream_
+    config.yaml``, batch 16, span 288, on phase 10's synthetic files)
+    with ``tensor_parallel=True`` as gloo ranks sharing ``cuda:0``, on
+    grids (1, 2) and (2, 2), ``TP_STEPS`` eager steps each, against the
+    single-process eager trainer of this process from the same seed: the
+    losses at rtol 1e-5; the first step's whole gradients against the
+    single process's float64 gradient after the features
+    (:func:`_float64_after_features`) by ``TP_GRAD_TOL``'s rule, and the
+    ranks' own float64 gradient within ``TP_GRAD64_TOL`` of the float64
+    gradient of the run with the same data blocks (the single process at
+    D = 1, the data-parallel ranks at D = 2); the
+    parameters after the first step at rtol 2e-4 / atol 2e-6 (an element
+    outside accepted where Adam's first update spreads as far over the
+    gradients the gradient check allows, :func:`_adam_first_spread`) and
+    after the last at ``TP_RUN_RTOL`` / ``TP_RUN_ATOL``; the losses alike
+    on every rank; the
+    bytes of the split parameters and their moments per rank; the
+    collectives per step by name; step times beside the single process's
+    and two data-parallel gloo ranks'. ``tp_nccl``: a world-1 NCCL group
+    in this process, grid (1, 1), the tensor-parallel trainer through
+    ``compiled_step`` bit for bit the single-process compiled step.
+    Each grid's rank 0 records K1-K3's arguments, held against their
+    plain forms here; the ranks count their launches. Returns the
+    recorded arguments, launch counts and holds by path, for the kernels
+    table."""
+    import torch
+    from koemorph_tpu_torch.data.sequential import (
+        create_sequential_dataloader)
+    from koemorph_tpu_torch.ops import cuda as ck
+    from koemorph_tpu_torch.parallel import distributed, make_mesh_2d
+    from koemorph_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    out: dict = {"rec": {}, "shapes": {}}
+    cfg = load_config(ROOT / "configs" / "dual_stream_config.yaml")
+    loader_fn, _ = create_sequential_dataloader(
+        synth, batch_size=TP_BATCH, window_frames=288,
+        stride_frames=int(cfg.data.stride_frames),
+        sample_rate=int(cfg.data.sample_rate),
+        target_fps=float(cfg.data.target_fps))
+    batches = [b for _, b in zip(range(TP_STEPS), loader_fn())]
+    check(len(batches) == TP_STEPS and all(
+        b["audio"].shape[0] == TP_BATCH for b in batches),
+        f"phase 19's batches: {[b['audio'].shape for b in batches]}")
+    batch_file = work / "tp_batches.npz"
+    np.savez(batch_file, **{f"{i}/{k}": np.asarray(v)
+                            for i, b in enumerate(batches)
+                            for k, v in b.items() if not isinstance(v, list)})
+
+    # ---- the single-process eager reference ----
+    single = _phase19_trainer(work / "tp_single", graphs=False)
+    prep_s = [single._prepare(b) for b in batches]
+    g_single = {k: v.cpu() for k, v in _whole_grads(single,
+                                                     prep_s[0]).items()}
+    with _float64_after_features(single.model):
+        g64 = {k: v.cpu() for k, v in _whole_grads(single,
+                                                    prep_s[0]).items()}
+    scale = {k: float(g.abs().max()) for k, g in g64.items()}
+    lr0, eps = single.optimizer.lr, single.optimizer.eps
+    loss_s = [float(single.train_step(prep_s[0])["loss"])]
+    p_first = {k: v.detach().cpu().clone()
+               for k, v in single.params.items()}
+    loss_s += [float(single.train_step(p)["loss"]) for p in prep_s[1:]]
+    p_single = {k: v.detach().cpu() for k, v in single.params.items()}
+    ms_single = wall_ms(lambda: single.train_step(prep_s[0]), 3)
+    del single
+
+    # ---- the gloo ranks: two grids, and two data-parallel ranks ----
+    runs, walls = {}, {}
+    for grid in TP_GRIDS:
+        tag = f"tp {grid[0]}x{grid[1]}"
+        runs[tag], walls[tag] = _launch_ranks(
+            f"{grid[0]}x{grid[1]}", work, env, grid[0] * grid[1],
+            {"grid": list(grid), "tp": True, "tag": tag,
+             "batches": str(batch_file)})
+        res = torch.load(work / f"tp_{grid[0]}x{grid[1]}" / "result.pt")
+        out["rec"].update(torch.load(
+            work / f"tp_{grid[0]}x{grid[1]}" / "rec.pt",
+            map_location=torch.device(DEVICE)))
+        out["shapes"][tag] = {(n, tuple(s)): c for n, s, c in
+                              runs[tag][0]["launches_by_shape"]}
+        runs[tag + " result"] = res
+    runs["dp 2"], walls["dp 2"] = _launch_ranks(
+        "dp2", work, env, 2, {"grid": None, "tp": False, "tag": "dp 2",
+                              "batches": str(batch_file)})
+    res_dp = torch.load(work / "tp_dp2" / "result.pt")
+    g_dp = res_dp["grads"]
+    # the float32 evaluations of the gradient that split no layer
+    d_single = {k: max(float((g_[k].double() - g).abs().max())
+                       for g_ in (g_single, g_dp))
+                for k, g in g64.items()}
+    grad_bound = {k: max(TP_GRAD_TOL * scale[k], 2 * d_single[k])
+                  for k in g64}
+
+    report, bad = {}, {}
+    for grid in TP_GRIDS:
+        tag = f"tp {grid[0]}x{grid[1]}"
+        ranks_, res = runs[tag], runs[tag + " result"]
+        r0 = ranks_[0]
+        loss_rel = max(abs(a / b - 1) for a, b in zip(r0["losses"], loss_s))
+        grad_d = {k: float((res["grads"][k].double() - g).abs().max())
+                  for k, g in g64.items()}
+        # in float64 against the run with the same data blocks (their
+        # float32 features) and no split layer
+        ref64 = g64 if grid[0] == 1 else res_dp["grads64"]
+        grad64_d = {k: float((res["grads64"][k] - ref64[k]).abs().max())
+                    for k in g64}
+        grad_ok = {k: grad_d[k] <= grad_bound[k] or (
+            grad_d[k] <= 20 * TP_GRAD_TOL * scale[k]
+            and grad64_d[k] <= TP_GRAD64_TOL * scale[k]) for k in g64}
+        # after the first step: the sharded-step bounds; an element outside
+        # is accepted where Adam's first update, over the gradients within
+        # the gradient bound of its own, spreads as far (near a zero
+        # gradient, a sign; near eps, a share of lr)
+        outside_first = {}
+        for k, v in p_first.items():
+            diff = (res["first"][k] - v).abs()
+            miss = diff > DP_PARAM_ATOL + DP_PARAM_RTOL * v.abs()
+            if miss.any():
+                spread = _adam_first_spread(
+                    g64[k], max(grad_bound[k], grad_d[k]), lr0, eps)
+                unexplained = miss & (diff > DP_PARAM_ATOL
+                                      + DP_PARAM_RTOL * v.abs()
+                                      + spread.float())
+                outside_first[k] = [int(miss.sum()), int(unexplained.sum()),
+                                    float(diff.max())]
+        outside = {}
+        for k, v in p_single.items():
+            miss = ~torch.isclose(res["params"][k], v, rtol=TP_RUN_RTOL,
+                                  atol=TP_RUN_ATOL)
+            if miss.any():
+                outside[k] = [int(miss.sum()),
+                              float((res["params"][k] - v).abs().max())]
+        alike = all(r["losses"] == r0["losses"] for r in ranks_)
+        report[tag] = {
+            "ranks": len(ranks_), "block_rows": r0["block_rows"],
+            "losses": r0["losses"], "loss_max_rel_diff": loss_rel,
+            "grad_max_share_of_bound": max(
+                grad_d[k] / grad_bound[k] if grad_bound[k]
+                else float(grad_d[k] > 0) for k in g64),
+            "grad_past_1e-4_of_leaf_max": {
+                k: {"tp": grad_d[k] / scale[k],
+                    "unsplit_float32": d_single[k] / scale[k],
+                    "tp_float64": grad64_d[k] / scale[k]}
+                for k in g64 if grad_d[k] > TP_GRAD_TOL * scale[k]},
+            "grad64_max_share_of_leaf_max": max(
+                grad64_d[k] / scale[k] if scale[k] else float(
+                    grad64_d[k] > 0) for k in g64),
+            "params_first_step_outside_bounds": outside_first,
+            "params_outside_run_bounds": outside,
+            "losses_alike_on_every_rank": alike,
+            "split_leaves": r0["split_leaves"],
+            "bytes_per_rank": {f"rank {r['rank']}": r["bytes"]
+                               for r in ranks_},
+            "collectives_per_step": r0["collectives_per_step"],
+            "launches": r0["launches"],
+            "launches_by_shape": {f"{n}{s}": c for n, s, c in
+                                  r0["launches_by_shape"]},
+            "step_ms_host_to_sync": {f"rank {r['rank']}":
+                                     r["step_ms_host_to_sync"]
+                                     for r in ranks_},
+            "launch_wall_s": round(walls[tag], 1)}
+        bad[tag] = (loss_rel > DP_LOSS_RTOL
+                    or not all(grad_ok.values())
+                    or any(o[1] for o in outside_first.values())
+                    or bool(outside) or not alike)
+        check(r0["split_leaves"] == 17 and all(
+            r["bytes"]["split_params_local"] * grid[1]
+            == r["bytes"]["split_params_whole"]
+            and r["bytes"]["split_moments_local"]
+            == 2 * r["bytes"]["split_params_local"] for r in ranks_),
+            f"{tag}: the split leaves' bytes per rank {report[tag]}")
+        check(all(r0["launches"].get(n, 0) == TP_STEPS * k for n, k in
+                  (("cycle_dsum", 2), ("dk_roots", 1), ("logmel", 2))),
+              f"{tag}: rank 0 launched {r0['launches']}")
+    d2 = runs["dp 2"]
+    report["dp 2"] = {"losses": d2[0]["losses"],
+                      "grad_max_share_of_leaf_max_vs_single": max(
+                          float((g_dp[k] - g).abs().max()) / max(
+                              scale[k], 1e-30)
+                          for k, g in g_single.items()),
+                      "collectives_per_step": d2[0]["collectives_per_step"],
+                      "step_ms_host_to_sync": {f"rank {r['rank']}":
+                                               r["step_ms_host_to_sync"]
+                                               for r in d2},
+                      "launch_wall_s": round(walls["dp 2"], 1)}
+    emit({"phase": "tp", "card": card, "batch": TP_BATCH,
+          "steps": TP_STEPS, "single_process": {
+              "losses": loss_s, "step_ms_host_to_sync": ms_single,
+              "unsplit_float32_grad_past_1e-4_of_leaf_max": {
+                  k: d_single[k] / scale[k] for k in g64
+                  if d_single[k] > TP_GRAD_TOL * scale[k]}},
+          **report,
+          "bounds": {"loss_rtol": DP_LOSS_RTOL, "grad": TP_GRAD_TOL,
+                     "grad64": TP_GRAD64_TOL,
+                     "first_step_param_rtol": DP_PARAM_RTOL,
+                     "first_step_param_atol": DP_PARAM_ATOL,
+                     "run_param_rtol": TP_RUN_RTOL,
+                     "run_param_atol": TP_RUN_ATOL},
+          "note": "every rank shares the one card and its host; a step's "
+                  "host-to-sync ms include gloo's host round trips",
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    check(not any(bad.values()),
+          f"tensor-parallel steps against the single process: {bad}")
+
+    # ---- tp_nccl: grid (1, 1) of a world-1 NCCL group, compiled ----
+    pg_env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+              "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(pg_env)
+    try:
+        distributed.init_process_group()
+        single = _phase19_trainer(work / "tp_nccl_single")
+        tp1 = _phase19_trainer(work / "tp_nccl", make_mesh_2d(1, 1),
+                               tp=True)
+        check(single.mesh is None and tp1.mesh is not None
+              and tp1.mesh.shape == {"data": 1, "model": 1}
+              and not tp1.tp_specs and distributed.backend() == "nccl",
+              f"grid (1, 1) trainers: {tp1.mesh}, {tp1.tp_specs}")
+        prep_1 = [tp1._prepare(b) for b in batches]
+        prep_s = [single._prepare(b) for b in batches]
+        before = dict(distributed.COLLECTIVES)
+        m_tp = [float(tp1.compiled_step(p)["loss"]) for p in prep_1]
+        issued = {k: v - before.get(k, 0)
+                  for k, v in distributed.COLLECTIVES.items()
+                  if v != before.get(k, 0)}
+        m_s = [float(single.compiled_step(p)["loss"]) for p in prep_s]
+        diff = [k for k, v in single.params.items()
+                if not torch.equal(tp1.params[k], v)]
+        ms_tp = _event_ms(lambda: tp1.compiled_step(prep_1[0]), 6)
+        ms_s = _event_ms(lambda: single.compiled_step(prep_s[0]), 6)
+    finally:
+        distributed.destroy_process_group()
+        for key in pg_env:
+            os.environ.pop(key, None)
+    emit({"phase": "tp_nccl", "card": card, "grid": [1, 1],
+          "backend": "nccl", "batch": TP_BATCH, "steps": TP_STEPS,
+          "losses": m_tp, "losses_equal": m_tp == m_s,
+          "params_bitwise_vs_single_process": not diff,
+          "params_differing": diff, "collectives_issued": issued,
+          "step_ms_events": {"grid_1x1_nccl": q(ms_tp),
+                             "single_process": q(ms_s)},
+          "at_s": round(time.perf_counter() - T_START, 1)})
+    check(not diff and m_tp == m_s,
+          f"NCCL grid (1, 1) compiled step != single process: {diff}")
+    del single, tp1
+
+    held = hold_recorded(out["rec"], SLICE15_PATHS)
+    emit({"phase": "slice15_held", "held": {
+        f"{name} {tag} {shape}": {
+            k: v for k, v in r.items() if not isinstance(v, list)}
+        for (name, tag, shape), r in held.items()},
+        "seconds": round(time.perf_counter() - t_phase, 1)})
+    check(held and len(held) == 2 * 5 and all(r["ok"] for r in held.values()),
+          "a kernel disagrees with its plain form on phase 19's arguments: "
+          + str([k for k, r in held.items() if not r["ok"]]))
+    out["held"] = held
+    return out
+
+
 def main() -> int:  # noqa: C901
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":
+        return tp_rank_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -5851,6 +6365,9 @@ def main() -> int:  # noqa: C901
                     train["dk_held"]))
     s14 = slice14_phases(card, work, env, decoder, out_np, audio_b,
                          train["synth"])
+
+    # ---- 19. tensor-parallel training ----
+    s15 = slice15_phases(card, work, env, train["synth"])
     # the trainer allocates from the default pool, never from a graph's:
     # the decode's and the stream's graphs replay bitwise as before
     dec_after = decoder(audio_dev).cpu().numpy()
@@ -6378,7 +6895,7 @@ def main() -> int:  # noqa: C901
     # exported program's frames (its launches counted in the process that
     # ran it, the arguments recorded from the live module's frame)
     for s_, paths in ((s11, SLICE11_PATHS), (s12, SLICE12_PATHS),
-                      (s14, SLICE14_PATHS)):
+                      (s14, SLICE14_PATHS), (s15, SLICE15_PATHS)):
         rows_: dict = {}
         for (kname, tag, shape), r in sorted(s_["held"].items()):
             row = rows_.setdefault((kname, paths[tag], shape),

@@ -1,5 +1,5 @@
-"""The process group of data-parallel training: what XLA's collectives do
-for the JAX package's data mesh.
+"""The process group of data- and tensor-parallel training: what XLA's
+collectives do for the JAX package's meshes.
 
 Training over several GPUs runs one process per card, launched by
 ``python -m torch.distributed.run --nproc-per-node N ...``, which sets
@@ -14,10 +14,28 @@ raises; nothing here falls back to one process.
 sums the ranks' gradients, the adjoint of the forward.
 :func:`gather_rows` places a rank's block of rows into a zero-filled
 buffer of the global batch and sums it over the ranks, so every rank
-holds the global batch (adding zeros is exact). :data:`COLLECTIVES`
-counts the collectives issued from Python, by name, as
-``ops.cuda.LAUNCHES`` counts kernel launches: a CUDA graph that captured
-them replays them without a call.
+holds the global batch (adding zeros is exact).
+
+The collectives take a ``group`` (a subgroup from
+``torch.distributed.new_group``; None is every rank). Tensor parallelism
+(:mod:`koemorph_tpu_torch.parallel.tp`) runs Megatron's four operators
+over the model group, each for ranks that hold the same replicated
+activations and backpropagate the same loss:
+
+- :func:`copy_to_group`: identity forward, the gradients summed over the
+  group backward (a layer whose ranks each use a part of the weight);
+- :func:`reduce_from_group`: the sum over the group forward, identity
+  backward (the partial products of a row-split layer);
+- :func:`gather_last`: each rank's block of the last axis placed in zeros
+  and summed over the group forward (an all-gather; exact), this rank's
+  block of the gradient backward;
+- :func:`scatter_last`: this rank's block of the last axis forward, the
+  gradient gathered backward.
+
+:data:`COLLECTIVES` counts the collectives issued from Python, by name
+(``all_reduce``, ``all_gather``, ``broadcast``), as ``ops.cuda.LAUNCHES``
+counts kernel launches: a CUDA graph that captured them replays them
+without a call.
 """
 
 from __future__ import annotations
@@ -33,8 +51,9 @@ from koemorph_tpu_torch.device import DeviceLike
 
 __all__ = ["launched", "init_process_group", "is_initialized", "world_size",
            "rank", "local_rank", "backend", "rank_device", "all_reduce",
-           "all_reduce_",
-           "COLLECTIVES", "gather_rows", "broadcast_", "barrier", "destroy_process_group"]
+           "all_reduce_", "COLLECTIVES", "gather_rows", "copy_to_group",
+           "reduce_from_group", "gather_last", "scatter_last", "broadcast_",
+           "barrier", "destroy_process_group"]
 
 _ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 #: collectives issued, by name (a graph's replays issue none)
@@ -119,30 +138,33 @@ class _AllReduce(torch.autograd.Function):
     """Sum over the ranks; the backward sums the ranks' gradients."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        return all_reduce_(out)
+        return all_reduce_(out, group)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
-        return all_reduce_(grad.clone(memory_format=torch.contiguous_format))
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_(grad.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
 
 
-def all_reduce(x: torch.Tensor) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over the ranks, as a new tensor, differentiable:
     when every rank backpropagates the same loss through it, each input's
     gradient is the world size times that loss's gradient."""
-    return _AllReduce.apply(x)
+    return _AllReduce.apply(x, group)
 
 
-def all_reduce_(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``x`` over the ranks in place (not differentiable)."""
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     COLLECTIVES["all_reduce"] += 1
     return x
 
 
-def gather_rows(x: torch.Tensor, start: int, total: int) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, start: int, total: int,
+                group=None) -> torch.Tensor:
     """The ``(total, ...)`` global batch on every rank, from each rank's
     rows ``[start, start + len(x))``: the block placed in zeros and summed
     over the ranks (differentiable, through :func:`all_reduce`)."""
@@ -152,7 +174,101 @@ def gather_rows(x: torch.Tensor, start: int, total: int) -> torch.Tensor:
                          f"batch of {total}")
     full = torch.cat([x.new_zeros((start,) + x.shape[1:]), x,
                       x.new_zeros((tail,) + x.shape[1:])])
-    return all_reduce(full)
+    return all_reduce(full, group)
+
+
+def _gather_last(x: torch.Tensor, start: int, total: int,
+                 group) -> torch.Tensor:
+    """Every rank's block of the last axis, in a new ``(..., total)``
+    tensor: this rank's ``x`` at ``[start, start + x.shape[-1])``, zeros
+    elsewhere, summed over the group (adding zeros is exact)."""
+    if start < 0 or start + x.shape[-1] > total:
+        raise ValueError(f"features [{start}, {start + x.shape[-1]}) "
+                         f"outside {total}")
+    full = x.new_zeros(x.shape[:-1] + (total,))
+    full[..., start:start + x.shape[-1]] = x
+    dist.all_reduce(full, group=group)
+    COLLECTIVES["all_gather"] += 1
+    return full
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_(grad.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return all_reduce_(x.detach().clone(
+            memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, start: int, total: int,
+                group) -> torch.Tensor:
+        ctx.block = (start, start + x.shape[-1])
+        return _gather_last(x.detach(), start, total, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        lo, hi = ctx.block
+        return grad[..., lo:hi], None, None, None
+
+
+class _ScatterLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, start: int, stop: int,
+                group) -> torch.Tensor:
+        ctx.block, ctx.total, ctx.group = start, x.shape[-1], group
+        return x[..., start:stop]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (_gather_last(grad, ctx.block, ctx.total, ctx.group), None,
+                None, None)
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` unchanged; its gradient is summed over the group, where each
+    rank computed a part of it (Megatron's copy to the model-parallel
+    region)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the group, as a new tensor; the gradient
+    passes unchanged (every rank holds the same one)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_last(x: torch.Tensor, start: int, total: int,
+                group=None) -> torch.Tensor:
+    """The ``(..., total)`` tensor whose features ``[start, start +
+    x.shape[-1])`` each rank of the group holds as ``x`` (the blocks
+    cover ``total`` once), on every rank; the gradient of ``x`` is this
+    rank's block of the output's gradient."""
+    return _GatherLast.apply(x, start, total, group)
+
+
+def scatter_last(x: torch.Tensor, start: int, stop: int,
+                 group=None) -> torch.Tensor:
+    """This rank's features ``[start, stop)`` of ``x``, which every rank
+    of the group holds whole; the gradient of ``x`` gathers the ranks'
+    blocks."""
+    return _ScatterLast.apply(x, start, stop, group)
 
 
 def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:

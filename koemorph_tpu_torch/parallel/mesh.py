@@ -1,8 +1,10 @@
 """Device meshes and batch sharding: the counterpart of
 ``koemorph_tpu.parallel.mesh``.
 
-A :class:`Mesh` is a 1-D row of device entries on the ``data`` axis. It
-comes in two kinds:
+A :class:`Mesh` is a 1-D row of device entries on the ``data`` axis, or
+a ``(data, model)`` grid of them for tensor parallelism
+(:func:`koemorph_tpu_torch.parallel.tp.make_mesh_2d`). It comes in two
+kinds:
 
 - **one process drives every entry** (``mesh.rank is None``): the
   session-sharded server (``MultiStreamInference(mesh=...)``) and the mesh
@@ -49,18 +51,26 @@ DATA_AXIS = "data"
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 1-D device mesh. ``devices`` is a numpy object array of
-    ``torch.device`` (``.size`` and ``.shape[0]`` read as in JAX);
-    ``rank`` is this process's entry when each entry is a process of a
-    ``torch.distributed`` group, None when one process drives them all."""
+    """A device mesh: a row of device entries on the ``data`` axis, or a
+    ``(data, model)`` grid (:func:`koemorph_tpu_torch.parallel.tp.
+    make_mesh_2d`). ``devices`` is a numpy object array of
+    ``torch.device`` (``.size`` and ``.shape`` read as in JAX); ``rank``
+    is this process's entry (row-major in a grid) when each entry is a
+    process of a ``torch.distributed`` group, None when one process drives
+    them all. In a process group, ``data_group`` holds the ranks of this
+    rank's grid column (its model rank; they split the batch) and
+    ``model_group`` those of its row (they split the parameters); None
+    is every rank."""
 
     devices: np.ndarray
     axis_names: tuple = (DATA_AXIS,)
     rank: Optional[int] = None
+    data_group: Any = dataclasses.field(default=None, repr=False)
+    model_group: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def shape(self) -> dict:
-        return {self.axis_names[0]: int(self.devices.shape[0])}
+        return dict(zip(self.axis_names, map(int, self.devices.shape)))
 
     @property
     def size(self) -> int:
@@ -72,10 +82,32 @@ class Mesh:
         return self.rank is not None
 
     @property
+    def data_size(self) -> int:
+        """The entries on the data axis: the batch's blocks."""
+        return int(self.devices.shape[0])
+
+    @property
+    def model_size(self) -> int:
+        """The entries on the model axis (1 without one)."""
+        return self.size // self.data_size
+
+    @property
+    def data_rank(self) -> Optional[int]:
+        """This process's place on the data axis: its block of the
+        batch."""
+        return None if self.rank is None else self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> Optional[int]:
+        """This process's place on the model axis: its shard of the
+        parameters."""
+        return None if self.rank is None else self.rank % self.model_size
+
+    @property
     def local_device(self) -> torch.device:
         """This process's entry's device (the first entry's when one
         process drives them all)."""
-        return self.devices[self.rank or 0]
+        return self.devices.flat[self.rank or 0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -185,27 +217,28 @@ def _as_tensor(x) -> torch.Tensor:
 
 def shard_batch(batch: Any, mesh: Mesh, axis_name: str = DATA_AXIS):
     """Place a batch (a dict, list or tuple of arrays or tensors, or one)
-    on the mesh, split on axis 0 into the entries' blocks; 0-d leaves are
-    replicated. The leading dims must divide over the mesh (pad with
+    on the mesh, split on axis 0 into the data axis's blocks (a grid's
+    model axis replicates them); 0-d leaves are replicated. The leading
+    dims must divide over the data axis (pad with
     :func:`pad_batch_to_multiple`).
 
-    In one process: a list with one batch per entry, on that entry's
-    device. In a process group: this rank's block, on its device."""
-    del axis_name                     # the mesh has one axis
+    In one process: a list with one batch per entry (row-major), on that
+    entry's device. In a process group: this rank's block, on its
+    device."""
+    del axis_name                     # the batch splits on the data axis
 
-    def place(entry):
-        dev = mesh.devices[entry]
-
+    def place(block, dev):
         def put(x):
             t = _as_tensor(x)
             if t.dim() > 0:
-                t = t[block_rows(t.shape[0], mesh.size, entry)]
+                t = t[block_rows(t.shape[0], mesh.data_size, block)]
             return t.to(dev)
         return _map(put, batch)
 
     if mesh.distributed:
-        return place(mesh.rank)
-    return [place(i) for i in range(mesh.size)]
+        return place(mesh.data_rank, mesh.local_device)
+    return [place(i // mesh.model_size, d)
+            for i, d in enumerate(mesh.devices.flat)]
 
 
 def replicate(tree: Any, mesh: Mesh):
@@ -229,9 +262,9 @@ def replicate(tree: Any, mesh: Mesh):
         distributed.broadcast_(leaves)
         return tree
     if isinstance(tree, torch.nn.Module):
-        return [copy.deepcopy(tree).to(d) for d in mesh.devices]
+        return [copy.deepcopy(tree).to(d) for d in mesh.devices.flat]
     return [_map(lambda x: _as_tensor(x).to(d, copy=True), tree)
-            for d in mesh.devices]
+            for d in mesh.devices.flat]
 
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:

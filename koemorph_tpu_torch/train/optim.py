@@ -140,6 +140,9 @@ class Optimizer:
         self.momentum = float(momentum)
         self.eps = float(eps)
         self.clip = float(clip) if clip else None
+        #: the clip's norm of a dict of gradients (a tensor-parallel
+        #: trainer sets the norm of the whole gradients over its ranks)
+        self.global_norm: Callable[[dict], torch.Tensor] = _norm_of
         self.accumulate = int(accumulate or 1)
         self.count = 0
         self.mini_step = 0
@@ -230,7 +233,7 @@ class Optimizer:
                 return
             grads = self.acc
         if self.clip is not None:
-            norm = global_norm(grads.values())
+            norm = self.global_norm(grads)
             keep = norm < self.clip
             grads = {k: torch.where(keep, g, g / norm * self.clip)
                      for k, g in grads.items()}
@@ -310,6 +313,10 @@ class Optimizer:
             held = getattr(self, key)
             for k, t in value.items():
                 held[k].copy_(t)
+
+
+def _norm_of(grads: dict) -> torch.Tensor:
+    return global_norm(grads.values())
 
 
 def _moments(name) -> str:

@@ -1,6 +1,7 @@
 """Trainers: the legacy frame trainer, the dual-stream window trainer and
 the sequential trainer, the counterpart of ``koemorph_tpu.train.trainer``,
-on one device or data-parallel over a ``torch.distributed`` group.
+on one device, or data- and tensor-parallel over a ``torch.distributed``
+group.
 
 A train step runs eagerly in full fp32: the model's forward (in training
 mode, dropout masks drawn from a generator seeded from ``(seed, step)``),
@@ -52,9 +53,24 @@ gloo on the card the compiled step and the scan epochs raise (pass
 ``graphs=False``). Only rank 0 writes checkpoints and TensorBoard
 scalars; every rank reads a checkpoint on ``resume``.
 
-Not ported (raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): tensor parallelism. A mesh of several entries in one process
-raises ``ValueError``: training over several cards runs one process each.
+Tensor parallelism (``tensor_parallel=True`` with a ``(data, model)``
+grid of a process group, :func:`~koemorph_tpu_torch.parallel.tp.
+make_mesh_2d`): the parameters the rule table splits, and their optimizer
+moments, are held 1/M per rank of a model group by sharded layers that
+take and return the whole activations
+(:func:`~koemorph_tpu_torch.parallel.tp.parallelize`), so every rank of a
+model group computes the same loss of the same data block. The batch
+splits on the data axis only, padded to a multiple of every rank (D x M,
+as JAX pads to ``mesh.devices.size``); the gradients are summed over the
+data group and divided by D; the clip's global norm sums the split
+leaves' squares over the model group and counts the replicated leaves
+once; AdamW updates each rank's shards. Checkpoints hold the whole
+tensors, gathered over the model group (a single-process trainer,
+``infer`` and ``serve`` load them); on ``resume`` every rank reads them
+and keeps its shards. A grid without a ``model`` axis raises
+``ValueError``; at M = 1 nothing is split and the trainer is the
+data-parallel one. A mesh of several entries in one process raises
+``ValueError``: training over several cards runs one process each.
 """
 
 from __future__ import annotations
@@ -84,6 +100,8 @@ from koemorph_tpu_torch.parallel.mesh import (Mesh, batch_leading_size,
                                               pad_batch_to_multiple,
                                               pad_batch_to_size, replicate,
                                               shard_batch)
+from koemorph_tpu_torch.parallel.tp import (MODEL_AXIS, gather_shards,
+                                            local_shards, parallelize)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
 from koemorph_tpu_torch.train.checkpoint import CheckpointManager
 from koemorph_tpu_torch.train.optim import (create_lr_schedule,
@@ -98,8 +116,10 @@ __all__ = ["Trainer", "KoeMorphTrainer", "DualStreamTrainer",
            "loss_config_from", "sequence_targets", "dropout_generator",
            "dropout_seed", "scan_orders"]
 
-#: where the feature that is not ported is queued
-TP_ITEM = "ROADMAP.md section 1, item 8 (several GPUs: tensor parallelism)"
+
+#: the optimizer's per-parameter state: Adam's moments, SGD's momentum,
+#: the accumulator
+_OPT_TENSORS = ("mu", "nu", "trace", "acc")
 
 
 def loss_config_from(cfg: dict) -> KoeMorphLossConfig:
@@ -211,15 +231,22 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
                                  or a.index == b.index)
 
 
-def _placement(mesh: Optional[Mesh], device: DeviceLike
+def _placement(mesh: Optional[Mesh], device: DeviceLike,
+               tensor_parallel: bool = False
                ) -> tuple[torch.device, Optional[Mesh]]:
-    """The trainer's device, and its mesh when it trains data-parallel:
-    a process group's mesh (``mesh=None`` inside a group of world > 1
-    means every rank, on ``device`` when given). A one-entry mesh in one
-    process is that entry's device."""
+    """The trainer's device, and its mesh when it trains over ranks: a
+    process group's mesh (``mesh=None`` inside a group of world > 1
+    means every rank, on ``device`` when given), a row of ranks or a
+    ``(data, model)`` grid of them. A one-entry mesh in one process is
+    that entry's device. ``tensor_parallel`` needs a mesh with a
+    ``model`` axis (``ValueError``)."""
     if mesh is None and distributed.world_size() > 1:
         mesh = make_mesh(devices=None if device is None
                          else [device] * distributed.world_size())
+    if tensor_parallel and (mesh is None or MODEL_AXIS not in mesh.shape):
+        raise ValueError(
+            f"tensor_parallel=True needs a mesh with a '{MODEL_AXIS}' axis "
+            "(parallel.make_mesh_2d)")
     if mesh is None:
         return resolve_device(device), None
     if not mesh.distributed and mesh.size > 1:
@@ -264,7 +291,9 @@ class Trainer:
     on the card too. ``mesh`` (a process group's, from
     :func:`~koemorph_tpu_torch.parallel.make_mesh`) trains data-parallel
     (the module's docstring); so does ``mesh=None`` inside a process group
-    of world > 1.
+    of world > 1. ``tensor_parallel`` with a grid from
+    :func:`~koemorph_tpu_torch.parallel.make_mesh_2d` splits the rule
+    table's parameters over its model axis as well.
     """
 
     #: batch shapes whose graphs are kept, the least recently used dropped
@@ -275,14 +304,11 @@ class Trainer:
                  steps_per_epoch: int = 100, seed: int = 42,
                  tensor_parallel: bool = False,
                  device: DeviceLike = None, graphs: Optional[bool] = None):
-        if tensor_parallel:
-            raise NotImplementedError(
-                f"tensor parallelism is not ported: {TP_ITEM}")
-        self.device, self.mesh = _placement(mesh, device)
-        #: data-parallel world size and this process's rank (1 and 0 on
-        #: one device)
-        self.world = self.mesh.size if self.mesh is not None else 1
-        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self.device, self.mesh = _placement(mesh, device, tensor_parallel)
+        #: the batch's blocks (the data axis) and this process's block (1
+        #: and 0 on one device)
+        self.world = self.mesh.data_size if self.mesh is not None else 1
+        self.rank = self.mesh.data_rank if self.mesh is not None else 0
         self.config = config or {}
         self.train_cfg = self.config.get("training", self.config)
         self.work_dir = Path(work_dir)
@@ -296,11 +322,16 @@ class Trainer:
         self.model = model.to(self.device)
         if self.mesh is not None:           # every replica is rank 0's
             replicate(self.model, self.mesh)
+        #: the parameters split over the model axis: name -> spec
+        self.tp_specs = (parallelize(self.model, self.mesh)
+                         if tensor_parallel and self.mesh is not None
+                         else {})
         self.params = dict(self.model.named_parameters())
         self._schedule = create_lr_schedule(self.train_cfg, steps_per_epoch)
         self.optimizer = create_optimizer(self.train_cfg, self.params,
                                           steps_per_epoch,
                                           schedule=self._schedule)
+        self.optimizer.global_norm = self._global_norm
         self.dropout_seed = self.seed
         self.checkpoints = CheckpointManager(
             self.work_dir / "checkpoints",
@@ -352,20 +383,36 @@ class Trainer:
         if generator is not None:
             generator = BatchBlock(generator, start, start + rows, total)
         pred, target = self.predict(batch, generator)
+        group = self.mesh.data_group
         return self.loss_from(
-            distributed.gather_rows(pred, start, total),
-            distributed.gather_rows(target.detach(), start, total),
-            distributed.gather_rows(batch["sample_mask"], start, total))
+            distributed.gather_rows(pred, start, total, group),
+            distributed.gather_rows(target.detach(), start, total, group),
+            distributed.gather_rows(batch["sample_mask"], start, total,
+                                    group))
 
     def _reduce_grads(self, grads: dict) -> dict:
-        """The ranks' gradients summed in one flat all-reduce and divided
-        by the world size: every rank backpropagated the same global loss,
-        so the sum holds ``world`` copies of each row's gradient."""
+        """The data group's gradients summed in one flat all-reduce and
+        divided by its size: every rank backpropagated the same global
+        loss, so the sum holds ``world`` copies of each row's gradient
+        (a model group's ranks each reduce their own shards)."""
         flat = torch.cat([g.reshape(-1) for g in grads.values()])
-        distributed.all_reduce_(flat)
+        distributed.all_reduce_(flat, self.mesh.data_group)
         flat = flat / scalar_like(float(self.world), flat)
         parts = torch.split(flat, [g.numel() for g in grads.values()])
         return {k: p.view_as(g) for (k, g), p in zip(grads.items(), parts)}
+
+    def _global_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole gradients: tensor-parallel, the
+        split leaves' squares summed over the model group, the replicated
+        leaves' counted once."""
+        if not self.tp_specs:
+            return global_norm(grads.values())
+        split = sum(torch.sum(g * g) for k, g in grads.items()
+                    if k in self.tp_specs).reshape(1)
+        distributed.all_reduce_(split, self.mesh.model_group)
+        return torch.sqrt(split[0] + sum(
+            torch.sum(g * g) for k, g in grads.items()
+            if k not in self.tp_specs))
 
     # -- steps -------------------------------------------------------------
 
@@ -404,7 +451,7 @@ class Trainer:
                  for (k, p), g in zip(self.params.items(), grads)}
         if self.mesh is not None:
             grads = self._reduce_grads(grads)
-        norm = global_norm(grads.values())
+        norm = self._global_norm(grads)
         self.optimizer.update(grads, mini_step, scalars)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
@@ -491,7 +538,7 @@ class Trainer:
         optimizer's moments (or momentum) and accumulator."""
         opt = self.optimizer
         out = list(self.params.values())
-        for name in ("mu", "nu", "trace", "acc"):
+        for name in _OPT_TENSORS:
             held = getattr(opt, name, None)
             if held is not None:
                 out += list(held.values())
@@ -516,13 +563,13 @@ class Trainer:
 
     def _prepare(self, batch: dict) -> dict:
         """Arrays of a host batch on the device (lists dropped), with an
-        all-ones ``sample_mask``: one device pads nothing. Data-parallel:
-        the batch padded to a multiple of the world, masked, and this
-        rank's block of it."""
+        all-ones ``sample_mask``: one device pads nothing. Over ranks: the
+        batch padded to a multiple of every rank (the mesh's size),
+        masked, and this rank's block of it on the data axis."""
         if self.mesh is not None:
             host = {k: np.asarray(v) for k, v in batch.items()
                     if not isinstance(v, list)}
-            padded, real = pad_batch_to_multiple(host, self.world)
+            padded, real = pad_batch_to_multiple(host, self.mesh.size)
             mask = np.zeros((batch_leading_size(padded),), np.float32)
             mask[:real] = 1.0
             return shard_batch({**padded, "sample_mask": mask}, self.mesh)
@@ -565,8 +612,8 @@ class Trainer:
     def _stack_epoch(self, loader: Iterable[dict]) -> tuple[dict, int]:
         """Stack an epoch's batches into ``(S, B, ...)`` tensors on the
         device, one host-to-device copy per array. Every batch is padded
-        to the epoch's largest size (data-parallel: rounded up to a
-        multiple of the world) by repeating its last row
+        to the epoch's largest size (over ranks: rounded up to a multiple
+        of every rank) by repeating its last row
         (:func:`~koemorph_tpu_torch.parallel.mesh.pad_batch_to_size`),
         with ``sample_mask`` 0 on the padding, so the loss leaves the
         padding out; data-parallel, the rank keeps its block of axis 1.
@@ -576,8 +623,8 @@ class Trainer:
                 if not isinstance(v, list)} for b in loader]
         if not raw:
             return {}, 0
-        target = -(-max(batch_leading_size(b) for b in raw)
-                   // self.world) * self.world
+        n = self.mesh.size if self.mesh is not None else 1
+        target = -(-max(batch_leading_size(b) for b in raw) // n) * n
         shapes = {(k, np.shape(v)[1:], np.asarray(v).dtype)
                   for b in raw for k, v in b.items()}
         if len(shapes) != len(raw[0]):
@@ -693,11 +740,26 @@ class Trainer:
         self._log_scalars("val", out, self.global_step)
         return out
 
+    def model_state(self) -> dict:
+        """The model's state dict with whole tensors (tensor-parallel:
+        gathered over the model group, which every rank of it calls)."""
+        state = self.model.state_dict()
+        if self.tp_specs:
+            state = gather_shards(state, self.tp_specs, self.mesh)
+        return state
+
     def opt_state(self) -> dict:
         """What ``opt_state.pth`` holds: the optimizer state (its update
-        count sets the schedule) and the dropout seed."""
-        return {"optimizer": self.optimizer.state_dict(),
-                "dropout_seed": self.dropout_seed}
+        count sets the schedule) and the dropout seed; tensor-parallel,
+        the moments whole, gathered as :meth:`model_state`."""
+        state = self.optimizer.state_dict()
+        if self.tp_specs:
+            for key in _OPT_TENSORS:
+                held = getattr(self.optimizer, key, None)
+                if held is not None:
+                    state[key] = {k: v.cpu() for k, v in gather_shards(
+                        held, self.tp_specs, self.mesh).items()}
+        return {"optimizer": state, "dropout_seed": self.dropout_seed}
 
     def resume(self) -> bool:
         """Restore the parameters, the optimizer state and the bookkeeping
@@ -709,13 +771,21 @@ class Trainer:
         if restored is None:
             return False
         state, opt_state, meta = restored
+        if self.tp_specs:                  # whole tensors: keep the shards
+            state = local_shards(state, self.tp_specs, self.mesh)
         load_model_state(self.model, state)
         self.epoch = int(meta.get("epoch", -1)) + 1
         self.global_step = int(meta.get("global_step", 0))
         if opt_state is None:
             self.optimizer.fast_forward(self.global_step)
         else:
-            self.optimizer.load_state_dict(opt_state["optimizer"])
+            held = dict(opt_state["optimizer"])
+            if self.tp_specs:
+                for key in _OPT_TENSORS:
+                    if key in held:
+                        held[key] = local_shards(held[key], self.tp_specs,
+                                                 self.mesh)
+            self.optimizer.load_state_dict(held)
             self.dropout_seed = int(opt_state.get("dropout_seed",
                                                   self.dropout_seed))
         logger.info("resumed from epoch %d (step %d)", self.epoch,
@@ -723,7 +793,7 @@ class Trainer:
         return True
 
     def _save(self, val_loss: Optional[float]) -> None:
-        self.checkpoints.save(self.model.state_dict(), epoch=self.epoch,
+        self.checkpoints.save(self.model_state(), epoch=self.epoch,
                               global_step=self.global_step,
                               val_loss=val_loss, opt_state=self.opt_state())
 
@@ -781,12 +851,18 @@ class Trainer:
     # -- logging -----------------------------------------------------------
 
     def _make_writer(self):
-        if self.rank != 0 or not self.train_cfg.get("logging", {}).get(
-                "tensorboard", True):
+        """Rank 0's TensorBoard writer; None on the other ranks, or
+        without ``logging.tensorboard`` or tensorboardX. ``_tensorboard``
+        says on every rank whether rank 0 has one."""
+        self._tensorboard = False
+        if not self.train_cfg.get("logging", {}).get("tensorboard", True):
             return None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
+            return None
+        self._tensorboard = True
+        if self.mesh is not None and self.mesh.rank != 0:
             return None
         return SummaryWriter(str(self.work_dir / "tb"))
 
@@ -810,8 +886,11 @@ class Trainer:
         each map (for a sequential model its last window's) divided by its
         peak, as ``attention/mel`` and ``attention/emotion``. A model
         without ``return_attention`` turns the images off once; a failed
-        call logs and is tried again at the next interval."""
-        if self.writer is None or not self._attention_images:
+        call logs and is tried again at the next interval.
+        Tensor-parallel, the ranks of rank 0's model group run the forward
+        with it (its sharded layers' collectives)."""
+        joins = bool(self.tp_specs) and self.rank == 0 and self._tensorboard
+        if not self._attention_images or (self.writer is None and not joins):
             return
         if "return_attention" not in inspect.signature(
                 self.model.forward).parameters:
@@ -829,6 +908,8 @@ class Trainer:
             return
         if isinstance(out, tuple):
             out = out[0]
+        if self.writer is None:
+            return
         for name, key in (("mel", "mel_attention_weights"),
                           ("emotion", "emotion_attention_weights")):
             w = out.get(key)

@@ -86,12 +86,6 @@ SURFACE = {
 NOT_YET = {
     # Flax train state: ROADMAP.md "Not to port"
     "koemorph_tpu.train": {"TrainState", "create_train_state"},
-    # the tensor-parallel helpers (parallel/tp.py): ROADMAP.md section 1,
-    # the tensor-parallel trainer, queued
-    "koemorph_tpu.parallel": {
-        "MODEL_AXIS", "TP_RULES", "make_mesh_2d",
-        "partition_spec_for", "shard_tree", "tree_partition_specs",
-        "tree_shardings"},
 }
 
 

@@ -239,12 +239,15 @@ def free_port() -> int:
         return probe.getsockname()[1]
 
 
-def start(world: int, checks: list, out: Path) -> tuple:
+def start(world: int, checks: list, out: Path,
+          module: str = "tests.test_torch_dp_ranks", **extra) -> tuple:
     """Start ``checks`` on ``world`` ranks in processes of their own (gloo
-    on the CPU), writing under ``out``; :func:`join` waits for them."""
+    on the CPU), each ``python -m <module> <spec.json>`` (``extra`` joins
+    the spec), writing under ``out``; :func:`join` waits for them."""
     out = Path(out)
     spec = out / "spec.json"
-    spec.write_text(json.dumps({"out": str(out), "checks": checks}))
+    spec.write_text(json.dumps({"out": str(out), "checks": checks,
+                                **extra}))
     base = {**os.environ, "MASTER_ADDR": "127.0.0.1",
             "MASTER_PORT": str(free_port()), "WORLD_SIZE": str(world),
             "LOCAL_WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1",
@@ -254,7 +257,7 @@ def start(world: int, checks: list, out: Path) -> tuple:
         env = dict(base, RANK=str(r), LOCAL_RANK=str(r))
         log = tempfile.TemporaryFile(mode="w+")
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "tests.test_torch_dp_ranks", str(spec)],
+            [sys.executable, "-m", module, str(spec)],
             cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
     return out, procs
 

@@ -51,6 +51,7 @@ from koemorph_tpu_torch.models import dual_stream_model as dm
 from koemorph_tpu_torch.models.dropout import Dropout
 from koemorph_tpu_torch.parallel.batched_decode import (
     BatchedSequentialDecoder)
+from koemorph_tpu_torch.parallel.tp import make_mesh_2d
 from koemorph_tpu_torch.train import optim
 from koemorph_tpu_torch.train.trainer import (DualStreamTrainer,
                                               SequentialTrainer,
@@ -509,8 +510,23 @@ def test_dual_stream_learns_constant_target(tmp_path):
 def test_unported_trainer_features_raise(tmp_path):
     cfg = {"training": dict(TRAIN_CFG, logging={"tensorboard": False})}
     kw = dict(work_dir=tmp_path, steps_per_epoch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # tensor parallelism is ported (test_torch_tp.py): it needs a mesh
+    # with a model axis, and a one-entry grid in one process trains as
+    # the single process, bit for bit
+    with pytest.raises(ValueError, match="'model' axis"):
         SequentialTrainer(_seq_model(), cfg, tensor_parallel=True, **kw)
+    batch = _batch(4, 24)
+    grid = make_mesh_2d(1, 1, devices=["cpu"])
+    steps = []
+    for extra in ({}, {"mesh": grid, "tensor_parallel": True}):
+        t = SequentialTrainer(_seq_model(), cfg, span_frames=24, **kw,
+                              **extra)
+        assert t.mesh is None and not t.tp_specs
+        loss = float(t.train_step(t._prepare(batch))["loss"])
+        steps.append((loss, {k: v.detach().clone()
+                             for k, v in t.params.items()}))
+    assert steps[0][0] == steps[1][0]
+    assert all(torch.equal(steps[1][1][k], v) for k, v in steps[0][1].items())
     tt = SequentialTrainer(_seq_model(), cfg, **kw)
     # the scan epochs are ported (test_torch_train_scan.py): an empty
     # loader trains nothing

@@ -48,7 +48,7 @@ from koemorph_tpu.models.simplified import (
 from koemorph_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from koemorph_tpu.train import DualStreamTrainer as JaxDST
 from koemorph_tpu.train import KoeMorphTrainer as JaxKT
-from koemorph_tpu_torch.parallel import make_mesh
+from koemorph_tpu_torch.parallel import make_mesh, make_mesh_2d
 from koemorph_tpu_torch.train.trainer import DualStreamTrainer
 from koemorph_tpu_torch.utils.params import (flax_from_state_dict,
                                              state_dict_from_flax)
@@ -255,13 +255,18 @@ def test_compiled_step_refuses_gloo(runs):
 
 def test_training_meshes_are_process_groups(tmp_path):
     """A mesh of several entries in one process is not a way to train: one
-    process per card. A one-entry mesh is its device."""
+    process per card. A one-entry mesh is its device. Tensor parallelism
+    needs a mesh with a model axis (``tests/test_torch_tp.py``)."""
     with pytest.raises(ValueError, match="one process per device"):
         ranks.make_trainer("window", tmp_path / "a",
                            mesh=make_mesh(devices=["cpu", "cpu"]))
     t = ranks.make_trainer("window", tmp_path / "b",
                            mesh=make_mesh(devices=["cpu"]))
     assert t.mesh is None and t.world == 1 and t.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DualStreamTrainer(t.model, {}, work_dir=tmp_path / "c",
-                          device="cpu", tensor_parallel=True)
+    for mesh in (None, make_mesh(devices=["cpu"])):
+        with pytest.raises(ValueError, match="'model' axis"):
+            DualStreamTrainer(t.model, {}, work_dir=tmp_path / "c",
+                              device="cpu", mesh=mesh, tensor_parallel=True)
+    with pytest.raises(ValueError, match="one process per device"):
+        ranks.make_trainer("window", tmp_path / "d", mesh=make_mesh_2d(
+            1, 2, devices=["cpu", "cpu"]))
