@@ -352,12 +352,16 @@ def profiled(fn):
     ``MEASURED`` range, after a lead-in: a profiling window loses its
     first few device activities, so it starts with
     ``utils.trace_latency.lead_in`` (tiny kernels, a synchronization and
-    20 ms of sleep), which ``measured_events`` leaves out.
-    ``prof.wall_s`` is the host time of ``fn()`` to a synchronization."""
+    20 ms of sleep), which ``measured_events`` leaves out; and it ends
+    with ``utils.trace_latency.lead_out`` (20 ms of sleep), since the
+    profiler drops a device activity that, mapped to the host's clock,
+    ends after the window stopped (a window without it once lost a
+    replay's kernels). ``prof.wall_s`` is the host time of ``fn()`` to a
+    synchronization."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from koemorph_tpu_torch.utils.trace_latency import lead_in
+    from koemorph_tpu_torch.utils.trace_latency import lead_in, lead_out
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -367,6 +371,7 @@ def profiled(fn):
             fn()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        lead_out("cuda")
     prof.wall_s = wall
     return prof
 

@@ -16,6 +16,10 @@ synchronization and 20 ms of sleep) and its activities are cut at the
 lead-in's idle gap on the device's own clock (:func:`lead_in_end`): the
 device's timestamps line up with the host's only to about a millisecond,
 and a cut on the host's clock once lost 6 of a window's 7 frames.
+The profiler also drops an activity that, on the device's timestamps
+mapped to the host's clock, ends after the window stopped, so a traced
+window ends with a lead-out (:func:`lead_out`: a synchronization and
+20 ms of sleep) before the profiler stops.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ __all__ = [
     "summarize_ms",
     "lead_in",
     "lead_in_end",
+    "lead_out",
 ]
 
 #: the trace's categories of device activities
@@ -58,6 +63,14 @@ def lead_in(device="cuda") -> None:
     lead = torch.zeros(1, device=device)
     for _ in range(256):
         lead.add_(1.0)
+    torch.cuda.synchronize(device)
+    time.sleep(0.02)
+
+
+def lead_out(device="cuda") -> None:
+    """The end of a traced window: a synchronization and 20 ms of sleep
+    before the profiler stops, so that the window's last device
+    activities end well before the stop on the host's clock."""
     torch.cuda.synchronize(device)
     time.sleep(0.02)
 
@@ -221,6 +234,8 @@ def capture_step_trace(step_fn: Callable[..., Any],
             with record_function(f"{STEP_PREFIX}{i}"):
                 carry = step_fn(carry, x)
         sync(carry)
+        if card:
+            lead_out()
     durations = step_durations(log_dir)
     if not durations["step"]:
         logger.warning("no device activities in the trace under %s "
