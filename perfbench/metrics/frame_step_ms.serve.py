@@ -1,0 +1,11 @@
+"""frame_step_ms.serve: median latency of the steps on which no cohort
+refreshes, outside the profiled slice."""
+
+from perfbench.harness.readers import median_ms
+
+
+def read(rec: dict) -> float | None:
+    return median_ms(t for t, r, s in zip(rec.get("latency_s", ()),
+                                          rec.get("refresh", ()),
+                                          rec.get("in_slice", ()))
+                     if not r and not s)

@@ -1,0 +1,8 @@
+"""kernel_roofline.train: the hand-written kernels' summed roofline bound
+over their summed device time in the profiled slice, percent."""
+
+from perfbench.harness.readers import kernel_roofline
+
+
+def read(rec: dict) -> float | None:
+    return kernel_roofline(rec)
