@@ -1000,22 +1000,22 @@ def drive_stream(out: dict, card: str, tag: str, model, cfg,
     seen, want = replayed_launches(eng.step_graphs, in_windows(
         n_frames, lambda lo, hi: box.extend(eng.process_audio(
             audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
-    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     bs = np.stack(box)
     eager = StreamingInference(model, cfg, graphs=False)
     eager.warmup()
-    before = dict(ck.LAUNCHES)
+    before = ck.launches()
     with recording_kernels(out["rec"], tag):
         eager_bs = np.stack(eager.process_audio(audio))
-    eager_launches = {name: ck.LAUNCHES.get(name, 0) - before.get(name, 0)
+    eager_launches = {name: ck.launches().get(name, 0) - before.get(name, 0)
                       for name in KERNEL_PATTERNS}
     d_plain = None
     if plain:
         with plain_forms():
-            before = dict(ck.LAUNCHES)
+            before = ck.launches()
             p_bs = np.stack(StreamingInference(
                 model, cfg, graphs=False).process_audio(audio))
-            check(dict(ck.LAUNCHES) == before,
+            check(ck.launches() == before,
                   f"{tag}: the plain stream launched a kernel")
         d_plain = float(np.abs(p_bs - bs).max())
     eng.reset()
@@ -1089,21 +1089,21 @@ def drive_server(out: dict, card: str, tag: str, model, cfg, sessions: int,
         seen, want = replayed_launches(srv.step_graphs, in_windows(
             SERVE_STEPS,
             lambda lo, hi: box.append(steps(srv, lo, hi - lo))))
-        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
         o = torch.cat(box).cpu().numpy()
         ref = MultiStreamInference(model, cfg, sessions,
                                    refresh_cohorts=g, graphs=False)
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         with recording_kernels(out["rec"], f"{tag} G={g}"):
             eager_o = steps(ref).cpu().numpy()
-        eager_launches = {name: ck.LAUNCHES.get(name, 0)
+        eager_launches = {name: ck.launches().get(name, 0)
                           - before.get(name, 0) for name in KERNEL_PATTERNS}
         with plain_forms():
-            before = dict(ck.LAUNCHES)
+            before = ck.launches()
             plain_o = steps(MultiStreamInference(
                 model, cfg, sessions, refresh_cohorts=g,
                 graphs=False)).cpu().numpy()
-            check(dict(ck.LAUNCHES) == before,
+            check(ck.launches() == before,
                   f"{tag}: the plain server launched a kernel")
         d_lanes = {}
         for lane in sorted({0, 1, g - 1, sessions - 1}):
@@ -1360,7 +1360,7 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     box = []
     seen, want = replayed_launches(dec.step_graphs,
                                    [lambda: box.append(dec(audio_b))])
-    dec_launches = dict(ck.LAUNCHES)
+    dec_launches = ck.launches()
     out["shapes"]["decode_e2v"] = dict(ck.SHAPE_LAUNCHES)
     o = box[0].cpu().numpy()
     eager_dec = BatchedSequentialDecoder(dec.model, graphs=False)
@@ -1449,7 +1449,7 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
                     None, max_epochs=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     out["shapes"]["train_e2v"] = shapes
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trainer.train_step = real_step
@@ -1569,9 +1569,9 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
 
     loss_k, grads_k = loss_grads()
     with plain_forms():
-        before_l = dict(ck.LAUNCHES)
+        before_l = ck.launches()
         loss_p, grads_p = loss_grads()
-        check(dict(ck.LAUNCHES) == before_l, "train_e2v plain launched")
+        check(ck.launches() == before_l, "train_e2v plain launched")
     rel = {}
     for k, gp in grads_p.items():
         scale = float(gp.abs().max())
@@ -1869,7 +1869,7 @@ def slice9_phases(card: str) -> dict:
     seen, want = replayed_launches(dec_fl.step_graphs,
                                    [lambda: box.append(dec_fl(audio_b))])
     out["shapes"]["decode_frame_level"] = dict(ck.SHAPE_LAUNCHES)
-    fl_launches = dict(ck.LAUNCHES)
+    fl_launches = ck.launches()
     o_fl = box[0].cpu().numpy()
     eager_fl = BatchedSequentialDecoder(dec_fl.model, graphs=False)
     with recording_kernels(out["rec"], "decode_frame_level"):
@@ -1926,15 +1926,15 @@ def slice9_phases(card: str) -> dict:
         ck.reset_launch_counts()
         with recording_kernels(out["rec"], "viterbi"):
             lld_v = eg.compute_llds(audio_b, cfg_v)
-        v_launches, v_shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        v_launches, v_shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
         ck.reset_launch_counts()
         with recording_kernels(out["rec"], "viterbi_blocks"):
             blk_v = blocks(cfg_v)
-        b_launches = dict(ck.LAUNCHES)
+        b_launches = ck.launches()
         with plain_forms():
-            before = dict(ck.LAUNCHES)
+            before = ck.launches()
             lld_p, blk_p = eg.compute_llds(audio_b, cfg_v), blocks(cfg_v)
-            check(dict(ck.LAUNCHES) == before,
+            check(ck.launches() == before,
                   "viterbi: the plain forms launched a kernel")
         core_v = f0_ops.yin_core(audio_b, frame_length=512, hop_length=160,
                                  f0_min=55.0, f0_max=500.0, center=False,
@@ -2261,7 +2261,7 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
         history = trainer.fit(lambda epoch: loader_fn(), None, max_epochs=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trainer.train_step = real_step
     step_ms = np.asarray([a.elapsed_time(b) for a, b in events])
@@ -2366,14 +2366,14 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
                              for (k, p), g in zip(
                                  plain_trainer.params.items(), grads)}
 
-    before_launch = dict(ck.LAUNCHES)
+    before_launch = ck.launches()
     loss_k, grads_k = loss_grads()
-    check(dict(ck.LAUNCHES) != before_launch, "the kernel step launched "
+    check(ck.launches() != before_launch, "the kernel step launched "
           "no kernel")
     with plain_forms():
-        before_launch = dict(ck.LAUNCHES)
+        before_launch = ck.launches()
         loss_p, grads_p = loss_grads()
-        check(dict(ck.LAUNCHES) == before_launch, "the plain step launched "
+        check(ck.launches() == before_launch, "the plain step launched "
               "a kernel")
     rel = {}
     for k, gp in grads_p.items():
@@ -2678,22 +2678,22 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
         stats = rts.run_stream(step, source, max_frames=RT_FRAMES)
     finally:
         source.stop()
-    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     bs = stats.pop("blendshapes")
     box = []
     seen, want = replayed_launches(step.step_graphs, in_windows(
         RT_FRAMES, lambda lo, hi: box.extend(step(w) for w in wins[lo:hi])))
     eager = rts.FrameStep(model, SR, graphs=False)
     eager.warmup()
-    before = dict(ck.LAUNCHES)
+    before = ck.launches()
     with recording_kernels(out["rec"], "rt_simplified"):
         eager_bs = np.stack([eager(w) for w in wins])
-    eager_launches = {n: ck.LAUNCHES[n] - before[n] for n in KERNEL_PATTERNS}
+    eager_launches = {n: ck.launches()[n] - before[n] for n in KERNEL_PATTERNS}
     with plain_forms():
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         plain = rts.FrameStep(model, SR, graphs=False)
         plain_bs = np.stack([plain(w) for w in wins])
-        check(dict(ck.LAUNCHES) == before,
+        check(ck.launches() == before,
               "rt_simplified: the plain step launched a kernel")
     wins_dev = torch.from_numpy(wins).to(dev)
     lm_kw = model.frontend.logmel_kwargs()
@@ -2835,7 +2835,7 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
     ck.reset_launch_counts()
     seq_pred, seq_target = predict(seq_model, "sequential_dual_stream",
                                    256, seq_batch, dev)
-    seq_launches = dict(ck.LAUNCHES)
+    seq_launches = ck.launches()
     seq_metrics = BlendshapeMetrics()
     seq_metrics.update(seq_pred, np.asarray(seq_target))
     seq_in_proc = {k: float(v) for k, v in seq_metrics.compute().items()}
@@ -2920,7 +2920,7 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
         history = trainer.fit(loader, None, max_epochs=LEGACY_EPOCHS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     # the fit's own peak: above what the process held when it started
     peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
     trainer.train_step = real_step
@@ -2952,9 +2952,9 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
 
     loss_k, grads_k = loss_grads()
     with plain_forms():
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         loss_p, grads_p = loss_grads()
-        check(dict(ck.LAUNCHES) == before,
+        check(ck.launches() == before,
               "the plain legacy step launched a kernel")
     rel = {k: float((grads_k[k] - g).abs().max() / g.abs().max())
            for k, g in grads_p.items()}
@@ -3352,7 +3352,7 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
                 ["--data-dir", str(synth), "--model-name",
                  "sequential_dual_stream", "--model", str(out_dir),
                  "--max-batches", "1"]))
-        launches = dict(ck.LAUNCHES)
+        launches = ck.launches()
         out["shapes"][f"import_{tag}"] = dict(ck.SHAPE_LAUNCHES)
         check(rc_inf == 0 and rc_rt == 0,
               f"infer / rt on the imported {tag} checkpoint: "
@@ -3419,14 +3419,14 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
         rc, demo = _stdout_json(lambda: demo_lipsync_learning.main(
             ["--work-dir", str(work / "lipsync_demo")]))
     out["shapes"]["demo"] = dict(ck.SHAPE_LAUNCHES)
-    demo_launches = dict(ck.LAUNCHES)
+    demo_launches = ck.launches()
     ck.reset_launch_counts()
     with recording_kernels(out["rec"], "rehearsal"):
         rc_r, rep = _stdout_json(lambda: reproduce_results.main(
             ["--smoke", "--val-every", "1",
              "--work-dir", str(work / "reproduce")]))
     out["shapes"]["rehearsal"] = dict(ck.SHAPE_LAUNCHES)
-    rep_launches = dict(ck.LAUNCHES)
+    rep_launches = ck.launches()
     report = Path(rep["report"])
     val_losses = rep["val_losses"]
     emit({"phase": "rehearsal", "card": card, "demo": demo,
@@ -3482,7 +3482,7 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
     ck.reset_launch_counts()
     res_eg = run("egemaps", EmotionExtractor(backend="egemaps",
                                              enable_caching=False))
-    ext["egemaps_launches"] = dict(ck.LAUNCHES)
+    ext["egemaps_launches"] = ck.launches()
     with plain_forms():
         plain_eg = EmotionExtractor(backend="egemaps", enable_caching=False
                                     ).extract_features(audio)
@@ -3615,7 +3615,7 @@ with torch.no_grad():
     ck.reset_launch_counts()
     outs, evs = run(len(frames))
     torch.cuda.synchronize()
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     shapes = [[k, list(v), n] for (k, v), n in ck.SHAPE_LAUNCHES.items()]
     ks = cs.device_kernels(lambda: run(cs.EXPORT_PROFILED))
 np.save(out_npy, torch.cat(outs).cpu().numpy())
@@ -3708,7 +3708,7 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
         loop_s = time.perf_counter() - t0
         window_audio = ex.buffer.get_current_audio()
         batch = ex.process_audio_batch(window_audio)
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     out["shapes"]["sliding_window"] = shapes = dict(ck.SHAPE_LAUNCHES)
     stats = ex.get_stats()
     t_win = 1 + len(window_audio) // HOP
@@ -3754,7 +3754,7 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
         gex.process_audio_frame(context[-2 * HOP:-HOP], timestamp=0.4)
         torch.cuda.synchronize()
     refresh_s = (time.perf_counter() - t0) / 2
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     out["shapes"]["egemaps_extractor"] = shapes = dict(ck.SHAPE_LAUNCHES)
     concat = gex.get_concatenated_features()
     rows = 1 + (int(20.0 * SR) - 512) // 160
@@ -3808,7 +3808,7 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
         ex60(tone)).cpu().numpy()[0]
     with torch.inference_mode():
         pros = extract_prosody(torch.from_numpy(clip).to(dev)).cpu().numpy()
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     log_mel_cpu = MelSpectrogramExtractor(device="cpu")(clip).numpy()
     pros_cpu = extract_prosody(torch.from_numpy(clip)).numpy()
     spec = np.abs(np.fft.rfft(rec))
@@ -3901,7 +3901,7 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
         ck.reset_launch_counts()
         with through_operators():
             routed_b = frame_fn(frames[0], *carry)[0]
-        routed_launches = dict(ck.LAUNCHES)
+        routed_launches = ck.launches()
 
         def routed(*args):
             with through_operators():
@@ -4146,7 +4146,7 @@ def graphed_vs_eager(out: dict, card: str, tag: str, make, batches: list,
             e1.record()
             ev_eager.append((e0, e1))
     torch.cuda.synchronize()
-    eager_per_step = {k: v / n_steps for k, v in ck.LAUNCHES.items()}
+    eager_per_step = {k: v / n_steps for k, v in ck.launches().items()}
     eager_ms = np.asarray([a.elapsed_time(b) for a, b in ev_eager])
 
     torch.cuda.reset_peak_memory_stats()
@@ -4167,7 +4167,7 @@ def graphed_vs_eager(out: dict, card: str, tag: str, make, batches: list,
         ks += device_kernels(None, profiled(fn))
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    wrapper, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+    wrapper, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
     seen = {src: n / KERNELS_PER_LAUNCH[src]
             for src, n in own_kernels(ks).items()}
     check(len(graphs) == 1, f"{tag}: {len(graphs)} graphs for one shape")
@@ -4604,7 +4604,7 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
     seen, replayed = replayed_launches(
         [e.step_graphs for e in srv.entries], in_windows(
             SERVE_STEPS, lambda lo, hi: box.append(steps(srv, lo, hi))))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     out["shapes"]["mesh_server"] = shapes = dict(ck.SHAPE_LAUNCHES)
     got = torch.cat(box).cpu().numpy()
     eager = MultiStreamInference(model, cfg, SERVE_S, refresh_cohorts=g,
@@ -4684,11 +4684,11 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
     ck.reset_launch_counts()
     mdec = BatchedSequentialDecoder(decoder.model, mesh=mesh)
     m_out = mdec(audio_b).cpu().numpy()
-    dec_launches = dict(ck.LAUNCHES)
+    dec_launches = ck.launches()
     out["shapes"]["mesh_decode"] = dict(ck.SHAPE_LAUNCHES)
     ck.reset_launch_counts()
     m_seq = mdec.decode_sequence_parallel(audio_b[0]).cpu().numpy()
-    seq_launches = dict(ck.LAUNCHES)
+    seq_launches = ck.launches()
     out["shapes"]["mesh_sequence_parallel"] = dict(ck.SHAPE_LAUNCHES)
     edec = BatchedSequentialDecoder(decoder.model, mesh=mesh, graphs=False)
     with recording_kernels(out["rec"], "mesh_decode"):
@@ -4753,16 +4753,16 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
         prep_s = [single._prepare(b) for b in batches]
         prep_d = [dp._prepare(b) for b in batches]
         ck.reset_launch_counts()
-        before = dict(distributed.COLLECTIVES)
+        before = distributed.collectives()
         m_dp = [dp.compiled_step(prep_d[0])]
-        at_capture = distributed.COLLECTIVES["all_reduce"] \
+        at_capture = distributed.collectives()["all_reduce"] \
             - before.get("all_reduce", 0)
         prof = profiled(lambda: m_dp.extend(dp.compiled_step(p)
                                             for p in prep_d[1:]))
-        at_replays = distributed.COLLECTIVES["all_reduce"] \
+        at_replays = distributed.collectives()["all_reduce"] \
             - before.get("all_reduce", 0) - at_capture
         out["shapes"]["dp_train"] = dict(ck.SHAPE_LAUNCHES)
-        dp_launches = dict(ck.LAUNCHES)
+        dp_launches = ck.launches()
         ks = device_kernels(None, prof)
         nccl = sorted({n for n, _ in ks if "nccl" in n.lower()})
         m_single = [single.compiled_step(p) for p in prep_s]
@@ -5043,7 +5043,7 @@ def tp_rank_main(spec_path: str) -> int:
             grads64 = _whole_grads(t, prep[0])
         torch.cuda.synchronize()
         ck.reset_launch_counts()
-        before = collections.Counter(distributed.COLLECTIVES)
+        before = collections.Counter(distributed.collectives())
         losses, ms = [], []
         for i, p in enumerate(prep):
             t0 = time.perf_counter()
@@ -5051,16 +5051,16 @@ def tp_rank_main(spec_path: str) -> int:
             losses.append(float(m["loss"]))
             ms.append((time.perf_counter() - t0) * 1e3)
             if i == 0:              # (its gathers are not the step's)
-                held = collections.Counter(distributed.COLLECTIVES)
+                held = collections.Counter(distributed.collectives())
                 first = {k: v.detach().cpu().clone() for k, v in
                          gather_shards(dict(t.params), t.tp_specs,
                                        mesh).items()}
-                before.update(distributed.COLLECTIVES)
+                before.update(distributed.collectives())
                 before.subtract(held)
-        launches = dict(ck.LAUNCHES)
+        launches = ck.launches()
         shapes = [[n, list(s), c] for (n, s), c in ck.SHAPE_LAUNCHES.items()]
         per_step = {k: (v - before[k]) / TP_STEPS
-                    for k, v in distributed.COLLECTIVES.items()
+                    for k, v in distributed.collectives().items()
                     if v != before[k]}
         params = gather_shards(dict(t.params), t.tp_specs, mesh)
         opt = t.optimizer
@@ -5351,10 +5351,10 @@ def slice15_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
               f"grid (1, 1) trainers: {tp1.mesh}, {tp1.tp_specs}")
         prep_1 = [tp1._prepare(b) for b in batches]
         prep_s = [single._prepare(b) for b in batches]
-        before = dict(distributed.COLLECTIVES)
+        before = distributed.collectives()
         m_tp = [float(tp1.compiled_step(p)["loss"]) for p in prep_1]
         issued = {k: v - before.get(k, 0)
-                  for k, v in distributed.COLLECTIVES.items()
+                  for k, v in distributed.collectives().items()
                   if v != before.get(k, 0)}
         m_s = [float(single.compiled_step(p)["loss"]) for p in prep_s]
         diff = [k for k, v in single.params.items()
@@ -5717,7 +5717,7 @@ def main() -> int:  # noqa: C901
     seen, want = replayed_launches(engine.step_graphs, in_windows(
         n_frames, lambda lo, hi: box.extend(engine.process_audio(
             audio[lo * HOP:hi * HOP if hi < n_frames else None]))))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.launches()
     stream_shapes = dict(ck.SHAPE_LAUNCHES)
     bs = np.stack(box)
     n_refresh = -(-n_frames // cfg.emotion_update_frames)
@@ -5758,9 +5758,9 @@ def main() -> int:  # noqa: C901
     # the same stream with the plain forms on the card
     with plain_forms():
         plain_engine = StreamingInference(model, cfg, graphs=False)
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         plain = np.stack(plain_engine.process_audio(audio))
-        check(dict(ck.LAUNCHES) == before, "the plain stream launched a "
+        check(ck.launches() == before, "the plain stream launched a "
               "kernel")
     d_plain = float(np.abs(plain - bs).max())
     emit({"phase": "stream_plain", "max_abs_diff_blendshapes": d_plain,
@@ -5781,7 +5781,7 @@ def main() -> int:  # noqa: C901
     box = []
     seen, want = replayed_launches(
         decoder.step_graphs, [lambda: box.append(decoder(audio_dev))])
-    dec_launches = dict(ck.LAUNCHES)
+    dec_launches = ck.launches()
     dec_shapes = dict(ck.SHAPE_LAUNCHES)
     out_np = box[0].cpu().numpy()
     emit({"phase": "decode", "card": card, "shape": list(out_np.shape),
@@ -5814,10 +5814,10 @@ def main() -> int:  # noqa: C901
         check(dec_shapes.get(key, 0) > 0, f"decode did not launch {key}")
 
     with plain_forms(), torch.inference_mode():
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         plain_out = eager_decoder(audio_dev).cpu().numpy()
         emo_plain = decoder.model.emotion_raw(audio_dev)
-        check(dict(ck.LAUNCHES) == before, "the plain decode launched a "
+        check(ck.launches() == before, "the plain decode launched a "
               "kernel")
     with torch.inference_mode():
         emo = decoder.model.emotion_raw(audio_dev)
@@ -5975,7 +5975,7 @@ def main() -> int:  # noqa: C901
         seen, want = replayed_launches(srv.step_graphs, in_windows(
             SERVE_STEPS, lambda lo, hi: box.append(serve_steps(
                 srv, lanes_np, first=lo, steps=hi - lo))))
-        launches, shapes = dict(ck.LAUNCHES), dict(ck.SHAPE_LAUNCHES)
+        launches, shapes = ck.launches(), dict(ck.SHAPE_LAUNCHES)
         out_g = torch.cat(box)
         serve_out[g], serve_shapes[g] = out_g.cpu().numpy(), shapes
         phases[g] = srv.phases
@@ -6040,13 +6040,13 @@ def main() -> int:  # noqa: C901
     # both clock settings with the plain forms
     d_plain = {}
     with plain_forms():
-        before = dict(ck.LAUNCHES)
+        before = ck.launches()
         for g in (1, 8):
             srv = MultiStreamInference(model, cfg, SERVE_S,
                                        refresh_cohorts=g, graphs=False)
             plain_g = serve_steps(srv, lanes_np).cpu().numpy()
             d_plain[g] = float(np.abs(plain_g - serve_out[g]).max())
-        check(dict(ck.LAUNCHES) == before, "the plain server launched a "
+        check(ck.launches() == before, "the plain server launched a "
               "kernel")
         del srv
     emit({"phase": "multistream_plain", "max_abs_diff_blendshapes":

@@ -20,6 +20,7 @@ import numpy as np
 
 from koemorph_tpu_torch.data.io import load_blendshapes_with_fps, resample_blendshapes
 from koemorph_tpu_torch.data.wav import read_wav, resample_linear
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 PathLike = Union[str, Path]
@@ -248,7 +249,10 @@ def prefetch_iterator(gen_fn, depth: int = 2):
     reference's DataLoader workers, sequential_dataset.py:355-362).
 
     Producer exceptions are re-raised in the consumer — a mid-epoch loading
-    failure must fail the epoch, not silently truncate it."""
+    failure must fail the epoch, not silently truncate it.
+
+    In the span registry the consumer's wait for a batch is the host span
+    ``koemorph.data.wait``."""
 
     def iterate():
         import queue
@@ -268,7 +272,8 @@ def prefetch_iterator(gen_fn, depth: int = 2):
         t = threading.Thread(target=produce, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with spans.host("koemorph.data.wait"):
+                item = q.get()
             if item is SENTINEL:
                 break
             if isinstance(item, BaseException):

@@ -8,7 +8,8 @@ traced model). The three hand-written kernels enter the program as the
 custom operators of :mod:`koemorph_tpu_torch.ops.library`: on the card the
 loaded program launches the CUDA kernels, on the CPU it runs their plain
 forms. :func:`load_program` registers those operators before it loads, so
-a fresh process can run an artifact.
+a fresh process can run an artifact. The span registry is paused while the
+function is traced, so no stage stamp enters a program.
 
 The exported function is the model's frame function
 (:class:`FrameFunction`): audio and the EMA carry in, blendshapes and the
@@ -32,6 +33,7 @@ from torch.utils._pytree import tree_leaves
 
 from koemorph_tpu_torch.device import device_label
 from koemorph_tpu_torch.models.dual_stream_model import TemporalState
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
@@ -105,7 +107,7 @@ def export_program(fn: Callable, example_args: Sequence,
     inputs."""
     module = fn if isinstance(fn, nn.Module) else _Call(fn)
     args = tuple(example_args)
-    with torch.no_grad():
+    with torch.no_grad(), spans.paused():
         program = torch.export.export(module, args)
     out_file = Path(out_file)
     out_file.parent.mkdir(parents=True, exist_ok=True)

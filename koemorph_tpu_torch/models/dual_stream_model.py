@@ -32,6 +32,7 @@ from koemorph_tpu_torch.models.dual_stream import DualStreamCrossAttention
 from koemorph_tpu_torch.models.init import init_like_flax
 from koemorph_tpu_torch.ops import frontend
 from koemorph_tpu_torch.ops.device_cache import device_cache
+from koemorph_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -319,6 +320,12 @@ def _reflect_edge_rows(audio: torch.Tensor, p, w_hop: int, n_fft: int,
 
 _EMA_MATMUL_MAX_T = 2048
 
+#: the stages :meth:`SequentialDualStreamModel.forward` marks in an open
+#: track of the span registry: the eGeMAPS, then the mel frontend with the
+#: windows' edge rows, then the rest of the model (the track's end in a
+#: decode)
+DECODE_STAGES = ("emotion", "frontend", "model")
+
 
 def _ema_associative(x_seq: torch.Tensor, alpha: torch.Tensor
                      ) -> torch.Tensor:
@@ -411,7 +418,10 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
         draws the dropout masks, and each window then gets its own row of
         the emotion vector, so no two windows share a mask. The mel
         frontend here is the fused kernel whatever ``stft_method`` says
-        (as in the reference, whose decode ignores it)."""
+        (as in the reference, whose decode ignores it). Inside an open
+        track of the span registry it marks the end of the eGeMAPS
+        (``emotion``) and of the mel frontend with every window's edge rows
+        (``frontend``)."""
         b, audio_len = audio.shape
         hop = self.hop_length
         num_frames = audio_len // hop
@@ -437,7 +447,7 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
 
         if emotion_features_raw is None:
             emotion_features_raw = self.emotion_raw(audio)
-        emotion = self.emotion_projection(emotion_features_raw)   # (B, d)
+        spans.mark("emotion")
 
         # pad so the last window has a full frame count
         if ws is None:
@@ -458,17 +468,29 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             log_mel = frontend.fused_log_mel_frontend(
                 audio, n_fft=cfg.n_fft, hop_length=hop, **mel_kw)
 
-        def splice(windows, starts_samples):
-            """Replace each window's first/last n_edge rows (in place, in
-            the freshly gathered windows) by the reflect-padded rows. The
-            windows are a function of the audio alone and never require
-            grad, so the in-place write is safe in training too."""
-            e0, ew = _reflect_edge_rows(audio, starts_samples, w * hop,
-                                        cfg.n_fft, hop, **mel_kw)
-            ne = e0.shape[2]
-            windows[:, :, :ne] = e0
-            windows[:, :, w + 1 - ne:] = ew
-            return windows
+        reflect = (self.window_edge == "reflect"
+                   and not self.exact_window_stft)
+        # the window blocks: every window at once, or chunks of them
+        if ws is not None:
+            blocks = [(0, ws.shape[1])]
+        elif self.decode_mode == "parallel" or n_out <= self.window_chunk:
+            blocks = [(0, n_out)]
+        else:
+            chunk = self.window_chunk
+            blocks = [(lo, min(chunk, n_out - lo))
+                      for lo in range(0, n_out, chunk)]
+
+        def edge_rows(first: int, n: int):
+            """Each window's reflect-padded first and last rows, block
+            ``first .. first + n - 1``."""
+            starts = (ws * hop if ws is not None else
+                      _index_grid(first, n, stride * hop, 1, dev)[:, 0])
+            return _reflect_edge_rows(audio, starts, w * hop, cfg.n_fft, hop,
+                                      **mel_kw)
+
+        edges = [edge_rows(*blk) if reflect else None for blk in blocks]
+        spans.mark("frontend")
+        emotion = self.emotion_projection(emotion_features_raw)   # (B, d)
 
         dropping = generator is not None and self.training
         weight_keys = ("mel_attention_weights", "emotion_attention_weights")
@@ -488,33 +510,35 @@ class SequentialDualStreamModel(SimplifiedDualStreamModel):
             return raw, {k: out[k].reshape((b, n) + out[k].shape[1:])
                          for k in weight_keys if k in out}
 
-        def decode_windows(first: int, n: int):
-            """Windows ``first .. first + n - 1`` of the stride grid."""
+        def windows_of(first: int, n: int, edge):
+            """Windows ``first .. first + n - 1`` (of the stride grid, or
+            at ``ws``), raw dB, their edge rows replaced (in place, in the
+            freshly gathered windows) by the reflect-padded ``edge``. The
+            windows are a function of the audio alone and never require
+            grad, so the in-place write is safe in training too."""
             if self.exact_window_stft:
-                return attend(log_mel[:, first:first + n])
-            g = _index_grid(first, n, stride, w + 1, dev)
-            windows = log_mel[:, g]                      # (B, n, W+1, 80)
-            if self.window_edge == "reflect":
-                windows = splice(
-                    windows, _index_grid(first, n, stride * hop, 1, dev)[:, 0])
-            return attend(windows)
+                return log_mel[:, first:first + n]
+            if ws is not None:
+                g = ws[:, :, None] + torch.arange(w + 1, device=dev)
+                windows = torch.gather(
+                    log_mel, 1,
+                    g.reshape(b, -1, 1).expand(-1, -1, cfg.n_mels)
+                ).reshape(b, n, w + 1, cfg.n_mels)
+            else:
+                windows = log_mel[:, _index_grid(first, n, stride, w + 1,
+                                                 dev)]   # (B, n, W+1, 80)
+            if edge is not None:
+                e0, ew = edge
+                ne = e0.shape[2]
+                windows[:, :, :ne] = e0
+                windows[:, :, w + 1 - ne:] = ew
+            return windows
 
-        if ws is not None:
-            n = ws.shape[1]
-            g = ws[:, :, None] + torch.arange(w + 1, device=dev)
-            windows = torch.gather(
-                log_mel, 1,
-                g.reshape(b, -1, 1).expand(-1, -1, cfg.n_mels)
-            ).reshape(b, n, w + 1, cfg.n_mels)
-            if self.window_edge == "reflect":
-                windows = splice(windows, ws * hop)
-            raw_seq, extras = attend(windows)
-        elif self.decode_mode == "parallel" or n_out <= self.window_chunk:
-            raw_seq, extras = decode_windows(0, n_out)
+        parts = [attend(windows_of(first, n, edge))
+                 for (first, n), edge in zip(blocks, edges)]
+        if len(parts) == 1:
+            raw_seq, extras = parts[0]
         else:
-            chunk = self.window_chunk
-            parts = [decode_windows(lo, min(chunk, n_out - lo))
-                     for lo in range(0, n_out, chunk)]
             raw_seq = torch.cat([r for r, _ in parts], 0)
             extras = {k: torch.cat([ex[k] for _, ex in parts], 1)
                       for k in parts[0][1]}

@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels: lazy ``nvcc`` build, ``ctypes`` binding,
-launch wrappers and launch counts.
+launch wrappers and launch counts, and the span registry's stage stamp.
 
 Each ``*.cu`` file beside this module is compiled on first use into its own
 shared library with a plain C entry point (``nvcc -gencode
@@ -11,8 +11,11 @@ process each, all started together.
 
 A wrapper launches on PyTorch's current stream, allocates its output with
 ``torch.empty``, checks the launch's error code and raises on failure. It
-adds one to ``LAUNCHES[name]`` (and to ``SHAPE_LAUNCHES[(name, shape)]``)
-for every launch and nowhere else. The callers in :mod:`..f0`,
+adds one to the span registry's counter ``koemorph.kernels.launches.<name>``
+(:func:`launches`; and to ``SHAPE_LAUNCHES[(name, shape)]``) for every
+launch and nowhere else. :func:`stamp` (``stamp.cu``), the registry's
+stage stamp, is no kernel of the paths: it counts nowhere, and no
+capture's record holds it. The callers in :mod:`..f0`,
 :mod:`..egemaps` and :mod:`..frontend` route CUDA tensors here and CPU tensors to the plain
 PyTorch form; there is no fallback from one to the other.
 
@@ -43,10 +46,12 @@ import numpy as np
 import torch
 
 from koemorph_tpu_torch.ops.device_cache import device_cache
+from koemorph_tpu_torch.utils import spans
 
-__all__ = ["SOURCES", "LAUNCHES", "SHAPE_LAUNCHES", "KernelError", "build",
-           "build_dir", "reset_launch_counts", "capturing", "FrameLayout",
-           "frame_layout", "cycle_dsum", "dk_roots", "logmel"]
+__all__ = ["SOURCES", "KERNELS", "SHAPE_LAUNCHES", "KernelError", "build",
+           "build_dir", "launches", "reset_launch_counts", "capturing",
+           "FrameLayout", "frame_layout", "cycle_dsum", "dk_roots", "logmel",
+           "stamp"]
 
 _HERE = Path(__file__).resolve().parent
 
@@ -55,12 +60,15 @@ SOURCES: dict[str, tuple[str, tuple[str, ...]]] = {
     "cycle_dsum": ("cycle_dsum.cu", ()),
     "dk_roots": ("dk_roots.cu", ()),
     "logmel": ("logmel.cu", ()),
+    "stamp": ("stamp.cu", ()),
 }
+#: the paths' kernels, whose launches are counted
+KERNELS = ("cycle_dsum", "dk_roots", "logmel")
 _COMMON_FLAGS = ("-O3", "-std=c++17", "-gencode",
                  "arch=compute_90a,code=sm_90a", "-shared",
                  "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+_COUNTER = {name: f"koemorph.kernels.launches.{name}" for name in KERNELS}
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -76,9 +84,14 @@ class KernelError(RuntimeError):
     something else."""
 
 
+def launches() -> dict[str, int]:
+    """Launches so far of each kernel, by name (the registry's counters)."""
+    counts = spans.COUNTERS
+    return {name: counts[_COUNTER[name]] for name in KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    spans.reset_counters("koemorph.kernels.launches.")
     SHAPE_LAUNCHES.clear()
 
 
@@ -157,6 +170,7 @@ _ENTRIES = {
     "cycle_dsum": {"km_cycle_dsum": (5, 7)},
     "dk_roots": {"km_dk_roots": (3, 3)},
     "logmel": {"km_logmel_batch": (5, 7), "km_logmel_rows": (7, 7)},
+    "stamp": {"km_stamp": (2, 5)},
 }
 
 
@@ -189,7 +203,7 @@ def _launched(name: str, shape: tuple, err: int) -> None:
     if err != 0:
         raise KernelError(f"CUDA kernel {name} failed to launch: "
                           f"cudaError {err}")
-    LAUNCHES[name] += 1
+    spans.count(_COUNTER[name])
     SHAPE_LAUNCHES[(name, shape)] += 1
 
 
@@ -386,3 +400,25 @@ def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
                 n_mels, *geometry, stream)
     _launched("logmel", (t,), err)
     return out
+
+
+def stamp(ring: torch.Tensor, counter: torch.Tensor, slot_id: int,
+          slot: int, flags: int) -> None:
+    """The span registry's stage stamp (``stamp.cu``): the device's global
+    timer (ns) into ``ring[counter % capacity, slot]`` of an int64
+    ``(capacity, n_slots)`` ring on the current stream; ``flags`` 1 clears
+    the row first, 2 advances ``counter`` after. ``slot_id`` (< 32) names
+    the kernel (``koemorph_stamp<slot_id>``)."""
+    dev = ring.device
+    if dev.type != "cuda":
+        raise ValueError(f"stamp kernel needs CUDA tensors, got {dev}")
+    _check(ring, "ring", torch.int64, dev)
+    _check(counter, "counter", torch.int64, dev)
+    fn = _lib("stamp").km_stamp
+    with torch.cuda.device(dev):
+        err = fn(ring.data_ptr(), counter.data_ptr(), slot_id,
+                 ring.shape[0], ring.shape[1], slot, flags,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise KernelError(f"CUDA kernel stamp failed to launch: "
+                          f"cudaError {err}")

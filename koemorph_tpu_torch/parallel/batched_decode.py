@@ -29,6 +29,13 @@ call of that key, reading static buffers that each call copies its audio
 that repeats (fixed-length chunks or batches), and a first call of a new
 one costs a warm-up run and a capture. ``__call__(...,
 return_attention=True)`` runs eagerly.
+
+In the span registry (:mod:`koemorph_tpu_torch.utils.spans`) a call is
+the host spans ``koemorph.decode.h2d`` (the audio and its copy into the
+static buffers), ``.launch`` and ``.out``, and one step of the ``decode``
+track on the device: ``emotion`` (the LLDs with K1 and K2, the
+functionals), ``frontend`` (the log-mel with K3 and the reflected edge
+rows) and ``model`` (window gather, attention, EMA).
 """
 
 from __future__ import annotations
@@ -43,10 +50,11 @@ import torch
 
 from koemorph_tpu_torch.device import DeviceLike, resolve_device
 from koemorph_tpu_torch.models.dual_stream_model import (
-    SequentialDualStreamModel, _ema_smooth)
+    DECODE_STAGES, SequentialDualStreamModel, _ema_smooth)
 from koemorph_tpu_torch.parallel.mesh import (Mesh, block_rows, make_mesh,
                                               replicate)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
@@ -98,7 +106,8 @@ class BatchedSequentialDecoder:
             return
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.step_graphs = StepGraphs(self.device, graphs)
+        self.step_graphs = StepGraphs(self.device, graphs,
+                                      span="koemorph.decode")
         #: the static input buffers of each graph, by key, least recently
         #: used first
         self._static: dict = {}
@@ -144,8 +153,9 @@ class BatchedSequentialDecoder:
         """``body(*inputs)``: eagerly when graphs are off; else one replay
         of the graph of ``key`` (captured at its first call) over static
         buffers that ``inputs`` are copied into."""
+        body = functools.partial(self._tracked, body)
         if not self.step_graphs.enabled:
-            return body(*inputs)
+            return self.step_graphs.run(key, functools.partial(body, *inputs))
         key = key + self._model_key()
         bufs = self._static.pop(key, None)
         if bufs is None:
@@ -158,10 +168,17 @@ class BatchedSequentialDecoder:
             fn = functools.partial(body, *bufs)
             self.step_graphs.capture(key, fn, fn)
         else:
-            for buf, t in zip(bufs, inputs):
-                buf.copy_(t)
+            with spans.host("koemorph.decode.h2d"):
+                for buf, t in zip(bufs, inputs):
+                    buf.copy_(t)
         self._static[key] = bufs                 # the most recent, last
         return self.step_graphs.run(key, None)
+
+    def _tracked(self, body, *args):
+        """``body(*args)`` as one step of the registry's ``decode``
+        track."""
+        with spans.track("decode", self.device, DECODE_STAGES):
+            return body(*args)
 
     def _decode(self, audio: torch.Tensor) -> torch.Tensor:
         return self.model(audio)["blendshapes"]
@@ -181,7 +198,8 @@ class BatchedSequentialDecoder:
                 return {k: self._stitch([o[k] for o in outs])
                         for k in outs[0]}
             return self._stitch(outs)
-        audio = self._audio(audio_batch)
+        with spans.host("koemorph.decode.h2d"):
+            audio = self._audio(audio_batch)
         if return_attention:
             out = self.model(audio, return_attention=True)
             return {k: out[k] for k in ("blendshapes",

@@ -32,8 +32,9 @@ activations and backpropagate the same loss:
 - :func:`scatter_last`: this rank's block of the last axis forward, the
   gradient gathered backward.
 
-:data:`COLLECTIVES` counts the collectives issued from Python, by name
-(``all_reduce``, ``all_gather``, ``broadcast``), as ``ops.cuda.LAUNCHES``
+:func:`collectives` counts the collectives issued from Python, by name
+(``all_reduce``, ``all_gather``, ``broadcast``; the span registry's
+counters ``koemorph.dist.collectives.<op>``), as ``ops.cuda.launches``
 counts kernel launches: a CUDA graph that captured them replays them
 without a call.
 """
@@ -48,16 +49,24 @@ import torch
 import torch.distributed as dist
 
 from koemorph_tpu_torch.device import DeviceLike
+from koemorph_tpu_torch.utils import spans
 
 __all__ = ["launched", "init_process_group", "is_initialized", "world_size",
            "rank", "local_rank", "backend", "rank_device", "all_reduce",
-           "all_reduce_", "COLLECTIVES", "gather_rows", "copy_to_group",
+           "all_reduce_", "collectives", "gather_rows", "copy_to_group",
            "reduce_from_group", "gather_last", "scatter_last", "broadcast_",
            "barrier", "destroy_process_group"]
 
 _ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
-#: collectives issued, by name (a graph's replays issue none)
-COLLECTIVES: collections.Counter = collections.Counter()
+_COLLECTIVES = "koemorph.dist.collectives."
+
+
+def collectives() -> collections.Counter:
+    """Collectives issued from Python so far, by name (a graph's replays
+    issue none)."""
+    n = len(_COLLECTIVES)
+    return collections.Counter({k[n:]: v for k, v in
+                                spans.counters(_COLLECTIVES).items()})
 
 
 def launched() -> bool:
@@ -159,7 +168,7 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
 def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``x`` over the ranks in place (not differentiable)."""
     dist.all_reduce(x, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    spans.count("koemorph.dist.collectives.all_reduce")
     return x
 
 
@@ -188,7 +197,7 @@ def _gather_last(x: torch.Tensor, start: int, total: int,
     full = x.new_zeros(x.shape[:-1] + (total,))
     full[..., start:start + x.shape[-1]] = x
     dist.all_reduce(full, group=group)
-    COLLECTIVES["all_gather"] += 1
+    spans.count("koemorph.dist.collectives.all_gather")
     return full
 
 
@@ -276,7 +285,7 @@ def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
     with torch.no_grad():
         for t in tensors:
             dist.broadcast(t.data, src)
-            COLLECTIVES["broadcast"] += 1
+            spans.count("koemorph.dist.collectives.broadcast")
 
 
 def barrier() -> None:

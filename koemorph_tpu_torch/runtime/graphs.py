@@ -29,6 +29,11 @@ The kernel wrappers count the launches a capture records
 (:func:`koemorph_tpu_torch.ops.cuda.capturing`), not those of a replay:
 :meth:`StepGraphs.launches` gives a graph's record and
 :attr:`StepGraphs.replays` how often each graph ran.
+
+In the span registry (:mod:`koemorph_tpu_torch.utils.spans`) a run is the
+host spans ``<span>.launch`` (the replay's launch, or the eager body) and
+``<span>.out`` (the outputs' copies), ``span`` given by the engine; each
+capture is noted with whether it carries stage stamps.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from koemorph_tpu_torch.ops import cuda as cuda_kernels
 from koemorph_tpu_torch.ops.device_cache import holding
+from koemorph_tpu_torch.utils import spans
 
 __all__ = ["StepGraphs"]
 
@@ -50,9 +56,12 @@ class StepGraphs:
     replays.
 
     ``enabled=None`` means graphs on a CUDA device and none elsewhere; an
-    explicit ``enabled=True`` on another device raises ``ValueError``."""
+    explicit ``enabled=True`` on another device raises ``ValueError``.
+    ``span`` names the host spans of a run (``<span>.launch``,
+    ``<span>.out``)."""
 
-    def __init__(self, device: torch.device, enabled: Optional[bool] = None):
+    def __init__(self, device: torch.device, enabled: Optional[bool] = None,
+                 span: str = "koemorph.graphs"):
         if enabled is None:
             enabled = device.type == "cuda"
         if enabled and device.type != "cuda":
@@ -67,6 +76,7 @@ class StepGraphs:
         self.capture_s = 0.0
         #: replays of each graph, by key
         self.replays: collections.Counter = collections.Counter()
+        self._launch, self._out = f"{span}.launch", f"{span}.out"
 
     def __contains__(self, key: Hashable) -> bool:
         return key in self._graphs
@@ -111,6 +121,7 @@ class StepGraphs:
             with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 out = body()
         torch.cuda.current_stream(self.device).wait_stream(stream)
+        spans.note_capture(key)
         self._graphs[key] = (graph, out, launches, held)
         self.capture_s += time.perf_counter() - t0
 
@@ -119,13 +130,16 @@ class StepGraphs:
         of ``key`` (captured before), returning fresh copies of its
         outputs."""
         if not self.enabled:
-            return body()
+            with spans.host(self._launch):
+                return body()
         entry = self._graphs.get(key)
         if entry is None:
             raise KeyError(f"no CUDA graph captured for {key!r}")
         graph, out = entry[:2]
-        graph.replay()
+        with spans.host(self._launch):
+            graph.replay()
         self.replays[key] += 1
-        if isinstance(out, tuple):
-            return tuple(t.clone() for t in out)
-        return out.clone()
+        with spans.host(self._out):
+            if isinstance(out, tuple):
+                return tuple(t.clone() for t in out)
+            return out.clone()

@@ -30,6 +30,15 @@ buffer parity and input dtype, 2(G+1) per dtype, captured by
 in one memory pool. The host keeps the clocks and picks the graph; no
 step reads anything back from the device.
 
+In the span registry (:mod:`koemorph_tpu_torch.utils.spans`) a step is the
+host span ``koemorph.serve.step`` with children ``.h2d`` (the hops copied
+in), ``.launch`` and ``.out``, and one step of the ``serve`` track on the
+device: ``ingest`` (int16 to float), ``ring``, ``mel``, one ``refresh``
+per due cohort and ``model`` (:func:`~koemorph_tpu_torch.runtime.
+streaming.stream_step_`). It counts ``koemorph.serve.steps``,
+``koemorph.serve.refreshed_lanes`` and ``koemorph.serve.lld_rows`` (rows
+rolled into the LLD rings).
+
 With ``mesh`` (:func:`~koemorph_tpu_torch.parallel.make_mesh`, one process
 driving every entry) the lanes split into one contiguous block of ``S/D``
 per entry, each served by an engine of its own (its model replica, state
@@ -59,12 +68,13 @@ from koemorph_tpu_torch.models.dual_stream_model import (
     StreamingDualStreamModel)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
 from koemorph_tpu_torch.parallel.mesh import Mesh, block_rows, replicate
-from koemorph_tpu_torch.runtime.streaming import (StaticStream,
+from koemorph_tpu_torch.runtime.streaming import (STAGES, StaticStream,
                                                   StreamingConfig,
                                                   StreamState,
                                                   TemporalState,
                                                   init_stream_state,
                                                   stream_step_)
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
@@ -127,10 +137,13 @@ class MultiStreamInference:
             return
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.step_graphs = StepGraphs(self.device, graphs)
+        self.step_graphs = StepGraphs(self.device, graphs,
+                                      span="koemorph.serve")
         with torch.inference_mode():
             self._static = StaticStream(
                 init_stream_state(cfg, self.device, n_sessions))
+        #: LLD rows one refreshing lane rolls into its ring
+        self._lld_rows = cfg.lld_block_rows if cfg.use_lld_ring else 0
         #: the static input buffer of each input dtype in use
         self._inputs: dict[torch.dtype, torch.Tensor] = {}
 
@@ -208,12 +221,14 @@ class MultiStreamInference:
         (float32, or int16 PCM converted on the device: x * 2^-15 is
         exact, the same bits as x / 32768.0 on the host); the cohorts in
         ``due`` refresh on their lanes' views ``[c::G]``."""
-        hops = self._inputs[dtype]
-        if dtype == torch.int16:
-            hops = hops.to(torch.float32) * (2.0 ** -15)
-        g = self.refresh_cohorts
-        return stream_step_(self.model, state, out, hops, self.cfg,
-                            [slice(c, None, g) for c in due])
+        with spans.track("serve", self.device, STAGES):
+            hops = self._inputs[dtype]
+            if dtype == torch.int16:
+                hops = hops.to(torch.float32) * (2.0 ** -15)
+            spans.mark("ingest")
+            g = self.refresh_cohorts
+            return stream_step_(self.model, state, out, hops, self.cfg,
+                                [slice(c, None, g) for c in due])
 
     def _put_hops(self, hops) -> torch.Tensor:
         if not isinstance(hops, torch.Tensor):
@@ -232,8 +247,9 @@ class MultiStreamInference:
     def _step(self, hops) -> torch.Tensor:
         if self.entries is not None:
             return self._mesh_step(hops)
-        return self._run(self._put_hops(hops).dtype,
-                         tuple(self.due_cohorts()))
+        with spans.host("koemorph.serve.h2d"):
+            dtype = self._put_hops(hops).dtype
+        return self._run(dtype, tuple(self.due_cohorts()))
 
     def _mesh_step(self, hops) -> torch.Tensor:
         """Every entry's block of ``hops`` copied in first, then every
@@ -248,8 +264,10 @@ class MultiStreamInference:
                 f"expected ({self.n_sessions}, {self.cfg.hop_length}) "
                 f"audio, got {tuple(hops.shape)}")
         d = len(self.entries)
-        dtypes = [e._put_hops(hops[block_rows(self.n_sessions, d, i)]).dtype
-                  for i, e in enumerate(self.entries)]
+        with spans.host("koemorph.serve.h2d"):
+            dtypes = [
+                e._put_hops(hops[block_rows(self.n_sessions, d, i)]).dtype
+                for i, e in enumerate(self.entries)]
         due = tuple(self.due_cohorts())
         outs = [e._run(dt, due) for e, dt in zip(self.entries, dtypes)]
         self._frames += 1
@@ -272,6 +290,10 @@ class MultiStreamInference:
         out = graphs.run(key, functools.partial(
             self._body, *self._static.buffers(key[1]), dtype, due))
         self._static.advance()
+        if due:
+            lanes = len(due) * (self.n_sessions // self.refresh_cohorts)
+            spans.count("koemorph.serve.refreshed_lanes", lanes)
+            spans.count("koemorph.serve.lld_rows", lanes * self._lld_rows)
         return out
 
     def _capture(self, key, warm: bool = True) -> None:
@@ -312,8 +334,10 @@ class MultiStreamInference:
         device), as a numpy array or a tensor on any device. Returns the
         device tensor without waiting for it."""
         t0 = time.perf_counter()
-        out = self._step(hops)
+        with spans.host("koemorph.serve.step"):
+            out = self._step(hops)
         self.step_times.append(time.perf_counter() - t0)
+        spans.count("koemorph.serve.steps")
         self.frames_emitted += self.n_sessions
         return out
 

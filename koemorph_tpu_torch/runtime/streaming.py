@@ -57,10 +57,11 @@ from koemorph_tpu_torch.ops.egemaps import (EgemapsConfig, LldCarry,
                                             roll_lld_ring, silence_lld_carry)
 from koemorph_tpu_torch.ops import frontend
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StreamingConfig", "StreamState", "StaticStream",
+__all__ = ["STAGES", "StreamingConfig", "StreamState", "StaticStream",
            "StreamingInference", "init_stream_state", "stream_frame",
            "stream_step_", "model_for_config"]
 
@@ -273,11 +274,13 @@ def _stream_pre(state: StreamState, hop_audio: torch.Tensor,
     ring_out, mel_out = (None, None) if out is None else out
     ring = torch.cat([state.audio_ring[..., cfg.hop_length:], hop_audio], -1,
                      out=ring_out)
+    spans.mark("ring")
     row = _new_mel_row(cfg, ring)
     mel_db = torch.cat([state.mel_db[..., 1:, :], row[..., None, :]], -2,
                        out=mel_out)
     wmax = mel_db.amax(dim=(-2, -1), keepdim=True)
     norm = (torch.clamp_min(mel_db - wmax, -80.0) + 80.0) / 80.0
+    spans.mark("mel")
     norm = norm.reshape((-1,) + norm.shape[-2:])
     mel = norm[:, : cfg.window_frames, :]             # (B, W, n_mels)
     detail = norm[:, -3:, :]                          # (B, 3, n_mels)
@@ -370,6 +373,13 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
         lld_ring=lld_ring, lld_carry=lld_carry)
 
 
+#: the stages of a step in the span registry's ``serve`` track: int16 to
+#: float (the server's), the audio ring's shift, the mel row with the
+#: dB rows' shift and normalisation, the due cohorts' refresh, and the
+#: model with the EMA carry (the track's end)
+STAGES = ("ingest", "ring", "mel", "refresh", "model")
+
+
 def stream_step_(model: StreamingDualStreamModel, state: StreamState,
                  out: tuple, hop_audio: torch.Tensor, cfg: StreamingConfig,
                  refresh: Sequence = ()) -> torch.Tensor:
@@ -381,7 +391,9 @@ def stream_step_(model: StreamingDualStreamModel, state: StreamState,
     their results are written back into ``state``'s refresh fields in
     place, as the new EMA carry is into ``state.temporal``.
     ``state.frame_count`` is neither read nor advanced. Returns the
-    ``(B, 52)`` blendshapes."""
+    ``(B, 52)`` blendshapes. Inside an open ``serve`` track of the span
+    registry (:data:`STAGES`) it stamps the ends of ``ring``, ``mel`` and
+    each cohort's ``refresh``; the track's end stamps ``model``."""
     ring, _, mel, detail = _stream_pre(state, hop_audio, cfg, out)
     for lanes in refresh:
         cohort = dataclasses.replace(
@@ -391,13 +403,13 @@ def stream_step_(model: StreamingDualStreamModel, state: StreamState,
         feats, lld_ring, carry = _stream_refresh(cohort, ring[lanes], cfg,
                                                  True, model)
         state.emotion_raw[lanes] = feats
-        if lld_ring is None:
-            continue
-        for k, v in lld_ring.items():
-            state.lld_ring[k][lanes] = v
-        for dst, src in zip(state.lld_carry, carry):
-            if dst is not None:
-                dst[lanes] = src
+        if lld_ring is not None:
+            for k, v in lld_ring.items():
+                state.lld_ring[k][lanes] = v
+            for dst, src in zip(state.lld_carry, carry):
+                if dst is not None:
+                    dst[lanes] = src
+        spans.mark("refresh")
     smoothed, temporal = _stream_post(model, mel, detail, state.emotion_raw,
                                       state.temporal)
     state.temporal.prev.copy_(temporal.prev)
@@ -513,8 +525,9 @@ class StreamingInference:
         self.frames_emitted = 0
 
     def _body(self, state: StreamState, out: tuple, refresh: bool):
-        return stream_step_(self.model, state, out, self._hop, self.cfg,
-                            (...,) if refresh else ())
+        with spans.track("serve", self.device, STAGES):
+            return stream_step_(self.model, state, out, self._hop, self.cfg,
+                                (...,) if refresh else ())
 
     @torch.inference_mode()
     def step(self, hop_audio: np.ndarray) -> torch.Tensor:

@@ -39,6 +39,12 @@ serves the sessions over N mesh entries from this one process (one engine
 per entry; the stats line's ``devices``). ``--model`` loads a
 checkpoint the trainer wrote (``<work>/checkpoints/last``) or a ``.pth``
 state dict; without it the weights are random, drawn from ``--seed``.
+``--spans`` switches the span registry on before the graphs are captured
+(:mod:`koemorph_tpu_torch.utils.spans`); the stats line at exit then adds
+``spans``, and every ``--stats-every`` line is followed by a ``spans``
+line: the median device ms of each stage of the step (read from the
+stamp ring at each such line), the median host ms of
+``koemorph.serve.launch`` and the serve counters.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ import time
 
 import numpy as np
 import torch
+
+from koemorph_tpu_torch.utils import spans
 
 logger = logging.getLogger("serve")
 
@@ -323,7 +331,28 @@ def _emit_stats(server, sender, *, mode: str, ticks: int, elapsed: float,
     if ingest is not None:
         stats["dropped_datagrams"] = ingest.dropped_datagrams
         stats["overflowed_samples"] = ingest.overflowed_samples
+    if spans.enabled():
+        stats["spans"] = span_stats()
     print(json.dumps({"performance_stats": stats}), flush=True)
+
+
+def _log_spans() -> None:
+    """With ``--spans``, the periodic stats line's span figures."""
+    if spans.enabled():
+        logger.info("spans %s", json.dumps(span_stats()))
+
+
+def span_stats() -> dict:
+    """The stats line's ``spans``: the median device ms of each stage of
+    the serve step, the median host ms of ``koemorph.serve.launch`` (over
+    the last 300 of each) and the serve counters."""
+    got = spans.summary()
+    launch = got["host_ms"].get("koemorph.serve.launch")
+    return {"stage_ms": {k: round(v, 4) for k, v in
+                         got["stage_ms"].get("serve", {}).items()},
+            "launch_ms": None if launch is None else round(launch, 4),
+            "counters": {k: v for k, v in got["counters"].items()
+                         if k.startswith("koemorph.serve.")}}
 
 
 @torch.inference_mode()
@@ -379,6 +408,7 @@ def serve_replay(server, sender, args) -> int:
             ms = 1e3 * float(np.mean(server.step_times or [0.0]))
             logger.info("frame %d/%d  step %.2f ms (%d sessions)",
                         t + 1, n_frames, ms, args.sessions)
+            _log_spans()
     if pending is not None:              # flush the last pipelined frame
         sender.send(host.wait(pending[0]), pending[1])
     elapsed = time.perf_counter() - t_start
@@ -462,6 +492,7 @@ def serve_listen(server, sender, args) -> int:
                     "tick %d  step %.2f ms (%d sessions)  dropped=%d "
                     "overflowed=%d", sent, ms, args.sessions,
                     ingest.dropped_datagrams, ingest.overflowed_samples)
+                _log_spans()
     except KeyboardInterrupt:
         logger.info("interrupted")
     finally:
@@ -530,6 +561,10 @@ def main(argv=None) -> int:
                         "device with --device cpu or cuda:K")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    p.add_argument("--spans", action="store_true",
+                   help="switch the span registry on: the stats line adds "
+                        "the median device ms of each stage of the step, "
+                        "the launch's host ms and the serve counters")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
     logging.basicConfig(
@@ -538,6 +573,8 @@ def main(argv=None) -> int:
     if bool(args.replay) == bool(args.listen):
         p.error("exactly one of --replay or --listen is required")
 
+    if args.spans:
+        spans.enable()                 # before any graph is captured
     server = build_server(args)
     sender = SessionSender(args.output, args.host, args.port,
                            args.osc_address,

@@ -28,6 +28,15 @@ each replay, so it is bit for bit the eager step. On the CPU, or with
 run the compiled step over them with no host-to-device copy and no host
 synchronization per step; the per-step hooks do not run.
 
+In the span registry (:mod:`koemorph_tpu_torch.utils.spans`) a step is one
+step of the ``train`` track on the device (:data:`STAGES`): ``emotion``
+and ``frontend`` (the eGeMAPS and the mel frontend from the batch audio,
+where the model marks them), ``forward`` (the rest of the model and the
+loss), ``backward`` and ``optimizer`` (the global norm and the update). A
+scan epoch is the host spans ``koemorph.train.stack`` (pad and stack) and
+``.upload`` (the copies to the device), then ``.scan`` with ``.fetch``
+(the metric rows' copy back).
+
 Data parallelism (``Trainer(mesh=...)`` with a process group's mesh, or
 ``mesh=None`` inside a group of world > 1): one process per card, launched
 by ``python -m torch.distributed.run``. Every rank builds the same global
@@ -93,6 +102,7 @@ from koemorph_tpu_torch.models.losses import (KoeMorphLossConfig,
                                               koemorph_loss,
                                               sequence_koemorph_loss)
 from koemorph_tpu_torch.models.dropout import BatchBlock
+from koemorph_tpu_torch.models.dual_stream_model import DECODE_STAGES
 from koemorph_tpu_torch.ops.device_cache import device_cache, index_constant
 from koemorph_tpu_torch.parallel import distributed
 from koemorph_tpu_torch.parallel.mesh import (Mesh, batch_leading_size,
@@ -103,6 +113,7 @@ from koemorph_tpu_torch.parallel.mesh import (Mesh, batch_leading_size,
 from koemorph_tpu_torch.parallel.tp import (MODEL_AXIS, gather_shards,
                                             local_shards, parallelize)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.utils import spans
 from koemorph_tpu_torch.train.checkpoint import CheckpointManager
 from koemorph_tpu_torch.train.optim import (create_lr_schedule,
                                             create_optimizer, global_norm)
@@ -116,6 +127,9 @@ __all__ = ["Trainer", "KoeMorphTrainer", "DualStreamTrainer",
            "loss_config_from", "sequence_targets", "dropout_generator",
            "dropout_seed", "scan_orders"]
 
+#: the stages of a step in the span registry's ``train`` track: the
+#: model's marks, then the loss, the gradients and the update
+STAGES = DECODE_STAGES[:-1] + ("forward", "backward", "optimizer")
 
 #: the optimizer's per-parameter state: Adam's moments, SGD's momentum,
 #: the accumulator
@@ -437,22 +451,25 @@ class Trainer:
         update (``Optimizer.update``). It changes nothing on the host, so
         a CUDA graph of it replays the whole step."""
         self.model.train()
-        # the backward picks its convolution algorithms (the emotion2vec
-        # encoder's) here, outside the encoder's own scoped flags:
-        # deterministic ones, no autotuning, no TF32, so a resumed run is
-        # bit for bit the uninterrupted one
-        with torch.backends.cudnn.flags(
-                enabled=True, benchmark=False,
-                deterministic=True, allow_tf32=False):
-            loss, metrics = self._loss(batch, gen)
-            grads = torch.autograd.grad(loss, list(self.params.values()),
-                                        allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(self.params.items(), grads)}
-        if self.mesh is not None:
-            grads = self._reduce_grads(grads)
-        norm = self._global_norm(grads)
-        self.optimizer.update(grads, mini_step, scalars)
+        with spans.track("train", self.device, STAGES):
+            # the backward picks its convolution algorithms (the
+            # emotion2vec encoder's) here, outside the encoder's own scoped
+            # flags: deterministic ones, no autotuning, no TF32, so a
+            # resumed run is bit for bit the uninterrupted one
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False,
+                    deterministic=True, allow_tf32=False):
+                loss, metrics = self._loss(batch, gen)
+                spans.mark("forward")
+                grads = torch.autograd.grad(loss, list(self.params.values()),
+                                            allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(self.params.items(), grads)}
+            if self.mesh is not None:
+                grads = self._reduce_grads(grads)
+            spans.mark("backward")
+            norm = self._global_norm(grads)
+            self.optimizer.update(grads, mini_step, scalars)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = norm
@@ -623,6 +640,25 @@ class Trainer:
                 if not isinstance(v, list)} for b in loader]
         if not raw:
             return {}, 0
+        with spans.host("koemorph.train.stack"):
+            stacked, n_steps = self._stack_batches(raw)
+        nbytes = sum(v.nbytes for v in stacked.values())
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if nbytes > 0.9 * free:
+                raise ValueError(
+                    f"the epoch's {n_steps} batches take "
+                    f"{nbytes / 1e9:.2f} GB on the device, more than 90% of "
+                    f"the {free / 1e9:.2f} GB free; train on fewer batches "
+                    "per call or with train_epoch")
+        with spans.host("koemorph.train.upload"):
+            return ({k: torch.from_numpy(v).to(self.device)
+                     for k, v in stacked.items()}, n_steps)
+
+    def _stack_batches(self, raw: list) -> tuple[dict, int]:
+        """The host side of :meth:`_stack_epoch`: the batches padded to
+        the epoch's largest size, masked and stacked (and cut to the
+        rank's block)."""
         n = self.mesh.size if self.mesh is not None else 1
         target = -(-max(batch_leading_size(b) for b in raw) // n) * n
         shapes = {(k, np.shape(v)[1:], np.asarray(v).dtype)
@@ -643,17 +679,7 @@ class Trainer:
             rows = block_rows(target, self.world, self.rank)
             stacked = {k: np.ascontiguousarray(v[:, rows])
                        for k, v in stacked.items()}
-        nbytes = sum(v.nbytes for v in stacked.values())
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            if nbytes > 0.9 * free:
-                raise ValueError(
-                    f"the epoch's {len(prepared)} batches take "
-                    f"{nbytes / 1e9:.2f} GB on the device, more than 90% of "
-                    f"the {free / 1e9:.2f} GB free; train on fewer batches "
-                    "per call or with train_epoch")
-        return ({k: torch.from_numpy(v).to(self.device)
-                 for k, v in stacked.items()}, len(prepared))
+        return stacked, len(prepared)
 
     def _scan(self, stacked: dict, order: list[int]) -> dict[str, np.ndarray]:
         """The compiled step over batches ``order`` of the stack: each
@@ -661,12 +687,15 @@ class Trainer:
         graph's static buffers; the metric rows stay on the device and
         are fetched once, as ``{name: (len(order),) array}``."""
         opt = self.optimizer
-        opt.scalars(opt.count, len(order))       # one table for the run
-        rows = []
-        for i in order:
-            metrics = self.compiled_step({k: v[i] for k, v in stacked.items()})
-            rows.append(torch.stack(list(metrics.values())))
-        host = torch.stack(rows).cpu().numpy()
+        with spans.host("koemorph.train.scan"):
+            opt.scalars(opt.count, len(order))    # one table for the run
+            rows = []
+            for i in order:
+                metrics = self.compiled_step({k: v[i]
+                                              for k, v in stacked.items()})
+                rows.append(torch.stack(list(metrics.values())))
+            with spans.host("koemorph.train.fetch"):
+                host = torch.stack(rows).cpu().numpy()
         return {k: host[:, j] for j, k in enumerate(metrics)}
 
     def train_epoch_scan(self, loader: Iterable[dict]) -> dict[str, float]:

@@ -33,6 +33,7 @@ from koemorph_tpu_torch.parallel.batched_decode import (
 from koemorph_tpu_torch.runtime import (MultiStreamInference,
                                         StreamingInference, streaming)
 from koemorph_tpu_torch.runtime.graphs import StepGraphs
+from koemorph_tpu_torch.utils import spans
 from tests.test_torch_streaming import HOP, KW, _voice
 
 torch.set_num_threads(2)
@@ -237,14 +238,17 @@ def test_capture_records_and_replays_count(monkeypatch):
     """The wrappers count the launches a capture records, as any other;
     ``capturing`` gives the capture's own record, which each replay
     runs."""
-    monkeypatch.setattr(ck, "LAUNCHES", dict.fromkeys(ck.SOURCES, 0))
+    monkeypatch.setattr(spans, "COUNTERS", collections.Counter())
     monkeypatch.setattr(ck, "SHAPE_LAUNCHES", collections.Counter())
     ck._launched("logmel", (64,), 0)
     with ck.capturing() as recorded:
         ck._launched("logmel", (64,), 0)
         ck._launched("cycle_dsum", (30, 8, 17, 512), 0)
         ck._launched("cycle_dsum", (30, 8, 17, 512), 0)
-    assert ck.LAUNCHES == {"cycle_dsum": 2, "dk_roots": 0, "logmel": 2}
+    assert ck.launches() == {"cycle_dsum": 2, "dk_roots": 0, "logmel": 2}
+    assert spans.counters("koemorph.kernels.launches.") == {
+        "koemorph.kernels.launches.logmel": 2,
+        "koemorph.kernels.launches.cycle_dsum": 2}
     assert recorded == {("logmel", (64,)): 1,
                         ("cycle_dsum", (30, 8, 17, 512)): 2}
     with pytest.raises(RuntimeError, match="failed to launch"):
