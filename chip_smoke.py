@@ -5460,11 +5460,11 @@ def main() -> int:  # noqa: C901
     lld_rows = DECODE_B * (1 + (DECODE_LEN - 512) // 160)       # 13,624
     # the served sessions' audio (phase 8), and their audio rings as the
     # server holds them after it (phase 5): the newest frame of each lane
-    # is a row of a (64, 329,927) tensor, read in place
+    # is a row of a (64, 5,330) tensor, read in place
     lanes_np = lane_audio(SERVE_S, SERVE_STEPS)
-    ring_len = StreamingConfig().emotion_ring_len
-    rings = torch.zeros((SERVE_S, ring_len), device=dev)
-    rings[:, -lanes_np.shape[1]:] = torch.from_numpy(lanes_np).to(dev)
+    ring_len = StreamingConfig().audio_ring_len
+    rings = torch.from_numpy(
+        np.ascontiguousarray(lanes_np[:, -ring_len:])).to(dev)
     ring_off = ring_len - 1024 - (-512) % HOP
 
     # ---- 3. cycle_dsum: kernel vs plain ----

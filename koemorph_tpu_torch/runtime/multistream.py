@@ -2,11 +2,11 @@
 one batched step on one GPU.
 
 Every field of the stream's state gains a leading lane dim (the audio
-rings are one ``(S, ring_len)`` tensor, the LLD rings ``(S, rows, ...)``),
-so one step runs the per-frame work of all sessions as ``(S, ...)``-sized
-kernels: the new mel row of every lane is one launch of the fused
-frontend over a view of the rings, the attention one batch of S windows.
-Each lane's window is normalized to its own max.
+rings are one ``(S, audio_ring_len)`` tensor, the LLD rings ``(S, rows,
+...)``), so one step runs the per-frame work of all sessions as
+``(S, ...)``-sized kernels: the new mel row of every lane is one launch of
+the fused frontend over a view of the rings, the attention one batch of S
+windows. Each lane's window is normalized to its own max.
 
 The emotion refresh clock stays on the host. With ``refresh_cohorts=G``
 the lanes split into G cohorts, lane ``l`` in cohort ``l % G``, and cohort

@@ -2,7 +2,10 @@
 
 Each 33 ms frame (:func:`stream_frame`):
 
-1. shifts ``hop`` new samples into the audio ring (the emotion context),
+1. shifts ``hop`` new samples into the audio ring, which holds the samples
+   its readers read: the newest mel row's frame and the refresh's input
+   (with the LLD ring, the newest LLD block's chunk; otherwise the whole
+   emotion context),
 2. computes the ONE new mel row the hop makes available (the fused
    STFT -> mel -> dB function at T = 1) and rolls it into the raw-dB ring,
 3. normalizes the window (``power_to_db ref=max``: subtract the window
@@ -145,8 +148,22 @@ class StreamingConfig:
 
     @property
     def emotion_ring_len(self) -> int:
+        """The emotion context with the offsets' margin, in whole hops:
+        what a full-context refresh reads, and the span of the LLD ring."""
         n = int(self.emotion_context_s * self.sample_rate) \
             + self.emotion_margin_samples
+        return ((n + self.hop_length - 1) // self.hop_length) \
+            * self.hop_length
+
+    @property
+    def audio_ring_len(self) -> int:
+        """Samples of the audio ring, in whole hops: with the LLD ring the
+        newest mel row's frame and the refresh's LLD chunk (the history
+        lives in the LLD ring), otherwise ``emotion_ring_len``."""
+        if not self.use_lld_ring:
+            return self.emotion_ring_len
+        mel = self.n_fft + (-(self.n_fft // 2)) % self.hop_length
+        n = max(_refresh_tail_len(self), mel)
         return ((n + self.hop_length - 1) // self.hop_length) \
             * self.hop_length
 
@@ -178,7 +195,7 @@ class StreamingConfig:
 
     @property
     def lld_ring_rows(self) -> int:
-        """LLD rows covering the emotion audio ring (10 ms hop)."""
+        """LLD rows covering ``emotion_ring_len`` (10 ms hop)."""
         return self.emotion_ring_len // self.egemaps_config.hop_length
 
     @property
@@ -206,7 +223,7 @@ def model_for_config(cfg: StreamingConfig) -> StreamingDualStreamModel:
 class StreamState:
     """All streaming state. ``frame_count`` lives on the host."""
 
-    audio_ring: torch.Tensor     # (ring_len,) newest sample last
+    audio_ring: torch.Tensor     # (audio_ring_len,) newest sample last
     mel_db: torch.Tensor         # (W+1, n_mels) raw dB rows, newest last
     emotion_raw: torch.Tensor    # (D_raw,) cached raw emotion features
     frame_count: int
@@ -225,7 +242,7 @@ def init_stream_state(cfg: StreamingConfig, device=None,
     lead = () if lanes is None else (lanes,)
     ring = cfg.use_lld_ring
     return StreamState(
-        audio_ring=torch.zeros(lead + (cfg.emotion_ring_len,), device=device),
+        audio_ring=torch.zeros(lead + (cfg.audio_ring_len,), device=device),
         mel_db=torch.full(lead + (cfg.window_frames + 1, cfg.n_mels), -100.0,
                           device=device),
         emotion_raw=torch.zeros(lead + (cfg.emotion_raw_dim,), device=device),
@@ -425,7 +442,8 @@ class StaticStream:
     host. A shift cannot run in place (its source and destination
     overlap), so the audio ring and the dB rows have two buffers each: a
     step of parity ``p`` reads buffer ``p`` and writes buffer ``1 - p``,
-    and no step copies a ring (84 MB at 64 sessions) a second time. Every
+    and no step copies a ring (1.4 MB at 64 sessions with the LLD ring,
+    84 MB with the full context) a second time. Every
     other field has one buffer, written in place."""
 
     def __init__(self, state: StreamState):
