@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from koemorph_tpu_torch.utils import spans
+
 __all__ = ["Wav2Vec2Config", "Wav2Vec2Encoder", "load_hf_checkpoint",
            "hf_state_dict", "read_safetensors"]
 
@@ -207,7 +209,13 @@ class Wav2Vec2Encoder(nn.Module):
     """Raw 16 kHz audio ``(B, L)`` -> ``(B, T, hidden)``: the softmax
     fusion of the ``num_hidden_layers + 1`` hidden states (the last one
     after the encoder's LayerNorm, the others before it) when
-    ``use_layer_fusion``, else the last hidden state."""
+    ``use_layer_fusion``, else the last hidden state.
+
+    Inside an open span-registry track that declares them (the ``serve``
+    track, :data:`koemorph_tpu_torch.runtime.streaming.STAGES`) the
+    forward stamps the ends of ``e2v_front`` (conv ladder, feature
+    projection, positional convolution) and ``e2v_layers`` (the layers
+    and the final LayerNorm); elsewhere the marks do nothing."""
 
     def __init__(self, cfg: Wav2Vec2Config = Wav2Vec2Config(),
                  use_layer_fusion: bool = True):
@@ -228,6 +236,7 @@ class Wav2Vec2Encoder(nn.Module):
             x = self.feature_projection(self.feature_extractor(audio))
             enc = self.encoder
             x = x + enc.pos_conv_embed(x)
+        spans.mark("e2v_front")
         hidden = [x]
         for i, layer in enumerate(enc.layers):
             x = layer(x)
@@ -235,6 +244,7 @@ class Wav2Vec2Encoder(nn.Module):
                 hidden.append(x)
         x = enc.layer_norm(x)
         hidden.append(x)
+        spans.mark("e2v_layers")
         if not self.use_layer_fusion:
             return x
         w = torch.softmax(self.layer_fusion_weights, 0)

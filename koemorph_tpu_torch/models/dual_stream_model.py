@@ -139,8 +139,12 @@ class StreamingDualStreamModel(nn.Module):
 
     def encode_emotion(self, audio: torch.Tensor) -> torch.Tensor:
         """The ``emotion2vec`` backend's raw emotion vector: the time mean
-        of the encoder's fused features, ``(B, L) -> (B, hidden)``."""
-        return self.emotion2vec(audio).mean(-2)
+        of the encoder's fused features, ``(B, L) -> (B, hidden)``; in the
+        ``serve`` track it stamps the end of ``e2v_pool`` (the encoder's
+        layer fusion and this mean)."""
+        feats = self.emotion2vec(audio).mean(-2)
+        spans.mark("e2v_pool")
+        return feats
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> None:

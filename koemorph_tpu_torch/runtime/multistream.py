@@ -34,10 +34,13 @@ In the span registry (:mod:`koemorph_tpu_torch.utils.spans`) a step is the
 host span ``koemorph.serve.step`` with children ``.h2d`` (the hops copied
 in), ``.launch`` and ``.out``, and one step of the ``serve`` track on the
 device: ``ingest`` (int16 to float), ``ring``, ``mel``, one ``refresh``
-per due cohort and ``model`` (:func:`~koemorph_tpu_torch.runtime.
-streaming.stream_step_`). It counts ``koemorph.serve.steps``,
-``koemorph.serve.refreshed_lanes`` and ``koemorph.serve.lld_rows`` (rows
-rolled into the LLD rings).
+per due cohort (the ``emotion2vec`` backend's preceded by its encoder's
+``e2v_front``, ``e2v_layers`` and ``e2v_pool``) and ``model``
+(:func:`~koemorph_tpu_torch.runtime.streaming.stream_step_`). It counts
+``koemorph.serve.steps``, ``koemorph.serve.refreshed_lanes``,
+``koemorph.serve.lld_rows`` (rows rolled into the LLD rings) and, with
+the ``emotion2vec`` backend, ``koemorph.serve.encoder_frames`` (lanes x
+encoder frames of the refreshes).
 
 With ``mesh`` (:func:`~koemorph_tpu_torch.parallel.make_mesh`, one process
 driving every entry) the lanes split into one contiguous block of ``S/D``
@@ -144,6 +147,10 @@ class MultiStreamInference:
                 init_stream_state(cfg, self.device, n_sessions))
         #: LLD rows one refreshing lane rolls into its ring
         self._lld_rows = cfg.lld_block_rows if cfg.use_lld_ring else 0
+        #: encoder frames of one refreshing lane (the emotion2vec backend)
+        self._encoder_frames = (
+            cfg.emotion2vec_config.frames(cfg.emotion_context_samples)
+            if cfg.emotion_backend == "emotion2vec" else 0)
         #: the static input buffer of each input dtype in use
         self._inputs: dict[torch.dtype, torch.Tensor] = {}
 
@@ -294,6 +301,9 @@ class MultiStreamInference:
             lanes = len(due) * (self.n_sessions // self.refresh_cohorts)
             spans.count("koemorph.serve.refreshed_lanes", lanes)
             spans.count("koemorph.serve.lld_rows", lanes * self._lld_rows)
+            if self._encoder_frames:
+                spans.count("koemorph.serve.encoder_frames",
+                            lanes * self._encoder_frames)
         return out
 
     def _capture(self, key, warm: bool = True) -> None:

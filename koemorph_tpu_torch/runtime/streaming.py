@@ -393,8 +393,14 @@ def stream_frame(model: StreamingDualStreamModel, state: StreamState,
 #: the stages of a step in the span registry's ``serve`` track: int16 to
 #: float (the server's), the audio ring's shift, the mel row with the
 #: dB rows' shift and normalisation, the due cohorts' refresh, and the
-#: model with the EMA carry (the track's end)
-STAGES = ("ingest", "ring", "mel", "refresh", "model")
+#: model with the EMA carry (the track's end). The ``emotion2vec``
+#: refresh splits a cohort's refresh further: its encoder stamps
+#: ``e2v_front`` (conv ladder, feature projection, positional
+#: convolution), ``e2v_layers`` (the transformer layers and the final
+#: LayerNorm) and ``e2v_pool`` (the layer fusion and the time mean), and
+#: ``refresh`` then ends the write-back alone
+STAGES = ("ingest", "ring", "mel", "e2v_front", "e2v_layers", "e2v_pool",
+          "refresh", "model")
 
 
 def stream_step_(model: StreamingDualStreamModel, state: StreamState,
