@@ -417,10 +417,15 @@ def device_kernels(fn, prof=None):
 
 #: the profiler's kernel names of each hand-written kernel's source
 KERNEL_PATTERNS = {"cycle_dsum": "cycle_dsum_kernel",
-                   "dk_roots": "dk_roots_kernel", "logmel": "logmel_"}
+                   "dk_roots": "dk_roots_kernel", "logmel": "logmel_",
+                   "linear_3xtf32": "linear_3xtf32_kernel"}
 #: the kernels one launch of each wrapper runs (the logmel wrapper: its
 #: power or product pass and its mel or reduction pass)
-KERNELS_PER_LAUNCH = {"cycle_dsum": 1, "dk_roots": 1, "logmel": 2}
+KERNELS_PER_LAUNCH = {"cycle_dsum": 1, "dk_roots": 1, "logmel": 2,
+                      "linear_3xtf32": 1}
+#: K1-K3, which every flagship (eGeMAPS) path launches; K4
+#: (``linear_3xtf32``) runs only in the wav2vec2 encoder
+FLAGSHIP_KERNELS = ("cycle_dsum", "dk_roots", "logmel")
 
 
 def own_kernels(ks, per: float = 1.0) -> dict:
@@ -641,14 +646,18 @@ def plain_forms():
     from koemorph_tpu_torch.ops import egemaps as eg
     from koemorph_tpu_torch.ops import f0 as f0_ops
     from koemorph_tpu_torch.ops import frontend
-    saved = (f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel)
+    from koemorph_tpu_torch.ops import linear as lin
+    saved = (f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel,
+             lin.linear)
     f0_ops.cycle_dsum = f0_ops.cycle_dsum_plain
     eg.poly_roots = eg.poly_roots_plain
     frontend.frames_to_logmel = frontend.frames_to_logmel_plain
+    lin.linear = lin.linear_plain
     try:
         yield
     finally:
-        f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel = saved
+        (f0_ops.cycle_dsum, eg.poly_roots, frontend.frames_to_logmel,
+         lin.linear) = saved
 
 
 @contextlib.contextmanager
@@ -979,6 +988,16 @@ def refresh_launches(cfg) -> tuple[int, int]:
     return (2 if cfg.egemaps_per_period else 0), 1
 
 
+def linear_launches(cfg) -> int:
+    """``linear_3xtf32`` launches per refresh of a stream or server with
+    ``cfg``: the ``emotion2vec`` encoder's feature projection, and per
+    layer its grouped q, k, v, its out projection and its feed-forward's
+    two; the other backends none."""
+    if cfg.emotion_backend != "emotion2vec":
+        return 0
+    return 1 + 4 * cfg.emotion2vec_config.num_hidden_layers
+
+
 def drive_stream(out: dict, card: str, tag: str, model, cfg,
                  plain: bool = True):
     """The stream of ``model`` over ``SERVE_STEPS`` frames of voiced audio:
@@ -1023,7 +1042,8 @@ def drive_stream(out: dict, card: str, tag: str, model, cfg,
                         n_frames, lambda i: i % k == 0)
     k1, k2 = refresh_launches(cfg)
     expect = {"cycle_dsum": k1 * n_ref, "dk_roots": k2 * n_ref,
-              "logmel": n_frames}
+              "logmel": n_frames,
+              "linear_3xtf32": linear_launches(cfg) * n_ref}
     emit({"phase": tag, "card": card, "frames": n_frames,
           "refreshes": n_ref, "emotion_backend": cfg.emotion_backend,
           "incremental_lld": cfg.incremental_lld,
@@ -1149,7 +1169,8 @@ def drive_server(out: dict, card: str, tag: str, model, cfg, sessions: int,
                          for p in srv.phases)
         k1, k2 = refresh_launches(cfg)
         expect = {"cycle_dsum": k1 * refreshing, "dk_roots": k2 * refreshing,
-                  "logmel": SERVE_STEPS}
+                  "logmel": SERVE_STEPS,
+                  "linear_3xtf32": linear_launches(cfg) * refreshing}
         emit({"phase": tag, "card": card, "sessions": sessions,
               "refresh_cohorts": g, "phases": list(srv.phases),
               "steps": SERVE_STEPS,
@@ -1282,15 +1303,24 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     ctx = eng_e.state.audio_ring[-cfg_e.emotion_context_samples:][None]
     enc64 = copy.deepcopy(model_e.emotion2vec).double()
     with torch.inference_mode():
+        k4_before = ck.launches()["linear_3xtf32"]
         v32 = model_e.encode_emotion(ctx).double()
+        k4 = ck.launches()["linear_3xtf32"] - k4_before
+        with plain_forms():
+            v32_plain = model_e.encode_emotion(ctx).double()
         v64 = enc64(ctx.double()).mean(-2)
     rel = float((v32 - v64).abs().max() / v64.abs().max())
+    rel_plain = float((v32_plain - v64).abs().max() / v64.abs().max())
     emit({"phase": "stream_e2v_float64", "card": card,
           "context_samples": int(ctx.shape[-1]),
           "encoder_frames": cfg_e.emotion2vec_config.frames(ctx.shape[-1]),
           "global_cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-          "max_abs_diff_over_max": rel, "bound": 1e-5})
+          "linear_3xtf32_launches": k4,
+          "max_abs_diff_over_max": rel,
+          "max_abs_diff_over_max_plain": rel_plain, "bound": 1e-5})
     check(rel <= 1e-5, f"encoder vs float64: {rel} of the largest element")
+    check(k4 == linear_launches(cfg_e),
+          f"the encoder launched linear_3xtf32 {k4} times")
     del enc64, eng_e
 
     # ---- stream_e2v_large: the 24-layer config through the HF loader ----
@@ -1330,11 +1360,28 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     del big_sd
     eng_l, _ = drive_stream(out, card, "stream_e2v_large", model_l, cfg_l,
                             plain=False)
+    # the 24-layer encoder's vector, K4 and the plain form, against float64
+    ctx = eng_l.state.audio_ring[-cfg_l.emotion_context_samples:][None]
+    enc64 = copy.deepcopy(model_l.emotion2vec).double()
+    with torch.inference_mode():
+        v32 = model_l.encode_emotion(ctx).double()
+        with plain_forms():
+            v32_plain = model_l.encode_emotion(ctx).double()
+        v64 = enc64(ctx.double()).mean(-2)
+    rel_l = float((v32 - v64).abs().max() / v64.abs().max())
+    rel_l_plain = float((v32_plain - v64).abs().max() / v64.abs().max())
+    del enc64
     emit({"phase": "stream_e2v_large_load", "card": card,
           "layers": big_cfg.num_hidden_layers,
           "encoder_params": sum(p.numel()
                                 for p in model_l.emotion2vec.parameters()),
-          "write_and_load_s": load_s})
+          "write_and_load_s": load_s,
+          "float64_max_abs_diff_over_max": rel_l,
+          "float64_max_abs_diff_over_max_plain": rel_l_plain})
+    # K4 within twice the plain form's own distance from float64 (the
+    # logmel rule): 24 random layers put the plain form itself at ~8e-6
+    check(rel_l <= max(1e-5, 2.0 * rel_l_plain),
+          f"the 24-layer encoder vs float64: {rel_l} (plain {rel_l_plain})")
     del eng_l, model_l
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
@@ -1393,7 +1440,9 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     check(o.shape == (DECODE_B, n_out, 52) and bool(np.isfinite(o).all()),
           "decode_e2v output")
     check(np.array_equal(o, eager_o), "decode_e2v: graphed != eager")
-    check(seen == want == {"cycle_dsum": 0, "dk_roots": 0, "logmel": 2},
+    k4 = 1 + 4 * dec_model.emotion2vec.cfg.num_hidden_layers
+    check(seen == want == {"cycle_dsum": 0, "dk_roots": 0, "logmel": 2,
+                           "linear_3xtf32": k4},
           f"decode_e2v: replays {seen}, recorded {want}")
     check(float(np.abs(plain_o - o).max()) <= DECODE_PLAIN_MAX,
           "decode_e2v: kernels != plain")
@@ -1543,7 +1592,7 @@ def slice8_phases(card: str, work: Path, env: dict, synth: Path) -> dict:
     check(len(step_ms) == TRAIN_E2V_STEPS and all(np.isfinite(losses)),
           f"train_e2v: {len(step_ms)} steps, losses {losses}")
     check(launches == {"cycle_dsum": 0, "dk_roots": 0,
-                       "logmel": 2 * TRAIN_E2V_STEPS},
+                       "logmel": 2 * TRAIN_E2V_STEPS, "linear_3xtf32": 0},
           f"train_e2v launches {launches}")
     check(all(k in moved for k in names if k.startswith("emotion2vec.")
               and not k.endswith("k_proj.bias")),
@@ -1899,7 +1948,8 @@ def slice9_phases(card: str) -> dict:
     check(o_fl.shape == (DECODE_B, n_out, 52)
           and bool(np.isfinite(o_fl).all()), "decode_frame_level output")
     check(np.array_equal(o_fl, eager_o), "decode_frame_level: graphed != eager")
-    check(seen == want == {"cycle_dsum": 0, "dk_roots": 1, "logmel": 2},
+    check(seen == want == {"cycle_dsum": 0, "dk_roots": 1, "logmel": 2,
+                           "linear_3xtf32": 0},
           f"decode_frame_level: replays {seen}, recorded {want}")
     check(fl_launches.get("cycle_dsum", 0) == 0,
           "decode_frame_level: cycle_dsum was launched")
@@ -2094,7 +2144,8 @@ def slice9_phases(card: str) -> dict:
           and np.array_equal(mask, eager_mask), "decode_scheduled shape")
     check(torch.equal(sched, eager_sched) and torch.equal(box[0], sched),
           "decode_scheduled: graphed != eager")
-    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2},
+    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2,
+                           "linear_3xtf32": 0},
           f"decode_scheduled: replays {seen}, recorded {want}")
     check(torch.equal(seq, eager_seq),
           "decode_sequence_parallel: graphed != eager")
@@ -2338,7 +2389,7 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
     check(all(moved[k] for k in names if not zero_grad[k]),
           f"trained parameters did not move: {moved}")
     check(launches == {"cycle_dsum": 2 * n_steps, "dk_roots": n_steps,
-                       "logmel": 2 * n_steps},
+                       "logmel": 2 * n_steps, "linear_3xtf32": 0},
           f"train launches {launches} for {n_steps} steps")
     for key in (("logmel", (t_global,)), ("logmel", (t_edges,)),
                 ("cycle_dsum", (lld_rows, 8, 17, 512)),
@@ -2346,7 +2397,8 @@ def train_phases(card: str, work: Path, env: dict) -> dict:
                 ("dk_roots", (lld_rows,))):
         check(shapes.get(key, 0) == n_steps,
               f"train: {key} launched {shapes.get(key, 0)} times")
-    check(own == {"cycle_dsum": 2.0, "dk_roots": 1.0, "logmel": 2.0},
+    check(own == {"cycle_dsum": 2.0, "dk_roots": 1.0, "logmel": 2.0,
+                  "linear_3xtf32": 0.0},
           f"profiled kernels per step: {own}")
 
     # ---- train_plain: one batch, the same parameters, dropout 0 ----
@@ -2706,7 +2758,8 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
     graphed_ms = event_ms(step, wins)
     eager_ms = event_ms(eager, wins)
     d_plain = float(np.abs(plain_bs - bs).max())
-    expect = {"cycle_dsum": 0, "dk_roots": 0, "logmel": RT_FRAMES}
+    expect = {"cycle_dsum": 0, "dk_roots": 0, "logmel": RT_FRAMES,
+              "linear_3xtf32": 0}
     emit({"phase": "rt_simplified", "card": card, "frames": stats["frames"],
           "window_samples": SR, "logmel_T": t_rt,
           "run_stream": stats, "finite": bool(np.isfinite(bs).all()),
@@ -3005,10 +3058,12 @@ def slice10_phases(card: str, work: Path, env: dict) -> dict:
     check(len(step_ms) == n_steps and all(np.isfinite(losses)),
           f"legacy fit: {len(step_ms)} steps, losses {losses}")
     check(not moved, f"legacy parameters did not move: {moved}")
-    check(launches == {"cycle_dsum": 0, "dk_roots": 0, "logmel": n_steps}
+    check(launches == {"cycle_dsum": 0, "dk_roots": 0, "logmel": n_steps,
+                       "linear_3xtf32": 0}
           and shapes.get(("logmel", (t_train,)), 0) == n_steps,
           f"legacy train launches {shapes} for {n_steps} steps")
-    check(own == {"cycle_dsum": 0.0, "dk_roots": 0.0, "logmel": 1.0},
+    check(own == {"cycle_dsum": 0.0, "dk_roots": 0.0, "logmel": 1.0,
+                  "linear_3xtf32": 0.0},
           f"legacy train: profiled kernels per step {own}")
     check(abs(loss_k - loss_p) <= TRAIN_PLAIN_LOSS_RTOL * abs(loss_p),
           f"legacy loss: kernels {loss_k}, plain {loss_p}")
@@ -3403,7 +3458,7 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
         check(d_infer is not None and d_infer <= IMPORT_ATOL,
               f"infer on the imported {tag} checkpoint vs in process: "
               f"{d_infer}")
-        check(all(launches[k] > 0 for k in KERNEL_PATTERNS),
+        check(all(launches[k] > 0 for k in FLAGSHIP_KERNELS),
               f"infer, rt and test_model on the imported {tag} checkpoint "
               f"launched {launches}")
         check(len(rt_bs) == 30 and imp[tag]["rt_finite_in_range"],
@@ -3449,7 +3504,7 @@ def slice11_phases(card: str, work: Path, s10: dict) -> dict:
           and np.isfinite(rep["mae"]) and len(val_losses) == 4
           and val_losses[-1] < val_losses[0],
           f"reproduce_results --smoke: {rep}")
-    check(all(rep_launches[k] > 0 for k in KERNEL_PATTERNS),
+    check(all(rep_launches[k] > 0 for k in FLAGSHIP_KERNELS),
           f"reproduce_results --smoke launched {rep_launches}")
 
     # every launch shape of the import, demo and rehearsal paths, on the
@@ -3759,7 +3814,8 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
     concat = gex.get_concatenated_features()
     rows = 1 + (int(20.0 * SR) - 512) // 160
     n_win = 2 * len(gex.window_intervals)
-    want = {"cycle_dsum": 2 * n_win, "dk_roots": n_win, "logmel": 0}
+    want = {"cycle_dsum": 2 * n_win, "dk_roots": n_win, "logmel": 0,
+            "linear_3xtf32": 0}
     want_shapes = {("cycle_dsum", (rows, 8, 17, 512)): n_win,
                    ("cycle_dsum", (rows, 5, 33, 1024)): n_win,
                    ("dk_roots", (rows,)): n_win}
@@ -3916,7 +3972,8 @@ def slice12_phases(card: str, work: Path, env: dict, checkpoint: Path,
     d_plain = float(np.abs(got - plain).max())
     out["shapes"]["export"] = {(k, tuple(v)): n
                                for k, v, n in ran["launches_by_shape"]}
-    per_frame = {"cycle_dsum": 2, "dk_roots": 1, "logmel": 1}
+    per_frame = {"cycle_dsum": 2, "dk_roots": 1, "logmel": 1,
+                 "linear_3xtf32": 0}
     prof_want = {k: v * EXPORT_PROFILED * KERNELS_PER_LAUNCH[k]
                  for k, v in per_frame.items()}
     emit({"phase": "export", "card": card, "report": report,
@@ -4316,7 +4373,7 @@ def slice13_phases(card: str, work: Path, synth: Path, rehearsal=None,
     seq = graphed_vs_eager(out, card, "train_graph", make_s, batches,
                            GRAPH_STEPS, snapshot_at=4)
     check(seq["launches_per_replay"] == {"cycle_dsum": 2, "dk_roots": 1,
-                                         "logmel": 2},
+                                         "logmel": 2, "linear_3xtf32": 0},
           f"a flagship replay's launches: {seq['launches_per_replay']}")
     graphed_median = seq["graphed_step_ms"]["median_ms"]
     trainer = seq.pop("trainer")
@@ -4370,7 +4427,7 @@ def slice13_phases(card: str, work: Path, synth: Path, rehearsal=None,
     leg = graphed_vs_eager(out, card, "legacy_graph", make_l, l_batches,
                            GRAPH_STEPS_SHORT)
     check(leg["launches_per_replay"] == {"cycle_dsum": 0, "dk_roots": 0,
-                                         "logmel": 1},
+                                         "logmel": 1, "linear_3xtf32": 0},
           f"a legacy replay's launches: {leg['launches_per_replay']}")
     del leg["trainer"]
 
@@ -4379,7 +4436,8 @@ def slice13_phases(card: str, work: Path, synth: Path, rehearsal=None,
     e2v = graphed_vs_eager(out, card, "e2v_graph", make_e, batches[:2],
                            GRAPH_STEPS_SHORT)
     check(e2v["launches_per_replay"]["logmel"] == 2
-          and e2v["launches_per_replay"]["cycle_dsum"] == 0,
+          and e2v["launches_per_replay"]["cycle_dsum"] == 0
+          and e2v["launches_per_replay"]["linear_3xtf32"] == 0,
           f"an emotion2vec replay's launches: {e2v['launches_per_replay']}")
     del e2v["trainer"]
     torch.cuda.empty_cache()
@@ -4635,11 +4693,12 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
     check(d_srv <= MESH_MAX, f"mesh server vs one engine: {d_srv}")
     check(np.array_equal(got, eager_o), "graphed mesh server != eager")
     check(set(shapes) == want_shapes and all(
-        launches.get(n, 0) > 0 for n in KERNEL_PATTERNS),
+        launches.get(n, 0) > 0 for n in FLAGSHIP_KERNELS),
           f"mesh server launched {shapes}, expected {want_shapes}")
     check(seen == replayed == {"cycle_dsum": 4 * refreshing,
                                "dk_roots": 2 * refreshing,
-                               "logmel": 2 * SERVE_STEPS},
+                               "logmel": 2 * SERVE_STEPS,
+                               "linear_3xtf32": 0},
           f"mesh server replays ran {seen}, recorded {replayed}")
     del one, srv, eager
 
@@ -4719,7 +4778,7 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
     check(np.array_equal(m_out, e_out) and np.array_equal(m_seq, e_seq),
           "graphed mesh decode != eager")
     check(all(dec_launches.get(n, 0) > 0 and seq_launches.get(n, 0) > 0
-              for n in KERNEL_PATTERNS),
+              for n in FLAGSHIP_KERNELS),
           f"mesh decode launches {dec_launches}, {seq_launches}")
     del mdec, edec
 
@@ -4802,7 +4861,7 @@ def slice14_phases(card: str, work: Path, env: dict, decoder, dec_out,
           "at the replays")
     check(not diff and not twin_diff and loss[0] == loss[1] == loss[2],
           f"NCCL world-1 step != single process: {diff} {twin_diff}")
-    check(all(dp_launches.get(n, 0) > 0 for n in KERNEL_PATTERNS),
+    check(all(dp_launches.get(n, 0) > 0 for n in FLAGSHIP_KERNELS),
           f"dp launches {dp_launches}")
     del single, dp, twin
 
@@ -5739,7 +5798,8 @@ def main() -> int:  # noqa: C901
         check(rec == refresh_record(1, 30, key[0]),
               f"the stream's graph {key} recorded {rec}")
     check(seen == want == {"cycle_dsum": 2 * n_refresh,
-                           "dk_roots": n_refresh, "logmel": n_frames},
+                           "dk_roots": n_refresh, "logmel": n_frames,
+                           "linear_3xtf32": 0},
           f"the stream's replays ran {seen}, their captures recorded "
           f"{want}, for {n_frames} frames and {n_refresh} refreshes")
 
@@ -5794,7 +5854,8 @@ def main() -> int:  # noqa: C901
           "replayed_launches_recorded": want,
           "graphs": graph_info(decoder.step_graphs)})
     check(len(decoder.step_graphs) == 1, "the decode was not one graph")
-    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2},
+    check(seen == want == {"cycle_dsum": 2, "dk_roots": 1, "logmel": 2,
+                           "linear_3xtf32": 0},
           f"the decode's replay ran {seen}, its capture recorded {want}")
     eager_decoder = BatchedSequentialDecoder(decoder.model, graphs=False)
     with recording_kernels(path_rec, "decode"):
@@ -6015,11 +6076,11 @@ def main() -> int:  # noqa: C901
                   f"G={g}: the graph {key} recorded {rec}")
         check(seen == want == {"cycle_dsum": 2 * refreshing,
                                "dk_roots": refreshing,
-                               "logmel": SERVE_STEPS},
+                               "logmel": SERVE_STEPS, "linear_3xtf32": 0},
               f"G={g}: the replays ran {seen}, their captures recorded "
               f"{want}, for {SERVE_STEPS} steps and {refreshing} "
               f"refreshing cohort-steps of {rows} rows")
-        check(all(launches[k] > 0 for k in KERNEL_PATTERNS),
+        check(all(launches[k] > 0 for k in FLAGSHIP_KERNELS),
               f"G={g}: a kernel was not launched: {launches}")
         check(np.array_equal(o, eager_g), f"G={g}: graphed server != eager")
         del srv, ref_srv, out_g
@@ -6223,8 +6284,8 @@ def main() -> int:  # noqa: C901
     check(g1["refresh_steps"]["p99_ms"] < BUDGET_MS,
           f"graphed G=1 refreshing step p99 {g1['refresh_steps']} over "
           f"the {BUDGET_MS} ms budget")
-    check(all(v > 0 for v in
-              g1["profile"]["refresh"]["own_kernels_per_step"].values()),
+    check(all(g1["profile"]["refresh"]["own_kernels_per_step"][k] > 0
+              for k in FLAGSHIP_KERNELS),
           "a kernel is missing from the graphed refreshing step's replay: "
           f"{g1['profile']['refresh']['own_kernels_per_step']}")
     busy_g = g1["profile"]["other"]["device_busy_ms_per_step"]
@@ -6481,7 +6542,7 @@ def main() -> int:  # noqa: C901
           f"graphed refresh frame p99 {frame_q['graphed']['refresh']} over "
           f"the {BUDGET_MS} ms budget")
     own = stream_prof[("graphed", "refresh")]["own_kernels_per_frame"]
-    check(all(v > 0 for v in own.values()),
+    check(all(own[k] > 0 for k in FLAGSHIP_KERNELS),
           f"a kernel is missing from the graphed refresh frame: {own}")
 
     # the decode: device time per call (CUDA events), host wall time per
@@ -6517,7 +6578,7 @@ def main() -> int:  # noqa: C901
             "top_kernels_us_per_call": profile_summary(ks, 1, top_n=10)}
     dec_med = dec_rows["eager"]["device_ms_per_call_median"]
     own = dec_rows["graphed"]["own_kernels_per_call"]
-    check(all(v > 0 for v in own.values()),
+    check(all(own[k] > 0 for k in FLAGSHIP_KERNELS),
           f"a kernel is missing from the graphed decode: {own}")
 
     # stage split of one decode: each stage alone, CUDA events, median of 3

@@ -15,6 +15,13 @@ weight norm (:func:`load_hf_checkpoint`); the fusion logits are
 ``layer_fusion_weights``. The positional convolution keeps a plain
 weight.
 
+Every linear projection (the feature projection, the attention's q, k,
+v and out, the feed-forward's two) goes through
+:func:`koemorph_tpu_torch.ops.linear.linear`: on the card, where autograd
+does not record the call, the 3xTF32 tensor-core kernel (q, k and v as
+one grouped launch, the intermediate GELU in its epilogue); on the CPU,
+and under autograd, ``F.linear`` as before.
+
 On the card the convolutions run inside ``torch.backends.cudnn.flags``
 with TF32 off (the rest of the port runs every product in full fp32), no
 autotuning (a search inside a CUDA graph capture would allocate and sync)
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from koemorph_tpu_torch.ops import linear as lin
 from koemorph_tpu_torch.utils import spans
 
 __all__ = ["Wav2Vec2Config", "Wav2Vec2Encoder", "load_hf_checkpoint",
@@ -123,7 +131,7 @@ class _FeatureProjection(nn.Module):
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        return lin.linear(self.layer_norm(x), self.projection)[0]
 
 
 class _PositionalConvEmbedding(nn.Module):
@@ -160,10 +168,12 @@ class _Attention(nn.Module):
         def split(y):                           # (B, T, D) -> (B, H, T, hd)
             return y.reshape(b, t, self.heads, hd).transpose(1, 2)
 
-        q = split(self.q_proj(x) * (hd ** -0.5))
-        scores = torch.matmul(q, split(self.k_proj(x)).transpose(-1, -2))
-        ctx = torch.matmul(torch.softmax(scores, -1), split(self.v_proj(x)))
-        return self.out_proj(ctx.transpose(1, 2).reshape(b, t, d))
+        q, k, v = lin.linear(x, self.q_proj, self.k_proj, self.v_proj)
+        q = split(q * (hd ** -0.5))
+        scores = torch.matmul(q, split(k).transpose(-1, -2))
+        ctx = torch.matmul(torch.softmax(scores, -1), split(v))
+        return lin.linear(ctx.transpose(1, 2).reshape(b, t, d),
+                          self.out_proj)[0]
 
 
 class _FeedForward(nn.Module):
@@ -175,7 +185,8 @@ class _FeedForward(nn.Module):
                                       cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        h = lin.linear(x, self.intermediate_dense, gelu=True)[0]
+        return lin.linear(h, self.output_dense)[0]
 
 
 class _EncoderLayer(nn.Module):

@@ -17,7 +17,9 @@ launch and nowhere else. :func:`stamp` (``stamp.cu``), the registry's
 stage stamp, is no kernel of the paths: it counts nowhere, and no
 capture's record holds it. The callers in :mod:`..f0`,
 :mod:`..egemaps` and :mod:`..frontend` route CUDA tensors here and CPU tensors to the plain
-PyTorch form; there is no fallback from one to the other.
+PyTorch form, and :mod:`..linear` routes the wav2vec2 encoder's projections
+here where autograd does not record them; there is no fallback from one to
+the other.
 
 Under a CUDA graph the counts are those of the capture: a wrapper runs in
 Python, and counts, when its launch is recorded into a graph (and when a
@@ -51,7 +53,7 @@ from koemorph_tpu_torch.utils import spans
 __all__ = ["SOURCES", "KERNELS", "SHAPE_LAUNCHES", "KernelError", "build",
            "build_dir", "launches", "reset_launch_counts", "capturing",
            "FrameLayout", "frame_layout", "cycle_dsum", "dk_roots", "logmel",
-           "stamp"]
+           "LINEAR_TILES", "linear_3xtf32", "linear_tile", "stamp"]
 
 _HERE = Path(__file__).resolve().parent
 
@@ -60,10 +62,11 @@ SOURCES: dict[str, tuple[str, tuple[str, ...]]] = {
     "cycle_dsum": ("cycle_dsum.cu", ()),
     "dk_roots": ("dk_roots.cu", ()),
     "logmel": ("logmel.cu", ()),
+    "linear_3xtf32": ("linear_3xtf32.cu", ()),
     "stamp": ("stamp.cu", ()),
 }
 #: the paths' kernels, whose launches are counted
-KERNELS = ("cycle_dsum", "dk_roots", "logmel")
+KERNELS = ("cycle_dsum", "dk_roots", "logmel", "linear_3xtf32")
 _COMMON_FLAGS = ("-O3", "-std=c++17", "-gencode",
                  "arch=compute_90a,code=sm_90a", "-shared",
                  "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -170,6 +173,7 @@ _ENTRIES = {
     "cycle_dsum": {"km_cycle_dsum": (5, 7)},
     "dk_roots": {"km_dk_roots": (3, 3)},
     "logmel": {"km_logmel_batch": (5, 7), "km_logmel_rows": (7, 7)},
+    "linear_3xtf32": {"km_linear_3xtf32": (10, 5), "km_linear_tile": (0, 4)},
     "stamp": {"km_stamp": (2, 5)},
 }
 
@@ -400,6 +404,88 @@ def logmel(frames: torch.Tensor, *, sample_rate: int = 16000,
                 n_mels, *geometry, stream)
     _launched("logmel", (t,), err)
     return out
+
+
+#: the row tiles ``linear_3xtf32.cu`` is compiled for
+LINEAR_TILES = (72, 96, 128, 144)
+
+
+def linear_3xtf32(x: torch.Tensor, weights, biases, *, gelu: bool = False
+                  ) -> list[torch.Tensor]:
+    """Kernel form of ``F.linear`` (and ``F.gelu(F.linear(...))`` with
+    ``gelu``) over one to three ``(N, K)`` weights and ``(N,)`` biases
+    (``None`` for none) sharing the input ``x`` ``(..., K)``: a list of
+    ``(..., N)`` float32 outputs, products in 3xTF32 on the tensor cores.
+    Every tensor must be a contiguous, 16-byte aligned float32 tensor on
+    one CUDA device, with ``N`` and ``K`` multiples of 4; anything else
+    raises ``ValueError`` before the device is checked, and nothing is
+    copied. The kernel picks its row tile for the shape
+    (:func:`linear_tile`)."""
+    weights, biases = list(weights), list(biases)
+    if not 1 <= len(weights) <= 3 or len(biases) != len(weights):
+        raise ValueError(f"linear_3xtf32: need 1 to 3 weights with a bias "
+                         f"(or None) each, got {len(weights)} and "
+                         f"{len(biases)}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"linear_3xtf32: x must be contiguous, got shape "
+                         f"{tuple(x.shape)} with strides {x.stride()}")
+    k = x.shape[-1]
+    n = weights[0].shape[0]
+    for w, b in zip(weights, biases):
+        if (w.dim() != 2 or tuple(w.shape) != (n, k)
+                or not w.is_contiguous()):
+            raise ValueError(f"linear_3xtf32: weights must be contiguous "
+                             f"({n}, {k}), got {tuple(w.shape)} with "
+                             f"strides {w.stride()}")
+        if b is not None and (tuple(b.shape) != (n,)
+                              or not b.is_contiguous()):
+            raise ValueError(f"linear_3xtf32: a bias must be contiguous "
+                             f"({n},), got {tuple(b.shape)}")
+    if k % 4 or n % 4 or k == 0 or n == 0:
+        raise ValueError(f"linear_3xtf32: K and N must be positive "
+                         f"multiples of 4, got K={k}, N={n}")
+    tensors = [x, *weights, *(b for b in biases if b is not None)]
+    for t in tensors:
+        if t.dtype != torch.float32 or t.data_ptr() % 16:
+            raise ValueError(f"linear_3xtf32: need 16-byte aligned float32 "
+                             f"tensors, got {t.dtype} at {t.data_ptr():#x}")
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        devices = sorted({str(t.device) for t in tensors})
+        raise ValueError(f"linear_3xtf32 kernel needs CUDA tensors on one "
+                         f"device, got {devices}")
+    m = x.numel() // k
+    outs = [torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
+                        device=dev) for _ in weights]
+    if m == 0:
+        return outs
+    if m >= 2 ** 31:
+        raise ValueError(f"linear_3xtf32: {m} rows exceed the kernel's "
+                         "32-bit row count")
+    triples = [(w.data_ptr(), None if b is None else b.data_ptr(),
+                y.data_ptr()) for w, b, y in zip(weights, biases, outs)]
+    triples += [(None, None, None)] * (3 - len(triples))
+    fn = _lib("linear_3xtf32").km_linear_3xtf32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), *(p for t in triples for p in t), m, n, k,
+                 len(weights), int(gelu), stream)
+    _launched("linear_3xtf32", (m, n, k, len(weights), bool(gelu)), err)
+    return outs
+
+
+def linear_tile(m: int, n: int, k: int, groups: int = 1,
+                device=None) -> int:
+    """The row tile ``linear_3xtf32`` picks for ``m`` rows against
+    ``groups`` weights of ``(n, k)`` on ``device`` (default the current
+    CUDA device)."""
+    fn = _lib("linear_3xtf32").km_linear_tile
+    with torch.cuda.device(device):
+        got = fn(m, n, k, groups, None)
+    if got < 0:
+        raise KernelError(f"linear_tile({m}, {n}, {k}, {groups}): "
+                          f"cudaError {-got}")
+    return got
 
 
 def stamp(ring: torch.Tensor, counter: torch.Tensor, slot_id: int,

@@ -245,7 +245,8 @@ def test_capture_records_and_replays_count(monkeypatch):
         ck._launched("logmel", (64,), 0)
         ck._launched("cycle_dsum", (30, 8, 17, 512), 0)
         ck._launched("cycle_dsum", (30, 8, 17, 512), 0)
-    assert ck.launches() == {"cycle_dsum": 2, "dk_roots": 0, "logmel": 2}
+    assert ck.launches() == {"cycle_dsum": 2, "dk_roots": 0, "logmel": 2,
+                             "linear_3xtf32": 0}
     assert spans.counters("koemorph.kernels.launches.") == {
         "koemorph.kernels.launches.logmel": 2,
         "koemorph.kernels.launches.cycle_dsum": 2}

@@ -482,10 +482,13 @@ def test_launches_count_through_the_registry(registry):
     ck._launched("logmel", (4,), 0)
     ck._launched("dk_roots", (3,), 0)
     ck._launched("logmel", (4,), 0)
+    ck._launched("linear_3xtf32", (1029, 1024, 1024, 3, False), 0)
     assert spans.counters("koemorph.kernels.launches.") == {
         "koemorph.kernels.launches.logmel": 2,
-        "koemorph.kernels.launches.dk_roots": 1}
-    assert ck.launches() == {"cycle_dsum": 0, "dk_roots": 1, "logmel": 2}
+        "koemorph.kernels.launches.dk_roots": 1,
+        "koemorph.kernels.launches.linear_3xtf32": 1}
+    assert ck.launches() == {"cycle_dsum": 0, "dk_roots": 1, "logmel": 2,
+                             "linear_3xtf32": 1}
     ck.reset_launch_counts()
     assert ck.launches() == dict.fromkeys(ck.KERNELS, 0)
 
